@@ -50,3 +50,9 @@ def _clear_jax_caches_between_modules():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (run on the card with "
+        "`python -m pytest --noconftest -q -m cuda tests/test_torch_flash.py`)")

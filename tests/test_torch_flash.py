@@ -1,0 +1,181 @@
+"""Flash-attention forward of the PyTorch port vs the JAX package.
+
+The port's plain version (what a CPU tensor runs) is held against the
+Pallas kernel in interpret mode and against `_reference_attention`, in f32
+at the tolerance of tests/test_flash_attention.py.  The CUDA kernel is held
+against the plain version in bf16 on a card; that case skips without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from unimoe_audio_torch.ops.flash_attention import (
+    _check,
+    flash_attention,
+    flash_attention_reference,
+)
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference, imported here rather than at the top so that the
+    card-only cases run where JAX is not installed
+    (`pytest --noconftest -m cuda tests/test_torch_flash.py`)."""
+    import jax.numpy as jnp
+    from unimoe_audio_tpu.ops import flash_attention as jfa
+
+    return jnp, jfa
+
+
+def _inputs(B, H, KV, T, S, Dh, pad, seed):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, H, T, Dh)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((B, KV, S, Dh)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((B, KV, S, Dh)).astype(np.float32)
+    valid = np.ones((B, S), np.int32)
+    if pad:
+        valid[0, :pad] = 0          # left padding: sample 0's first rows are dead
+        valid[-1, -3:] = 0          # and a few invalid keys at the end
+    return q, k, v, valid
+
+
+CASES = [
+    # B, H, KV, T, S, causal, pad
+    (1, 4, 2, 128, 128, True, 0),
+    (2, 4, 2, 200, 200, True, 17),
+    (1, 4, 2, 256, 256, False, 0),
+    (2, 4, 2, 128, 128, True, 40),
+    (1, 4, 2, 128, 192, True, 9),     # S > T: rectangular causal mask
+    (2, 4, 4, 200, 256, False, 5),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,causal,pad", CASES)
+def test_plain_matches_jax(jx, B, H, KV, T, S, causal, pad):
+    jnp, jfa = jx
+    q, k, v, valid = _inputs(B, H, KV, T, S, 128, pad, seed=T + S + pad)
+    got = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          torch.tensor(valid), causal=causal).numpy()
+    pallas = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  jnp.asarray(valid), causal=causal, interpret=True))
+    ref = np.asarray(jfa._reference_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.asarray(valid), causal))
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_dead_rows_are_zero_and_stats_match_jax(jx):
+    """Left-padded query rows with no attendable key output exactly 0; the
+    softmax residuals m, l equal the Pallas kernel's (dead rows: m = -1e30,
+    l = 1e30)."""
+    jnp, jfa = jx
+    B, H, KV, T, S = 2, 4, 2, 128, 128
+    q, k, v, valid = _inputs(B, H, KV, T, S, 128, pad=30, seed=3)
+    o, m, l = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                  torch.tensor(valid), causal=True, return_stats=True)
+    assert (o[0, :, :30] == 0).all()
+    assert (o[0, :, 30:].abs().sum(-1) > 0).all()
+    _, jm, jl = jfa._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(valid), True, 512, 512, True)
+    jm = np.asarray(jm)[:, :T, 0]
+    jl = np.asarray(jl)[:, :T, 0]
+    np.testing.assert_allclose(m.numpy(), jm, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(l.numpy(), jl, rtol=RTOL, atol=ATOL)
+    assert (m.reshape(B, H, T)[0, :, :30] == -1e30).all()
+    assert (l.reshape(B, H, T)[0, :, :30] == 1e30).all()
+
+
+def test_cpu_path_counts_no_kernel_launch():
+    before = flash_attention.launches
+    q, k, v, valid = _inputs(1, 4, 2, 128, 128, 64, 0, seed=0)
+    flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(valid))
+    assert flash_attention.launches == before
+
+
+def test_kernel_input_checks_raise():
+    """What the kernel does not take is refused before launch: head_dim
+    outside {64, 128}, dtypes other than bf16, non-contiguous inputs, a
+    malformed mask, H not a multiple of KV."""
+    bf = torch.bfloat16
+
+    def qkv(Dh=128, dtype=bf, H=4, KV=2):
+        return (torch.zeros(1, H, 8, Dh, dtype=dtype), torch.zeros(1, KV, 8, Dh, dtype=dtype),
+                torch.zeros(1, KV, 8, Dh, dtype=dtype))
+
+    valid = torch.ones(1, 8, dtype=torch.int32)
+    assert _check(*qkv(), valid) == (1, 4, 2, 8, 8, 128)
+    bad = [
+        (qkv(Dh=96), valid),
+        (qkv(dtype=torch.float32), valid),
+        ((qkv()[0].transpose(2, 3).contiguous().transpose(2, 3),) + qkv()[1:], valid),
+        (qkv(), valid.long()),
+        (qkv(), torch.ones(1, 9, dtype=torch.int32)),
+        (qkv(H=3, KV=2), valid),
+    ]
+    for args, mask in bad:
+        with pytest.raises(ValueError):
+            _check(*args, mask)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernel has no CPU build")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,pad,Dh", [(128, 128, 0, 128), (192, 192, 37, 128),
+                                        (128, 200, 11, 64), (70, 70, 5, 128)])
+def test_kernel_matches_plain_bf16(cuda, T, S, pad, Dh):
+    """The CUDA kernel vs its plain version in bf16 at prefill-like shapes
+    (the plain version rounds probabilities to bf16 too): atol 2e-2 on
+    unit-scale values; dead rows exactly 0; m, l within 1e-2 relative."""
+    q, k, v, valid = _inputs(4, 16, 2, T, S, Dh, pad, seed=T + pad)
+    args = [torch.tensor(a, device=cuda) for a in (q, k, v)]
+    args = [a.to(torch.bfloat16) for a in args]
+    vt = torch.tensor(valid, device=cuda)
+    before = flash_attention.launches
+    o, m, l = flash_attention(*args, vt, causal=True, return_stats=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ro, rm, rl = flash_attention_reference(*args, vt, True, return_stats=True)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(m, rm, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(l, rl, rtol=1e-2, atol=1e-2)
+    dead = ~((vt[:, None, None, :] > 0)
+             & torch.ones(T, S, dtype=torch.bool, device=cuda).tril(S - T)).any(-1)
+    assert (o.float().abs().sum(-1)[dead.expand(4, 16, T)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_prefill_takes_kernel_or_raises(cuda, dtype):
+    """A causal self-attention of 128 tokens on the card takes the flash
+    kernel, as the reference takes its Pallas kernel there: in bf16 it
+    launches; in f32 the kernel refuses it.  It never falls back to the
+    einsum path."""
+    from unimoe_audio_torch.config import tiny_test_config
+    from unimoe_audio_torch.models import layers as TL
+
+    cfg = tiny_test_config(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2).text_config
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = TL.init_attention_params(gen, cfg, dtype=dtype, device=cuda)
+    B, T = 2, 128
+    x = torch.randn(B, T, cfg.hidden_size, generator=gen, device=cuda).to(dtype)
+    pos = torch.arange(T, device=cuda)[None, None].expand(3, B, T)
+    cos, sin = TL.compute_mrope(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
+    before = flash_attention.launches
+    if dtype == torch.bfloat16:
+        out, _ = TL.attention(params, x, cos, sin, cfg)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert out.shape == (B, T, cfg.hidden_size) and bool(torch.isfinite(out).all())
+    else:
+        with pytest.raises(ValueError, match="bf16"):
+            TL.attention(params, x, cos, sin, cfg)
+        assert flash_attention.launches == before

@@ -1,0 +1,293 @@
+"""Autoregressive codec-frame generation — counterpart of
+`unimoe_audio_tpu/generate/loop.py` (`generate_jit` → `generate`,
+`generate_chunked`, `decode_position_base`, `pad_buffer`).
+
+Prefill, then a Python decode loop over a preallocated KV cache, with CFG
+pairs batched as interleaved rows [neg, cond] × B and the delay-pattern EOS
+countdown as loop state.  The loop's stop test reads the countdown on the
+host, one device sync per step.  The guidance-loss (teacher-forced) branch
+comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import UniMoEAudioConfig
+from ..models.layers import KVCache
+from ..models.model import (
+    calculate_input_embedding,
+    codec_embedding,
+    codec_logits_from_hidden,
+    text_model_forward,
+)
+from .sampler import sample_next_token
+
+
+class GenerateResult(NamedTuple):
+    codes: torch.Tensor     # [B, max_tokens, C] delayed-domain codes from each prefill step
+    lengths: torch.Tensor   # [B] audio frame counts (pre-delay-revert)
+    steps: int              # decode steps executed
+
+
+@dataclass
+class LoopState:
+    dec_step: int
+    buf: torch.Tensor            # [B, buf_len, C] int32
+    cache: KVCache
+    eos_detected: torch.Tensor   # [B] bool
+    eos_countdown: torch.Tensor  # [B] int32
+    finished_step: torch.Tensor  # [B] int32
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _per_sample(x, B: int) -> np.ndarray:
+    return np.broadcast_to(np.asarray(x).reshape(-1), (B,))
+
+
+def generate(
+    params: Dict,
+    cfg: UniMoEAudioConfig,
+    input_ids: torch.Tensor,         # [2B, T_text] CFG-interleaved [neg, cond]
+    attention_mask: torch.Tensor,    # [2B, T_text]
+    codec_input_ids: Optional[torch.Tensor],  # [2B, T_text, C] aligned, or None
+    prefill_buf: torch.Tensor,       # [B, buf_len, C] delayed prefill, -1 = open
+    prefill_steps,                   # [B] host ints
+    gen: torch.Generator,
+    resume_state: Optional[LoopState] = None,
+    stop_at: Optional[int] = None,
+    *,
+    max_tokens: int,
+    min_tokens,                      # host scalar or [B]
+    cfg_scale,
+    temperature,
+    top_p,
+    cfg_filter_top_k: Optional[int],
+    eos_prob_mul_factor,
+    cache_len: Optional[int] = None,
+    return_state: bool = False,
+    do_sample: bool = True,
+    timings: Optional[Dict[str, float]] = None,
+):
+    """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
+    from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
+    `generate_chunked` can grow the cache between chunks.  With a `timings`
+    dict the device is synchronised around the prefill and the decode and
+    their seconds are added to "prefill_s" / "decode_s"."""
+    tc = cfg.text_config
+    dev = input_ids.device
+    B2, T_text = input_ids.shape
+    B = B2 // 2
+    C = cfg.codec_channels
+    Vc = cfg.codec_embed_size
+    eos, pad = cfg.codec_eos_value, cfg.codec_pad_value
+    delay = torch.tensor(cfg.codec_delay_pattern, dtype=torch.int32, device=dev)
+    max_delay = cfg.max_delay
+    T_total = cache_len if cache_len is not None else T_text + max_tokens + 2
+    steps_np = np.asarray(prefill_steps, dtype=np.int64).reshape(-1)
+    prefill_steps_t = torch.as_tensor(steps_np, device=dev)
+
+    min_tokens_t = torch.as_tensor(_per_sample(min_tokens, B).astype(np.int32), device=dev)
+    cfg_scale_t = torch.as_tensor(_per_sample(cfg_scale, B).astype(np.float32), device=dev)
+    eos_mul_t = torch.as_tensor(_per_sample(eos_prob_mul_factor, B).astype(np.float32), device=dev)
+    temp_rows = np.repeat(_per_sample(temperature, B).astype(np.float32), C)
+    top_p_rows = np.repeat(_per_sample(top_p, B).astype(np.float32), C)
+    attention_mask = attention_mask.to(torch.int32)
+
+    start_step = int(steps_np.min()) - 1
+    if resume_state is None:
+        if timings is not None:
+            _sync(dev)
+            t0 = time.perf_counter()
+        inputs_embeds = calculate_input_embedding(
+            params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
+        pos = torch.cumsum(attention_mask, dim=-1) - 1
+        pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+        position_ids = pos[None].expand(3, B2, T_text)
+        cache = KVCache.create(tc.num_hidden_layers, B2, T_total, tc.num_key_value_heads,
+                               tc.head_dim, dtype=inputs_embeds.dtype, device=dev)
+        kv_valid = torch.cat(
+            [attention_mask, torch.zeros(B2, T_total - T_text, dtype=torch.int32, device=dev)],
+            dim=-1)
+        # The prefill writes cache slots [0, T_text), so attending over the
+        # fresh window equals attending over the cache: flash is exact here.
+        prefill_flash = T_text >= 128 and input_ids.is_cuda and not tc.has_sliding_layers
+        text_model_forward(
+            params, inputs_embeds, position_ids, tc,
+            kv_cache=cache, cache_position=0, kv_valid_mask=kv_valid,
+            padding_token_mask=attention_mask,
+            use_flash=True if prefill_flash else None,
+        )
+        state = LoopState(
+            dec_step=start_step,
+            buf=prefill_buf.clone(),
+            cache=cache,
+            eos_detected=torch.zeros(B, dtype=torch.bool, device=dev),
+            eos_countdown=torch.full((B,), -1, dtype=torch.int32, device=dev),
+            finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
+        )
+        if timings is not None:
+            _sync(dev)
+            timings["prefill_s"] = timings.get("prefill_s", 0.0) + time.perf_counter() - t0
+    else:
+        state = resume_state
+        assert state.cache.k.shape[1] == T_total, "resume cache length must match cache_len"
+
+    if timings is not None:
+        _sync(dev)
+        t1 = time.perf_counter()
+    step_pos_base = decode_position_base(attention_mask.sum(dim=-1), T_text)   # [2B]
+    stop_step = max_tokens if stop_at is None else min(stop_at, max_tokens)
+    key_idx = torch.arange(T_total, device=dev)[None, :]
+    text_valid = F.pad(attention_mask, (0, T_total - T_text), value=1)
+    col = torch.arange(Vc, device=dev)[None, None, :]
+    ch = torch.arange(C, device=dev)[None, :, None]
+    eos_slot = (ch == 0) & (col == eos)
+    neg_inf = torch.full((), float("-inf"), device=dev)
+
+    s = state
+    while s.dec_step < stop_step and not bool((s.eos_countdown == 0).all()):
+        dec_step = s.dec_step
+        current_step = dec_step + 1
+        rel = dec_step - start_step
+        cache_pos = T_text + rel
+
+        tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
+        emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
+        position_ids = (step_pos_base + rel)[None, :, None].expand(3, B2, 1)
+        kv_valid = torch.where(key_idx < T_text, text_valid,
+                               (key_idx <= cache_pos).to(torch.int32))
+        out = text_model_forward(
+            params, emb, position_ids, tc,
+            kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
+        )
+        logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]  # [2B, C, Vc]
+
+        # CFG combine over interleaved [neg, cond] rows.
+        pair = logits.reshape(B, 2, C, Vc)
+        uncond, cond = pair[:, 0], pair[:, 1]
+        scale_b = cfg_scale_t[:, None, None]
+        logits_B = torch.where(scale_b != 0, cond + scale_b * (cond - uncond), cond)
+
+        # EOS gating.
+        enable_eos = (dec_step >= min_tokens_t)[:, None, None]
+        kill = (col > eos) | ((ch > 0) & (col >= eos)) | (~enable_eos & (col >= eos))
+        logits_B = torch.where(kill, neg_inf, logits_B)
+        logits_B = torch.where(eos_slot, logits_B * eos_mul_t[:, None, None], logits_B)
+
+        flat = logits_B.reshape(B * C, Vc)
+        if do_sample:
+            pred = sample_next_token(gen, flat, temperature=temp_rows, top_p=top_p_rows,
+                                     top_k=cfg_filter_top_k, audio_eos_value=eos)
+        else:
+            pred = flat.argmax(dim=-1)
+        pred = pred.reshape(B, C).to(torch.int32)
+
+        # Delay-pattern EOS countdown.
+        active = s.eos_countdown != 0
+        is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
+        is_max_len = current_step >= max_tokens - max_delay
+        trigger = active & (is_eos_tok | is_max_len)
+        eos_detected = s.eos_detected | trigger
+        start_cd = trigger & (s.eos_countdown < 0)
+        eos_countdown = torch.where(start_cd, torch.full_like(s.eos_countdown, max_delay),
+                                    s.eos_countdown)
+        finished_step = torch.where(start_cd, torch.full_like(s.finished_step, current_step),
+                                    s.finished_step)
+        padding_phase = eos_countdown > 0
+        step_after = (max_delay - eos_countdown)[:, None]
+        eos_write = padding_phase[:, None] & (step_after == delay[None, :])
+        pad_write = padding_phase[:, None] & (step_after > delay[None, :])
+        pred = torch.where(eos_write, torch.full_like(pred, eos),
+                           torch.where(pad_write, torch.full_like(pred, pad), pred))
+        eos_countdown = torch.where(padding_phase, eos_countdown - 1, eos_countdown)
+
+        # Mask-merge into the buffer: prompt / BOS slots (>= 0) win.
+        cur = s.buf[:, current_step]
+        s.buf[:, current_step] = torch.where(cur == -1, pred, cur)
+        s.dec_step = dec_step + 1
+        s.eos_detected, s.eos_countdown, s.finished_step = eos_detected, eos_countdown, finished_step
+
+    # Length accounting + repack.
+    final_step = s.dec_step + 1
+    finished = torch.where(s.finished_step == -1,
+                           torch.full_like(s.finished_step, final_step - max_delay),
+                           s.finished_step)
+    lengths = torch.clamp(finished - prefill_steps_t, 0, max_tokens)
+    idx = prefill_steps_t[:, None] + torch.arange(max_tokens, device=dev)[None, :]
+    codes = torch.gather(s.buf, 1, idx[:, :, None].expand(B, max_tokens, C))
+    span = (lengths + max_delay)[:, None]
+    keep = torch.arange(max_tokens, device=dev)[None, :] < span
+    codes = torch.where(keep[..., None], codes, torch.full_like(codes, pad))
+    codes = torch.where(codes == -1, torch.full_like(codes, pad), codes)
+    result = GenerateResult(codes=codes, lengths=lengths, steps=s.dec_step - start_step)
+    if timings is not None:
+        _sync(dev)
+        timings["decode_s"] = timings.get("decode_s", 0.0) + time.perf_counter() - t1
+    return (result, s) if return_state else result
+
+
+def generate_chunked(
+    params: Dict,
+    cfg: UniMoEAudioConfig,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    codec_input_ids: Optional[torch.Tensor],
+    prefill_buf: torch.Tensor,
+    prefill_steps,
+    gen: torch.Generator,
+    *,
+    chunk_frames: int = 256,
+    **kwargs,
+):
+    """`generate` with a KV cache that grows across decode chunks
+    (`loop.py:456-530`): each chunk of `chunk_frames` steps attends over a
+    right-sized cache, grown (one copy) between chunks.  Same result as one
+    `generate` call."""
+    T_text = input_ids.shape[1]
+    max_tokens = kwargs.pop("max_tokens")
+    return_state = kwargs.pop("return_state", False)
+    start = int(np.min(np.asarray(prefill_steps))) - 1
+
+    def bucket(n_frames: int) -> int:
+        return -(-(T_text + n_frames + 2) // chunk_frames) * chunk_frames
+
+    state = None
+    stop = start + chunk_frames
+    while True:
+        cache_len = bucket(min(stop - start, max_tokens))
+        if state is not None and state.cache.k.shape[1] < cache_len:
+            state.cache = state.cache.grow(cache_len)
+        res, state = generate(
+            params, cfg, input_ids, attention_mask, codec_input_ids, prefill_buf,
+            prefill_steps, gen, state, min(stop, max_tokens),
+            max_tokens=max_tokens, cache_len=cache_len, return_state=True, **kwargs)
+        if bool((state.eos_countdown == 0).all()) or state.dec_step >= max_tokens:
+            return (res, state) if return_state else res
+        stop += chunk_frames
+
+
+def decode_position_base(text_lens: torch.Tensor, T_text: int,
+                         rope_deltas: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample mRoPE position of decode step 0: the attended text length,
+    or T_text + rope_delta after a vision prefill."""
+    if rope_deltas is None:
+        return text_lens
+    return T_text + rope_deltas.reshape(-1).to(torch.int32)
+
+
+def pad_buffer(prefill: torch.Tensor, max_tokens: int) -> torch.Tensor:
+    """Extend the delayed prefill buffer by max_tokens open (-1) frames."""
+    B, P, C = prefill.shape
+    fill = torch.full((B, max_tokens, C), -1, dtype=prefill.dtype, device=prefill.device)
+    return torch.cat([prefill, fill], dim=1)

@@ -1,0 +1,129 @@
+"""The DCMoE block, inference path — counterpart of `dcmoe_block`
+(`unimoe_audio_tpu/moe/block.py:42-236`) with dense dispatch.
+
+  params = {
+    "gate":    [D, num_experts]        router projection (no bias)
+    "dynamic": {"gate"/"up": [E_real, D, Fd], "down": [E_real, Fd, D]}
+    "fixed":   {"gate"/"up": [n_fixed, D, Fs], "down": [n_fixed, Fs, D]}
+  }
+
+Null experts exist only in the router.  Fixed experts are always on, and
+`padding_token_mask` gates the dynamic selection.  Training (jitter, the
+Gumbel mixer, token drop), a8 and the non-dense dispatch modes come with
+later slices and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from ..config import TextMoEConfig
+from . import dispatch as D
+from . import router as R
+
+
+class MoEOutput(NamedTuple):
+    hidden_states: torch.Tensor      # [B, T, D]
+    router_logits: torch.Tensor      # [S, num_experts]
+    router_top_k: torch.Tensor       # [S]
+    expert_mask: torch.Tensor        # [S, num_experts]
+    router_weight: torch.Tensor      # [S, num_experts]
+    aux_loss: torch.Tensor           # scalar
+
+
+def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *,
+                padding_token_mask: Optional[torch.Tensor] = None,
+                training: bool = False,
+                dispatch_mode: str = "dense") -> MoEOutput:
+    if training:
+        raise NotImplementedError("DCMoE training comes with the training slice")
+    if dispatch_mode != "dense":
+        raise NotImplementedError(
+            f"dispatch_mode={dispatch_mode!r} comes with a later slice; this one is dense")
+    if cfg.token_drop:
+        raise NotImplementedError("token_drop comes with the training slice")
+    B, T, dim = hidden_states.shape
+    S = B * T
+    E_dyn = cfg.num_dynamic_experts
+    E_real = cfg.mlp_dynamic_expert_num
+    E_total = cfg.num_experts
+
+    x = hidden_states.reshape(S, dim)
+    gate_w = params["gate"]
+    # The router weight may be f32 under bf16 activations (as initialised);
+    # the product runs in the promoted type, as jnp's `@` does.
+    ct = torch.promote_types(x.dtype, gate_w.dtype)
+    full_router_logits = x.to(ct) @ gate_w.to(ct)                # [S, E_total]
+    dynamic_logits = full_router_logits[:, :E_dyn].float()
+
+    if cfg.mlp_dynamic_top_p != 0:
+        dynamic_top_k = R.dynamic_expert_selection(dynamic_logits, cfg.mlp_dynamic_top_p)
+    else:
+        dynamic_top_k = torch.full((S,), cfg.mlp_dynamic_top_k, dtype=torch.int32,
+                                   device=x.device)
+    routing_weights, dyn_mask = R.sparse_expert_mixer_eval(
+        dynamic_logits, dynamic_top_k, jitter_eps=cfg.router_jitter_noise)
+    routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
+
+    expert_mask = torch.cat(
+        [dyn_mask, torch.zeros(S, E_total - E_dyn, dtype=torch.int32, device=x.device)], dim=-1)
+    if padding_token_mask is not None:
+        expert_mask = expert_mask * padding_token_mask.reshape(S, 1).to(torch.int32)
+    if E_dyn < E_total:
+        # Fixed experts are always on.  fill_ with a Python scalar: slice
+        # assignment would stage the 1 as a CPU tensor and read it back.
+        expert_mask[:, E_dyn:].fill_(1)
+
+    aux_loss = R.load_balancing_loss(expert_mask, full_router_logits, E_dyn)
+
+    if E_dyn < E_total:
+        global_weight = R.global_routing_weight(
+            expert_mask, full_router_logits, E_dyn, routing_weights)
+    else:
+        global_weight = routing_weights
+
+    gw = global_weight.to(x.dtype)
+    out = D.moe_ffn_dense(x, expert_mask[:, :E_real], gw[:, :E_real], params["dynamic"])
+
+    if cfg.mlp_fixed_expert_num > 0:
+        x_fixed = x[None].expand(cfg.mlp_fixed_expert_num, *x.shape)
+        y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"])      # [nF, S, D]
+        w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
+        out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
+
+    return MoEOutput(
+        hidden_states=out.reshape(B, T, dim).to(hidden_states.dtype),
+        router_logits=full_router_logits,
+        router_top_k=dynamic_top_k,
+        expert_mask=expert_mask,
+        router_weight=global_weight,
+        aux_loss=aux_loss,
+    )
+
+
+def init_dcmoe_params(gen: torch.Generator, cfg: TextMoEConfig, *,
+                      dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Random DCMoE weights made on `device`: the router in f32 (normal,
+    std = initializer_range), experts in `dtype` (scaled normal)."""
+    dim = cfg.hidden_size
+    Fd, Fs = cfg.dynamic_intermediate_size, cfg.shared_intermediate_size
+    Er, Nf = cfg.mlp_dynamic_expert_num, cfg.mlp_fixed_expert_num
+
+    def nrm(shape, scale, dt=dtype):
+        return torch.randn(*shape, generator=gen, dtype=dt, device=device).mul_(scale)
+
+    return {
+        "gate": nrm((dim, cfg.num_experts), cfg.initializer_range, torch.float32),
+        "dynamic": {
+            "gate": nrm((Er, dim, Fd), dim ** -0.5),
+            "up": nrm((Er, dim, Fd), dim ** -0.5),
+            "down": nrm((Er, Fd, dim), Fd ** -0.5),
+        },
+        "fixed": {
+            "gate": nrm((Nf, dim, Fs), dim ** -0.5),
+            "up": nrm((Nf, dim, Fs), dim ** -0.5),
+            "down": nrm((Nf, Fs, dim), Fs ** -0.5),
+        },
+    }
