@@ -7,20 +7,27 @@ Run from the root of a checkout, on a machine with one CUDA card (H100,
 sm_90a) and the CUDA toolkit.  Phases, each of which exits non-zero on
 failure:
 
-1. set-up: the card's name and power limit (nvidia-smi); the kernel
-   unimoe_audio_torch/csrc/flash_attention_fwd.cu built with nvcc;
-2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes plus ragged and left-padded cases;
-3. slice: the main path through the user's entry point,
-   `UniMoEAudio.text_to_music`, at the full width of the flagship model
-   (36 layers, hidden 2048, bf16, random weights from a seed) with the
-   16 kHz DAC, on four captions long enough that the prompt buckets to
-   128 tokens (so the prefill takes the flash kernel), through
-   `generate_chunked`; the launch counters are zeroed just before it and
-   read just after.  A small model's bf16 CUDA prefill is also held
-   against its f32 CPU run;
+1. set-up: the card's name and power limit (nvidia-smi); the kernel sources
+   unimoe_audio_torch/csrc/flash_attention_{fwd,bwd}.cu built with nvcc;
+2. each hand-written kernel against its plain PyTorch version on the card,
+   at the main paths' shapes plus ragged, left-padded, S > T, non-causal
+   and Dh 64 cases.  A small model's bf16 prefill, and its bf16 training
+   loss and gradient, are held against their f32 CPU runs;
+3. the two paths through the user's entry points, each with the launch
+   counters zeroed just before it and read just after:
+   - text to music: `UniMoEAudio.text_to_music` at the full width and
+     depth of the flagship model (36 layers, hidden 2048, bf16, random
+     weights from a seed) with the 16 kHz DAC, on four captions long enough
+     that the prompt buckets to 128 tokens (so the prefill takes the flash
+     kernel), through `generate_chunked`; then repeated short calls for the
+     prefill's spread and one under torch.profiler;
+   - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
+     B 4 x T 2048, remat on, one warm-up and five timed steps;
 4. timing of each kernel, its plain version and one PyTorch library call
-   at the main path's shapes, with the least time the card could take.
+   at its path's shapes, with the least time the card could take.
+
+The serving path runs after the small-shape checks and before any
+training-shape work; the training-shape checks follow it.
 
 The last lines of standard output are one JSON object describing every
 kernel, then `{"ok": true, "device": {...}}`.  Without CUDA, or without
@@ -49,6 +56,12 @@ PEAK_BF16_FLOPS = 989e12
 # points and accumulate in different orders.
 FLASH_RTOL, FLASH_ATOL = 2e-2, 2e-2
 STATS_RTOL, STATS_ATOL = 1e-2, 1e-2
+# Backward kernels (dq; dk, dv) vs their plain versions in bf16, from the
+# same K1 residuals: both round P and dS to bf16, at values that differ in
+# the last f32 bits, and sum in different orders.  Elementwise, and the
+# relative L2 error of the whole tensor.
+BWD_RTOL, BWD_ATOL = 2e-2, 2e-2
+BWD_REL_L2 = 1e-2
 # Small-model prefill vs its f32 CPU run, relative L2 error of the final
 # hidden state over live rows: f32 on the card (TF32 off: summation order
 # only), and bf16 on the card, whose rounding also flips a few router
@@ -57,6 +70,22 @@ STATS_RTOL, STATS_ATOL = 1e-2, 1e-2
 PREFILL_F32_REL_L2 = 1e-3
 PREFILL_BF16_REL_L2 = 1e-1
 PREFILL_FLASH_VS_EINSUM = 1.25
+# Small-model training loss and gradient in bf16 on the card vs the f32 CPU
+# run, the same way: the loss's relative error, the relative L2 error of all
+# parameter gradients together; the flash path's gradient no worse than
+# 1.25 x the einsum path's.
+TRAIN_LOSS_REL = 2e-2
+TRAIN_GRAD_REL_L2 = 2e-1
+TRAIN_FLASH_VS_EINSUM = 1.25
+# The flagship training slice: the shape of the JAX package's train probe
+# (`bench.py:85-128`): 4 layers at full width, B 4, T 2048; 1 warm-up step
+# and TRAIN_TIMED_STEPS timed steps on one batch.
+TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 4, 2048
+TRAIN_TIMED_STEPS = 5
+# Extra T2M prefills timed after the main call.
+PREFILL_REPEATS = 5
+
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 
 WORDS = ("warm analog synth pads drift over a slow hip hop beat with dusty vinyl "
          "crackle mellow electric piano chords deep sub bass and soft brushed "
@@ -104,10 +133,10 @@ def flash_inputs(B, H, KV, T, S, Dh, valid, seed):
     return q, k, v, torch.as_tensor(valid, dtype=torch.int32, device="cuda").contiguous()
 
 
-def allowed_mask(valid, T, S):
+def allowed_mask(valid, T, S, causal=True):
     import torch
 
-    tri = torch.ones(T, S, dtype=torch.bool, device=valid.device).tril(S - T)
+    tri = torch.ones(T, S, dtype=torch.bool, device=valid.device).tril(S - T if causal else S)
     return (valid[:, None, :] > 0) & tri                                  # [B, T, S]
 
 
@@ -142,6 +171,73 @@ def check_flash(B, H, KV, T, S, Dh, pads, seed) -> float:
     return err
 
 
+def bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed):
+    """Inputs of the backward kernels as the training path makes them: q, k,
+    v, kv_valid, dO, and K1's residuals m, l with D = rowsum(dO * O)."""
+    import torch
+    from unimoe_audio_torch.ops.flash_attention import flash_attention, softmax_residual_rowsum
+
+    valid = np.ones((B, S), np.int32)
+    for b, p in enumerate(pads):
+        valid[b, :p] = 0
+    q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do = torch.randn(B, H, T, Dh, generator=gen, device="cuda").to(torch.bfloat16)
+    count = flash_attention.launches
+    o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
+    flash_attention.launches = count                   # not a launch of the main path
+    return q, k, v, do, m, l, softmax_residual_rowsum(do, o), vt
+
+
+def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
+    """The dq and dk/dv kernels vs their plain versions on the same inputs;
+    dq of dead rows exactly 0.  Returns max |err| of dq, dk and dv."""
+    import torch
+    from unimoe_audio_torch.ops import flash_attention as FA
+
+    args = bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed)
+    counts = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    dq = FA.flash_attention_bwd_dq(*args, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(*args, causal)
+    torch.cuda.synchronize()
+    FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches = counts
+    rdq = FA.flash_attention_bwd_dq_reference(*args, causal)
+    rdk, rdv = FA.flash_attention_bwd_dkv_reference(*args, causal)
+    name = (f"flash bwd B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} causal={causal} "
+            f"pads={list(pads)}")
+    errs, rels = {}, {}
+    for label, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        g32, w32 = got.float(), want.float()
+        check(bool(torch.isfinite(g32).all()), f"{name}: non-finite {label}")
+        err = (g32 - w32).abs()
+        rel = ((g32 - w32).norm() / w32.norm().clamp_min(1e-30)).item()
+        check(bool((err <= BWD_ATOL + BWD_RTOL * w32.abs()).all()) and rel <= BWD_REL_L2,
+              f"{name}: {label} differs from the plain version, max err {err.max().item()}, "
+              f"relative L2 {rel}")
+        errs[label], rels[label] = err.max().item(), rel
+    dead = ~allowed_mask(args[-1], T, S, causal).any(-1)                 # [B, T]
+    dead_rows = int(dead.sum()) * H
+    check(bool((dq.float().abs().sum(-1)[dead[:, None, :].expand(B, H, T)] == 0).all()),
+          f"{name}: dq of a dead row is not exactly 0")
+    print(f"kernel check: {name}: " + ", ".join(
+        f"{lab} max|err| {errs[lab]:.3e} rel L2 {rels[lab]:.2e}" for lab in errs)
+        + f" (rtol {BWD_RTOL}, atol {BWD_ATOL}, rel L2 {BWD_REL_L2}); "
+        f"{dead_rows} dead rows with dq exactly 0", flush=True)
+    return errs
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _to(tree, **kw):
+    if isinstance(tree, dict):
+        return {k: _to(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, **kw) for v in tree]
+    return tree.detach().to(**kw)
+
+
 def check_small_prefill() -> None:
     """A 2-layer model with head_dim 128, one set of weights, held against
     its f32 prefill on the CPU (the path the parity tests hold against
@@ -159,13 +255,6 @@ def check_small_prefill() -> None:
     tc = cfg.text_config
     cpu = M.init_model_params(cfg, seed=1, dtype=torch.float32, device="cpu")
 
-    def to(tree, **kw):
-        if isinstance(tree, dict):
-            return {k: to(v, **kw) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, **kw) for v in tree]
-        return tree.to(**kw)
-
     B, T = 4, 128
     rng = np.random.default_rng(0)
     ids = rng.integers(0, tc.vocab_size - 8, size=(B, T))
@@ -176,7 +265,7 @@ def check_small_prefill() -> None:
     live = torch.as_tensor(mask, dtype=torch.bool)
 
     def prefill(device, dtype, flash):
-        params = cpu if device == "cpu" else to(cpu, device=device, dtype=dtype)
+        params = cpu if device == "cpu" else _to(cpu, device=device, dtype=dtype)
         ids_t = torch.as_tensor(ids, device=device)
         mask_t = torch.as_tensor(mask, dtype=torch.int32, device=device)
         pos_t = torch.as_tensor(pos, device=device)[None].expand(3, B, T)
@@ -190,15 +279,12 @@ def check_small_prefill() -> None:
         check(bool(torch.isfinite(h).all()), f"small prefill {device} {dtype}: non-finite")
         return h[live]
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm()).item()
-
     with torch.inference_mode():
         ref = prefill("cpu", torch.float32, False)
-        f32_err = rel(prefill("cuda", torch.float32, False), ref)
-        einsum_err = rel(prefill("cuda", torch.bfloat16, False), ref)
+        f32_err = _rel(prefill("cuda", torch.float32, False), ref)
+        einsum_err = _rel(prefill("cuda", torch.bfloat16, False), ref)
         before = flash_attention.launches
-        flash_err = rel(prefill("cuda", torch.bfloat16, True), ref)
+        flash_err = _rel(prefill("cuda", torch.bfloat16, True), ref)
         check(flash_attention.launches == before + tc.num_hidden_layers,
               "small prefill did not go through the flash kernel")
     check(f32_err < PREFILL_F32_REL_L2, f"f32 prefill, card vs CPU: relative L2 {f32_err}")
@@ -208,6 +294,196 @@ def check_small_prefill() -> None:
           f"f32 card {f32_err:.3e} (limit {PREFILL_F32_REL_L2}); bf16 card through the flash "
           f"kernel {flash_err:.3e}, through the einsum path {einsum_err:.3e} (limits "
           f"{PREFILL_BF16_REL_L2}, and flash <= {PREFILL_FLASH_VS_EINSUM} x einsum)", flush=True)
+
+
+def check_small_training() -> None:
+    """A 2-layer model with head_dim 128 (input jitter off: the CPU and the
+    card draw different noise), one `loss_fn` value and gradient with remat
+    on, B 4 x T 128 with left padding: in bf16 on the card through the flash
+    kernels and through the einsum path (use_flash=False), each held against
+    the f32 run on the CPU (the path the parity tests hold against JAX)."""
+    import torch
+    from unimoe_audio_torch.config import tiny_test_config
+    from unimoe_audio_torch.models import model as M
+    from unimoe_audio_torch.ops import flash_attention as FA
+    from unimoe_audio_torch.train import step as TS
+
+    cfg = tiny_test_config(hidden_size=512, num_attention_heads=4, num_key_value_heads=2,
+                           vocab_size=512, input_jitter_noise=0.0)
+    tc = cfg.text_config
+    cpu = M.init_model_params(cfg, seed=1, dtype=torch.float32, device="cpu")
+    B, T, C = 4, 128, cfg.codec_channels
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, tc.vocab_size - 8, size=(B, T))
+    ids[:, 8:] = cfg.codec_placeholder_value
+    mask = np.ones((B, T), np.int64)
+    for b, p in enumerate((0, 100, 17, 64)):
+        mask[b, :p] = 0
+    codec = rng.integers(0, cfg.codec_eos_value, size=(B, T, C))
+    # A label is predicted from the row before it, so it is kept only where
+    # that row is live too: a fully padded row is 0 through flash and a
+    # uniform average through the einsum path, by design.
+    live = (mask == 1) & np.concatenate([np.zeros((B, 1), bool), mask[:, :-1] == 1], 1)
+    labels = np.where(live[..., None] & (np.arange(T) >= 8)[None, :, None], codec, -100)
+    batch = {"input_ids": ids, "codec_input_ids": codec, "attention_mask": mask,
+             "codec_labels": labels,
+             "aux_balance_weight": np.where(labels[..., 0] != -100, 10.0, 1.0).astype(np.float32)}
+
+    def loss_and_grad(device, dtype, use_flash):
+        params = _to(cpu, device=device, dtype=dtype)
+        TS.init_train_state(params, TS.make_optimizer())
+        tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        loss, _ = TS.loss_fn(params, cfg, tb, 0, 0.025, remat=True, use_flash=use_flash)
+        leaves = [t for _, t in TS.named_leaves(params)]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)   # lm_head is unused
+        flat = torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten().cpu()
+                          for t, g in zip(leaves, grads)])
+        check(bool(torch.isfinite(loss)) and bool(torch.isfinite(flat).all()),
+              f"small training {device} {dtype}: non-finite loss or gradient")
+        return loss.item(), flat
+
+    ref_loss, ref_grad = loss_and_grad("cpu", torch.float32, None)
+    einsum_loss, einsum_grad = loss_and_grad("cuda", torch.bfloat16, False)
+    before = (FA.flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+              FA.flash_attention_bwd_dkv.launches)
+    flash_loss, flash_grad = loss_and_grad("cuda", torch.bfloat16, None)
+    after = (FA.flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+             FA.flash_attention_bwd_dkv.launches)
+    L = tc.num_hidden_layers
+    check(tuple(a - b for a, b in zip(after, before)) == (2 * L, L, L),
+          f"small training did not go through the flash kernels: launches {before} -> {after}")
+    e_loss = abs(einsum_loss - ref_loss) / abs(ref_loss)
+    f_loss = abs(flash_loss - ref_loss) / abs(ref_loss)
+    e_grad, f_grad = _rel(einsum_grad, ref_grad), _rel(flash_grad, ref_grad)
+    check(max(e_loss, f_loss) < TRAIN_LOSS_REL, f"bf16 training loss vs f32: flash {f_loss}, "
+          f"einsum {e_loss} (limit {TRAIN_LOSS_REL})")
+    check(f_grad < TRAIN_GRAD_REL_L2 and f_grad <= TRAIN_FLASH_VS_EINSUM * e_grad,
+          f"bf16 training gradient vs f32: flash {f_grad}, einsum {e_grad}")
+    print(f"reference check: 2-layer training loss and gradient, bf16 card vs f32 CPU: loss "
+          f"{ref_loss:.5f} (f32), relative error flash {f_loss:.3e}, einsum {e_loss:.3e} "
+          f"(limit {TRAIN_LOSS_REL}); gradient relative L2 flash {f_grad:.3e}, einsum "
+          f"{e_grad:.3e} (limits {TRAIN_GRAD_REL_L2}, and flash <= {TRAIN_FLASH_VS_EINSUM} x "
+          f"einsum); flash launches fwd/dq/dkv {tuple(a - b for a, b in zip(after, before))}",
+          flush=True)
+
+
+def _launch_counts():
+    from unimoe_audio_torch.ops import flash_attention as FA
+
+    return {"flash_attention_fwd": FA.flash_attention.launches,
+            "flash_attention_bwd_dq": FA.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches}
+
+
+def _zero_launch_counts() -> None:
+    from unimoe_audio_torch.ops import flash_attention as FA
+
+    FA.flash_attention.launches = 0
+    FA.flash_attention_bwd_dq.launches = 0
+    FA.flash_attention_bwd_dkv.launches = 0
+
+
+def run_train_slice(card: str) -> dict:
+    """The training path through the user's entry point, `Trainer.fit`, at
+    the flagship width with TRAIN_LAYERS layers, bf16, random weights from
+    seed 0, on the batch of the JAX package's train probe (all codec
+    placeholders, codec labels = codec ids), remat on, AdamW lr 1e-4 with one
+    warm-up step of the schedule.  Returns the launch counts of the run."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = UniMoEAudioConfig(
+        text_config=dataclasses.replace(TextMoEConfig(), num_hidden_layers=TRAIN_LAYERS),
+        vision_config=None)
+    params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, T, C = TRAIN_B, TRAIN_T, cfg.codec_channels
+    codec = np.random.default_rng(0).integers(0, cfg.codec_eos_value, size=(B, T, C))
+    batch = {"input_ids": np.full((B, T), cfg.codec_placeholder_value, np.int32),
+             "codec_input_ids": codec.astype(np.int32),
+             "attention_mask": np.ones((B, T), np.int32),
+             "codec_labels": codec.astype(np.int32)}
+    trainer = Trainer(cfg, params, TrainerConfig(learning_rate=1e-4, warmup_steps=1,
+                                                 total_steps=100, log_every=1, remat=True))
+    n_steps = 1 + TRAIN_TIMED_STEPS
+    marks = []                              # (time, launch counts) at each step's start
+
+    def batches():
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), _launch_counts()))
+            yield batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    history = trainer.fit(batches())
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), _launch_counts()))
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = TRAIN_LAYERS
+    per_step = [{k: b[1][k] - a[1][k] for k in a[1]} for a, b in zip(marks, marks[1:])]
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    check(all(p == want for p in per_step), f"launches per step {per_step}, want {want}")
+    losses = [h["loss"] for h in history]
+    check(len(losses) == n_steps and all(np.isfinite(losses)), f"losses {losses}")
+    check(not any(h["skipped"] for h in history), "a training step was skipped")
+    check(losses[-1] < losses[1], f"loss did not fall: {losses}")
+    step_s = [b[0] - a[0] for a, b in zip(marks[1:], marks[2:])]
+    med = float(np.median(step_s))
+    print(f"train slice [{card}]: {L} layers at flagship width, {n_params / 1e9:.3f} B params "
+          f"bf16, B {B} x T {T}, remat on; losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(h['grad_norm'], 3) for h in history]}", flush=True)
+    print(f"train slice [{card}]: step times (s) {[round(x, 4) for x in step_s]}, median "
+          f"{med:.4f} s, {B * T / med:.1f} tokens/s; peak memory allocated {peak_gb:.2f} GB; "
+          f"launches per step {per_step[0]}; warm-up step {marks[1][0] - marks[0][0]:.2f} s",
+          flush=True)
+    profile_train_step(trainer, batch, med, card)
+    del trainer, params
+    return launches
+
+
+def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
+    """One more training step under torch.profiler (after the counted run):
+    device kernel time against the step's host wall time, and device time
+    by kind of kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fit([batch])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if dev_ms == 0:
+        print("train profile: torch.profiler recorded no device time: not measured", flush=True)
+        return
+    kinds = {}
+    for e in kernels:
+        key = e.key.lower()
+        kind = ("flash (K1/K2/K3)" if "flash" in key else
+                "gemm" if any(w in key for w in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
+                "elementwise / reduce / copy")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"train profile [{card}]: one step, {wall_ms:.1f} ms host wall under the profiler "
+          f"(unprofiled median {step_s * 1e3:.1f} ms), device kernel time {dev_ms:.1f} ms = "
+          f"{100 * dev_ms / wall_ms:.1f} % busy; {sum(e.count for e in kernels)} kernel launches; "
+          + "; ".join(f"{k} {v:.1f} ms" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    for e in top:
+        print(f"train profile:   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}", flush=True)
 
 
 def run_slice(card: str, out_dir: str):
@@ -233,10 +509,10 @@ def run_slice(card: str, out_dir: str):
     model.text_to_music(captions, output_dir=out_dir, save_name="warmup", seed=1,
                         max_audio_seconds=1, min_audio_seconds=0.5)
 
-    flash_attention.launches = 0
+    _zero_launch_counts()
     paths = model.text_to_music(captions, output_dir=out_dir, seed=0,
                                 max_audio_seconds=11, min_audio_seconds=6)
-    launches = {"flash_attention_fwd": flash_attention.launches}
+    launches = _launch_counts()
     t = model.last_timings
     codes = model.last_codes
 
@@ -244,6 +520,8 @@ def run_slice(card: str, out_dir: str):
     check(launches["flash_attention_fwd"] == tc.num_hidden_layers * prefills,
           f"flash launches {launches['flash_attention_fwd']} != "
           f"{tc.num_hidden_layers} x {prefills} prefill")
+    check(launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"] == 0,
+          f"generation launched a backward kernel: {launches}")
     check(t["steps"] > 256, f"decode took {t['steps']} steps: no chunk boundary crossed")
     check(len(paths) == len(captions), "one wav per caption")
     hop = model.dac.config.hop_length
@@ -270,6 +548,18 @@ def run_slice(card: str, out_dir: str):
           f"DAC {t['dac_s'] * 1e3:.1f} ms  [{card}]", flush=True)
     neg = t2m_prompt(T2M_NEGATIVE_CAPTION)
     prompts = [x for c in captions for x in (neg, t2m_prompt(c))]
+
+    # The same prefill PREFILL_REPEATS more times, in short calls after the
+    # launch counts were read: the spread around the one reading above.
+    ids, mask = model._tokenize(prompts)
+    reps = []
+    for i in range(PREFILL_REPEATS):
+        model._generate_core(ids, mask, "prefill", out_dir, cfg_scale=10.0, seed=3 + i,
+                             max_tokens=30, min_tokens=15)
+        reps.append(model.last_timings["prefill_s"] * 1e3)
+    print(f"slice: prefill repeated {PREFILL_REPEATS} x (ms): "
+          f"{', '.join(f'{x:.2f}' for x in reps)}; median {float(np.median(reps)):.2f}  "
+          f"[{card}]", flush=True)
     return model, prompts, launches
 
 
@@ -371,6 +661,85 @@ def time_flash(model, prompts, launches, card):
     return rec
 
 
+def time_flash_bwd(launches: dict, errs: dict, card: str) -> list:
+    """The dq and dk/dv kernels, their plain versions and one library call
+    (the backward of scaled_dot_product_attention with expanded KV and a
+    boolean mask, which computes dq, dk and dv at once) at the training
+    slice's shape."""
+    import torch
+    import torch.nn.functional as F
+    from unimoe_audio_torch.config import TextMoEConfig
+    from unimoe_audio_torch.ops import flash_attention as FA
+
+    tc = TextMoEConfig()
+    B, H, KV, T, Dh = TRAIN_B, tc.num_attention_heads, tc.num_key_value_heads, TRAIN_T, tc.head_dim
+    args = bwd_inputs(B, H, KV, T, T, Dh, (0,) * B, True, seed=9)
+    q, k, v, do, m, l, dvec, vt = args
+    count = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    dq_ms = cuda_ms(lambda: FA.flash_attention_bwd_dq(*args, True), iters=20)
+    dkv_ms = cuda_ms(lambda: FA.flash_attention_bwd_dkv(*args, True), iters=20)
+    FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches = count
+    dq_plain = cuda_ms(lambda: FA.flash_attention_bwd_dq_reference(*args, True), iters=3, warmup=1)
+    dkv_plain = cuda_ms(lambda: FA.flash_attention_bwd_dkv_reference(*args, True), iters=3,
+                        warmup=1)
+    qq = q.detach().requires_grad_(True)
+    kk = k.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
+    vv = v.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
+    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=allowed_mask(vt, T, T)[:, None])
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True),
+                     iters=10)
+    del out
+
+    pairs = int(allowed_mask(vt, T, T).sum()) * H           # attended (query, key) pairs
+
+    # K1 at this shape too (its record stays at the T2M prefill shape).
+    count = FA.flash_attention.launches
+    fwd_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, vt), iters=20)
+    FA.flash_attention.launches = count
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=allowed_mask(vt, T, T)[:, None]), iters=20)
+    fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (2 * B * H * T + vt.numel()) * 4
+    fwd_t = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, 4 * Dh * pairs / PEAK_BF16_FLOPS * 1e3)
+    print(f"kernel timing [{card}]: flash_attention_fwd at the training shape B={B} H={H} "
+          f"KV={KV} T=S={T} Dh={Dh} causal: kernel {fwd_ms:.4f} ms, sdpa {sdpa_fwd_ms:.4f} ms, "
+          f"bound {max(fwd_t):.4f} ms by {'bytes' if fwd_t[0] >= fwd_t[1] else 'operations'} "
+          f"({fwd_bytes / 1e6:.2f} MB, {4 * Dh * pairs / 1e9:.3f} GFLOP)", flush=True)
+
+    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+        + (m.numel() + l.numel() + dvec.numel() + vt.numel()) * 4
+    recs = []
+    for name, ms, plain, n_products, out_bytes, err in (
+            ("flash_attention_bwd_dq", dq_ms, dq_plain, 3, q.numel() * 2, errs["dq"]),
+            ("flash_attention_bwd_dkv", dkv_ms, dkv_plain, 4, (k.numel() + v.numel()) * 2,
+             max(errs["dk"], errs["dv"]))):
+        flops = 2 * Dh * pairs * n_products
+        nbytes = in_bytes + out_bytes
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "unimoe_audio_torch/csrc/flash_attention_bwd.cu",
+            "replaces": ("unimoe_audio_tpu/ops/flash_attention.py:150" if name.endswith("dq")
+                         else "unimoe_audio_tpu/ops/flash_attention.py:208"),
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        }
+        print(f"kernel timing [{card}]: {name} B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq, dk, dv) "
+              f"{lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+        print(json.dumps({"kernel": rec}), flush=True)
+        recs.append(rec)
+    return recs
+
+
 def main() -> None:
     import torch
 
@@ -390,11 +759,14 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    cuda_build.load("flash_attention_fwd")
-    print(f"build: flash_attention_fwd built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in cuda_build.build_logs["flash_attention_fwd"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: flash_attention_fwd: {line.strip()}", flush=True)
+    for src in KERNEL_SOURCES:
+        cuda_build.load(src)
+    print(f"build: {', '.join(KERNEL_SOURCES)} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for src in KERNEL_SOURCES:
+        for line in cuda_build.build_logs[src].splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                print(f"build: {src}: {line.strip()}", flush=True)
 
     check_flash(8, 16, 2, 128, 128, 128, (0,) * 8, seed=0)
     check_flash(8, 16, 2, 192, 192, 128, (0, 150, 3, 191, 64, 0, 100, 20), seed=1)
@@ -402,12 +774,44 @@ def main() -> None:
     check_flash(2, 16, 2, 100, 160, 64, (7, 0), seed=3)
     check_small_prefill()
 
+    # The serving path runs before any training-shape work, on an emptied
+    # allocator, so its timings do not follow the multi-GB plain versions.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        model, prompts, launches = run_slice(card, out_dir)
-    rec = time_flash(model, prompts, launches, card)
+        model, prompts, t2m_launches = run_slice(card, out_dir)
+    fwd_rec = time_flash(model, prompts, t2m_launches, card)
     profile_short_call(model, prompts, card)
+    del model
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    # K1 at the training shape, then K2 and K3 there and at ragged T, dead
+    # rows, S > T, non-causal and Dh 64.
+    fwd_train_err = check_flash(TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, seed=9)
+    bwd_errs = check_flash_bwd(TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, True,
+                               seed=10)
+    check_flash_bwd(4, 16, 2, 200, 200, 128, (0, 150, 3, 199), True, seed=11)
+    check_flash_bwd(4, 16, 2, 128, 128, 128, (111, 40, 127, 0), True, seed=12)
+    check_flash_bwd(2, 16, 2, 100, 160, 128, (7, 0), True, seed=13)
+    check_flash_bwd(2, 16, 2, 192, 192, 128, (0, 5), False, seed=14)
+    check_flash_bwd(2, 16, 2, 200, 200, 64, (30, 0), True, seed=15)
+    check_small_training()
+    torch.cuda.empty_cache()
+
+    train_launches = run_train_slice(card)
+    bwd_recs = time_flash_bwd(train_launches, bwd_errs, card)
+    # Launches summed over the two paths' runs, each counted from 0; the
+    # error is the larger of the checks at the two paths' shapes.
+    fwd_rec["launches"] = t2m_launches["flash_attention_fwd"] \
+        + train_launches["flash_attention_fwd"]
+    fwd_rec["launches_by_path"] = {"t2m": t2m_launches["flash_attention_fwd"],
+                                   "train": train_launches["flash_attention_fwd"]}
+    fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"], "train": fwd_train_err}
+    fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], fwd_train_err)
+    for rec in bwd_recs:
+        rec["launches_by_path"] = {"t2m": 0, "train": rec["launches"]}
+
+    print(json.dumps({"kernels": [fwd_rec, *bwd_recs]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,26 @@ def test_dac_decode_matches_jax(setup):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+def test_codes_past_the_codebook_are_clamped_as_in_jax(setup):
+    """The default tiny model's codec vocab (39: EOS 36) lets codes 32-35
+    reach the tiny DAC's 32-entry codebooks; the port clamps them as the
+    JAX package's gather does, through `dac_decode` and the `Dac` wrapper."""
+    from unimoe_audio_tpu.config import tiny_test_config
+
+    cfg, jp, tp = setup
+    vocab = tiny_test_config().codec_vocab_size
+    codes = np.random.default_rng(4).integers(0, vocab - 3, size=(2, cfg.n_codebooks, 11))
+    codes[0, :, :3] = [cfg.codebook_size, vocab - 4, cfg.codebook_size - 1]
+    assert (codes >= cfg.codebook_size).any()
+    want = np.asarray(JDAC.dac_decode(jp, jnp.asarray(codes, jnp.int32), cfg))
+    tcfg = TDAC.DACConfig(**dataclasses.asdict(cfg))
+    got = TDAC.dac_decode(tp, torch.tensor(codes), tcfg).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    dac = Dac(allow_random=True, config=tcfg, device="cpu")
+    dac.params = tp
+    np.testing.assert_allclose(dac.decode_array(codes[:1]), want[0], atol=1e-4, rtol=1e-4)
+
+
 def test_decoder_block_pieces_match_jax(setup):
     """conv_transpose1d (stride 5: odd output padding) and snake alone."""
     rng = np.random.default_rng(1)

@@ -1,22 +1,30 @@
-"""Flash-attention forward of the PyTorch port vs the JAX package.
+"""Flash attention of the PyTorch port vs the JAX package, forward and
+backward.
 
-The port's plain version (what a CPU tensor runs) is held against the
-Pallas kernel in interpret mode and against `_reference_attention`, in f32
-at the tolerance of tests/test_flash_attention.py.  The CUDA kernel is held
-against the plain version in bf16 on a card; that case skips without one.
+The port's plain versions (what a CPU tensor runs) are held against the
+Pallas kernels in interpret mode and against `_reference_attention`, in f32
+at the tolerances of tests/test_flash_attention.py; the gradient is held
+against `jax.grad` of the Pallas flash attention and checked by
+`torch.autograd.gradcheck` in f64.  The CUDA kernels are held against their
+plain versions in bf16 on a card; those cases skip without one.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from unimoe_audio_torch.ops import flash_attention as FA
 from unimoe_audio_torch.ops.flash_attention import (
+    FlashAttention,
     _check,
     flash_attention,
     flash_attention_reference,
 )
 
 RTOL, ATOL = 2e-4, 2e-5
+# Gradients vs jax.grad of the Pallas kernels in interpret mode (f32), as
+# tests/test_flash_attention.py holds the Pallas backward to its oracle.
+GRAD_RTOL, GRAD_ATOL = 2e-4, 3e-5
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +73,66 @@ def test_plain_matches_jax(jx, B, H, KV, T, S, causal, pad):
                                           jnp.asarray(valid), causal))
     np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+# One head_dim per case, so both kernel widths are covered.
+GRAD_DH = [128, 64, 128, 64, 128, 64]
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,causal,pad", CASES)
+def test_backward_plain_matches_jax_grad(jx, B, H, KV, T, S, causal, pad):
+    """Gradients of q, k, v through `FlashAttention` on the CPU (the plain
+    backward: P from m and l, masked dS, the GQA sum) vs jax.grad of the
+    Pallas flash attention; dq of dead rows exactly 0."""
+    jnp, jfa = jx
+    import jax
+
+    Dh = GRAD_DH[CASES.index((B, H, KV, T, S, causal, pad))]
+    q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + pad + 1)
+    g = np.random.default_rng(pad).standard_normal((B, H, T, Dh)).astype(np.float32)
+
+    def f(a, b, c):
+        return jnp.sum(jfa.flash_attention(a, b, c, jnp.asarray(valid), causal=causal,
+                                           interpret=True) * g)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    (flash_attention(tq, tk, tv, torch.tensor(valid), causal=causal)
+     * torch.tensor(g)).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    allowed = (valid[:, None, :] > 0) & (np.tril(np.ones((T, S), bool), S - T) if causal
+                                         else np.ones((T, S), bool))
+    dead = ~allowed.any(-1)                                  # [B, T]
+    assert dead.any() == (pad > S - T and causal)
+    assert (tq.grad.numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
+
+
+def test_gradcheck_f64():
+    """FlashAttention's backward (the plain version on the CPU) against
+    finite differences, f64: GQA, left padding with a dead row, S > T."""
+    rng = np.random.default_rng(7)
+    q = torch.tensor(rng.standard_normal((2, 4, 5, 8)), requires_grad=True)
+    k = torch.tensor(rng.standard_normal((2, 2, 7, 8)), requires_grad=True)
+    v = torch.tensor(rng.standard_normal((2, 2, 7, 8)), requires_grad=True)
+    valid = torch.ones(2, 7, dtype=torch.int32)
+    valid[0, :4] = 0                                      # query row 0 of sample 0 is dead
+    for causal in (True, False):
+        assert torch.autograd.gradcheck(
+            lambda a, b, c: FlashAttention.apply(a, b, c, valid, causal)[0], (q, k, v))
+
+
+def test_grad_path_counts_no_kernel_launch_and_stats_carry_no_grad():
+    before = (flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+              FA.flash_attention_bwd_dkv.launches)
+    q, k, v, valid = _inputs(1, 4, 2, 16, 16, 64, 0, seed=0)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    o, m, l = flash_attention(tq, tk, tv, torch.tensor(valid), return_stats=True)
+    assert o.requires_grad and not m.requires_grad and not l.requires_grad
+    o.sum().backward()
+    assert tq.grad is not None and tk.grad is not None and tv.grad is not None
+    assert (flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == before
 
 
 def test_dead_rows_are_zero_and_stats_match_jax(jx):
@@ -179,3 +247,58 @@ def test_cuda_prefill_takes_kernel_or_raises(cuda, dtype):
         with pytest.raises(ValueError, match="bf16"):
             TL.attention(params, x, cos, sin, cfg)
         assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,pad,Dh,causal", [(128, 128, 0, 128, True), (200, 200, 37, 128, True),
+                                               (128, 200, 11, 64, True), (192, 192, 5, 128, False)])
+def test_backward_kernels_match_plain_bf16(cuda, T, S, pad, Dh, causal):
+    """The dq and dk/dv kernels vs their plain versions in bf16, from the
+    forward kernel's residuals: atol = rtol = 2e-2 (both round P and dS to
+    bf16); dq of dead rows exactly 0."""
+    q, k, v, valid = _inputs(4, 16, 2, T, S, Dh, pad, seed=T + pad)
+    q, k, v = (torch.tensor(a, device=cuda).to(torch.bfloat16) for a in (q, k, v))
+    vt = torch.tensor(valid, device=cuda)
+    do = torch.randn(4, 16, T, Dh, device=cuda).to(torch.bfloat16)
+    o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
+    dvec = FA.softmax_residual_rowsum(do, o)
+    before = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, m, l, dvec, vt, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, vt, causal)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    rdq = FA.flash_attention_bwd_dq_reference(q, k, v, do, m, l, dvec, vt, causal)
+    rdk, rdv = FA.flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, vt, causal)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    allowed = (vt[:, None, :] > 0) & torch.ones(T, S, dtype=torch.bool, device=cuda).tril(
+        S - T if causal else S)
+    dead = ~allowed.any(-1)
+    assert (dq.float().abs().sum(-1)[dead[:, None].expand(4, 16, T)] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_launches_both_kernels(cuda):
+    """A bf16 backward through `attention` at T = 128 on the card runs the
+    forward kernel once and each backward kernel once."""
+    from unimoe_audio_torch.config import tiny_test_config
+    from unimoe_audio_torch.models import layers as TL
+
+    cfg = tiny_test_config(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2).text_config
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = TL.init_attention_params(gen, cfg, dtype=torch.bfloat16, device=cuda)
+    B, T = 2, 128
+    x = torch.randn(B, T, cfg.hidden_size, generator=gen, device=cuda).to(torch.bfloat16)
+    x.requires_grad_(True)
+    pos = torch.arange(T, device=cuda)[None, None].expand(3, B, T)
+    cos, sin = TL.compute_mrope(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
+    before = (flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+              FA.flash_attention_bwd_dkv.launches)
+    out, _ = TL.attention(params, x, cos, sin, cfg)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == tuple(b + 1 for b in before)
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and x.grad.abs().sum() > 0

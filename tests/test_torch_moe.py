@@ -1,6 +1,10 @@
 """DCMoE routing and the dense DCMoE block of the PyTorch port vs the JAX
 package, f32 on the CPU: the router's masks and top-k counts exactly, its
-weights at 1e-6 (constructed ties included), the block's output at 1e-5."""
+weights at 1e-6 (constructed ties included), the block's output at 1e-5;
+in training, the eval mixer's gradient and the block's gradients (hidden
+states and every parameter) against jax.grad, and the input jitter."""
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -89,8 +93,90 @@ def test_dcmoe_block_dense_matches():
 
 
 def test_dcmoe_block_unported_modes_raise():
+    """Modes of later slices raise: packed and a8 dispatch, token drop, the
+    Gumbel mixer in training; a8 in training and training jitter without a
+    seed are errors, as in the JAX package."""
     cfg = tiny_test_config().text_config
     x = torch.zeros(1, 2, cfg.hidden_size)
-    for kw in ({"training": True}, {"dispatch_mode": "packed"}, {"dispatch_mode": "dense_a8"}):
+    for c, kw in ((cfg, {"dispatch_mode": "packed"}), (cfg, {"dispatch_mode": "dense_a8"}),
+                  (dataclasses.replace(cfg, token_drop=True), {}),
+                  (dataclasses.replace(cfg, ignore_differentiable_router=False),
+                   {"training": True, "seed": 0})):
         with pytest.raises(NotImplementedError):
-            TB.dcmoe_block({}, x, cfg, **kw)
+            TB.dcmoe_block({}, x, c, **kw)
+    for kw in ({"training": True, "dispatch_mode": "dense_a8"}, {"training": True}):
+        with pytest.raises(ValueError):
+            TB.dcmoe_block({"gate": torch.zeros(cfg.hidden_size, cfg.num_experts)}, x, cfg, **kw)
+
+
+# Gradients in f32: the same arithmetic in another order.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_eval_mixer_gradient_matches_jax(seed):
+    """d(Σ c · routing_weights)/d(scores) of the eval mixer equals JAX's,
+    which stop-grads the permutation, the near-set and the shifts by v_r;
+    the logits include exact ties, all-equal rows and near-ties."""
+    dyn = _logits(seed)
+    top_k = np.random.default_rng(seed).integers(1, dyn.shape[1] + 1, size=dyn.shape[0])
+    c = np.random.default_rng(seed + 5).standard_normal(dyn.shape).astype(np.float32)
+    import jax as _jax
+
+    want = _jax.grad(lambda s: jnp.sum(JR.sparse_expert_mixer_eval(
+        s, jnp.asarray(top_k, jnp.int32), jitter_eps=0.01)[0] * c))(jnp.asarray(dyn))
+    t = torch.tensor(dyn, requires_grad=True)
+    w, _ = TR.sparse_expert_mixer_eval(t, torch.tensor(top_k, dtype=torch.int32), jitter_eps=0.01)
+    (w * torch.tensor(c)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert np.abs(np.asarray(want)).max() > 0
+
+
+@pytest.mark.parametrize("with_abw", [False, True])
+def test_dcmoe_training_grads_match_jax(with_abw):
+    """dcmoe_block(training=True) with jitter eps 0 (f32 router, eval
+    mixer, aux_balance_weight in the aux loss): the output, the aux loss and
+    the gradients of Σ c · out + 3 · aux with respect to the hidden states
+    and every parameter equal jax.grad's."""
+    cfg = dataclasses.replace(tiny_test_config().text_config, input_jitter_noise=0.0)
+    jp = JB.init_dcmoe_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 9, cfg.hidden_size)).astype(np.float32)
+    c = rng.standard_normal(x.shape).astype(np.float32)
+    pad = np.ones((2, 9), np.int32)
+    pad[1, :2] = 0
+    abw = (rng.uniform(size=(2, 9)) * 5).astype(np.float32) if with_abw else None
+
+    def jloss(p, h):
+        out = JB.dcmoe_block(p, h, cfg, padding_token_mask=jnp.asarray(pad),
+                             aux_balance_weight=None if abw is None else jnp.asarray(abw),
+                             training=True, dispatch_mode="dense")
+        return jnp.sum(out.hidden_states * c) + 3.0 * out.aux_loss
+
+    jv, (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    tp = to_torch(jax.tree.map(np.asarray, jp), "cpu", torch.float32)
+    leaves = [tp["gate"], *tp["dynamic"].values(), *tp["fixed"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    tx = torch.tensor(x, requires_grad=True)
+    out = TB.dcmoe_block(tp, tx, cfg, padding_token_mask=torch.tensor(pad),
+                         aux_balance_weight=None if abw is None else torch.tensor(abw),
+                         training=True)
+    loss = (out.hidden_states * torch.tensor(c)).sum() + 3.0 * out.aux_loss
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jv), rtol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    want = [jgp["gate"], *jgp["dynamic"].values(), *jgp["fixed"].values()]
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    assert np.abs(np.asarray(jgp["gate"])).max() > 0
+
+
+def test_input_jitter_range_and_seed():
+    """Jitter samples lie in [1 - eps, 1 + eps] with mean about 1, and one
+    seed draws one sample (what a recompute under remat relies on)."""
+    a = TB.input_jitter((64, 512), 11, 0.01, torch.float32, "cpu")
+    assert a.min() >= 0.99 and a.max() <= 1.01
+    assert abs(a.mean().item() - 1.0) < 1e-4 and a.std().item() > 0.004
+    assert torch.equal(a, TB.input_jitter((64, 512), 11, 0.01, torch.float32, "cpu"))
+    assert not torch.equal(a, TB.input_jitter((64, 512), 12, 0.01, torch.float32, "cpu"))

@@ -84,11 +84,14 @@ def decoder_block(p: Dict, x, stride: int):
 
 
 def rvq_decode(params: Dict, codes: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
-    """codes [B, n_codebooks, T] → latents [B, D, T] (quantizer.from_codes)."""
+    """codes [B, n_codebooks, T] → latents [B, D, T] (quantizer.from_codes).
+    Codes past the codebook are clamped to [0, codebook_size - 1], as the
+    JAX package's gather clamps them."""
     z_q = None
+    codes = codes.long().clamp(0, cfg.codebook_size - 1)
     for i in range(cfg.n_codebooks):
         q = params["quantizers"][i]
-        z_p = q["codebook"][codes[:, i].long()].transpose(1, 2)     # [B, d_cb, T]
+        z_p = q["codebook"][codes[:, i]].transpose(1, 2)            # [B, d_cb, T]
         z_q_i = conv1d(z_p, q["out_proj_w"], q["out_proj_b"])
         z_q = z_q_i if z_q is None else z_q + z_q_i
     return z_q

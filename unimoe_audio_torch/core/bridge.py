@@ -1,11 +1,12 @@
-"""Bridge from the JAX package's parameter pytrees to the port's tensors.
+"""Bridge between the JAX package's parameter pytrees and the port's tensors.
 
 Input is the pytree after `jax.tree.map(np.asarray, params)`: nested dicts
 and lists of numpy arrays, laid out as in `unimoe_audio_tpu/models/model.py`
 (layer-stacked `[L, ...]` leaves) and `unimoe_audio_tpu/codec/dac.py`.
 The port reads the same layouts, so the bridge copies; the layer stack is
-un-stacked into one dict per layer.  Quantized (`QTensor`) leaves come with
-the quantization slice and raise here.
+un-stacked into one dict per layer (and re-stacked by `params_to_numpy`).
+Quantized (`QTensor`) leaves come with the quantization slice and raise
+here.
 """
 
 from __future__ import annotations
@@ -59,6 +60,32 @@ def params_from_jax(tree: Dict, cfg: UniMoEAudioConfig, device="cuda",
         raise ValueError(f"layer stack holds {L} layers, config says "
                          f"{cfg.text_config.num_hidden_layers}")
     out["layers"] = [_unstack(stacked, i) for i in range(L)]
+    return out
+
+
+def to_numpy(tree: Any):
+    """Nested dicts / lists of tensors → the same nesting of numpy arrays
+    (bf16 leaves as f32: numpy has no bf16)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def params_to_numpy(params: Dict) -> Dict:
+    """The port's param dict → the JAX package's layout with numpy leaves
+    (per-layer dicts re-stacked into `[L, ...]` leaves), the inverse of
+    `params_from_jax`."""
+    out = to_numpy({k: v for k, v in params.items() if k != "layers"})
+    out["layers"] = _stack([to_numpy(lp) for lp in params["layers"]])
     return out
 
 

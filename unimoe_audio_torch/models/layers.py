@@ -128,7 +128,7 @@ def attention(
     if cache_scales is not None:
         raise NotImplementedError("the int8 KV cache comes with the quantization slice")
     if prefix_kv is not None:
-        raise NotImplementedError("prefix-tuning KV comes with the training slice")
+        raise NotImplementedError("prefix-tuning KV comes with the PEFT slice")
     if ring is not None:
         raise NotImplementedError("ring attention comes with the parallel slice")
 

@@ -1,5 +1,6 @@
 """UniMoE-Audio model of the port: the MoE decoder stack plus the codec
-embeddings and head — counterpart of `unimoe_audio_tpu/models/model.py`.
+embeddings and head, for generation and training — counterpart of
+`unimoe_audio_tpu/models/model.py`.
 
 Parameters are plain dicts of tensors; the JAX package's layer-stacked
 `[L, ...]` leaves are un-stacked into one dict per layer, and the stack runs
@@ -21,7 +22,9 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TextMoEConfig, UniMoEAudioConfig
 from ..moe.block import dcmoe_block, init_dcmoe_params
@@ -36,6 +39,14 @@ class TextModelOutput(NamedTuple):
     router_top_k: torch.Tensor                # [L, S]
 
 
+def fold_seed(seed: int, n: int) -> int:
+    """A seed derived from (seed, n) — the port's `jax.random.fold_in`: the
+    training step folds its step count into the trainer's seed, and the
+    layer stack gives each layer `fold_seed(seed, layer)`, as the JAX
+    package splits its rng key into one key per layer (`model.py:108-110`)."""
+    return int(np.random.SeedSequence([seed, n]).generate_state(1, np.uint64)[0] >> 1)
+
+
 def text_model_forward(
     params: Dict,
     inputs_embeds: torch.Tensor,          # [B, T, D]
@@ -46,22 +57,33 @@ def text_model_forward(
     cache_position: Optional[int] = None,
     kv_valid_mask: Optional[torch.Tensor] = None,
     padding_token_mask: Optional[torch.Tensor] = None,
+    aux_balance_weight: Optional[torch.Tensor] = None,
+    training: bool = False,
+    seed: Optional[int] = None,
+    remat: bool = False,
     use_flash: Optional[bool] = None,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
-    the final RMSNorm (`model.py:55-266`, inference path).
+    the final RMSNorm (`model.py:55-266`).
 
     With a cache and one query position (decode_emit) each layer attends
     over the stale cache plus its own fresh k/v; the fresh k/v are committed
     to the cache in place once that layer's attention is done, which is
     what the JAX package's batched commit after the layer scan amounts to
     (the mask keeps the current slot out of every layer's read).
+
+    Training: `seed` (a host int, in place of the JAX rng key) gives each
+    layer its jitter seed (`fold_seed`); `remat` checkpoints each layer
+    (`torch.utils.checkpoint`, non-reentrant), as `jax.checkpoint(layer_fn)`
+    does, and the recompute draws the same jitter from the same seed.
     """
     if cfg.has_sliding_layers:
         raise NotImplementedError("sliding-window layers are not ported yet")
     B, T, _ = inputs_embeds.shape
     cos, sin = compute_mrope(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     use_cache = kv_cache is not None
+    if remat and use_cache:
+        raise NotImplementedError("remat is for the no-cache (training) path")
     decode_emit = (use_cache and T == 1 and cache_position is not None
                    and kv_valid_mask is not None)
     layer_mask = kv_valid_mask
@@ -69,9 +91,7 @@ def text_model_forward(
         slots = torch.arange(kv_cache.k.shape[1], device=kv_valid_mask.device)
         layer_mask = kv_valid_mask * (slots[None, :] != cache_position).to(kv_valid_mask.dtype)
 
-    h = inputs_embeds
-    aux, top_k = [], []
-    for i, lp in enumerate(params["layers"]):
+    def layer(i: int, lp: Dict, h: torch.Tensor):
         residual = h
         hn = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
         attn_out, new_kv = attention(
@@ -89,10 +109,21 @@ def text_model_forward(
         h = residual + attn_out
         residual = h
         hn = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-        moe_out = dcmoe_block(lp["moe"], hn, cfg, padding_token_mask=padding_token_mask)
-        h = residual + moe_out.hidden_states
-        aux.append(moe_out.aux_loss)
-        top_k.append(moe_out.router_top_k)
+        moe_out = dcmoe_block(
+            lp["moe"], hn, cfg, padding_token_mask=padding_token_mask,
+            aux_balance_weight=aux_balance_weight, training=training,
+            seed=fold_seed(seed, i) if training and seed is not None else None)
+        return residual + moe_out.hidden_states, moe_out.aux_loss, moe_out.router_top_k
+
+    h = inputs_embeds
+    aux, top_k = [], []
+    for i, lp in enumerate(params["layers"]):
+        if remat and torch.is_grad_enabled():
+            h, aux_i, top_k_i = checkpoint(layer, i, lp, h, use_reentrant=False)
+        else:
+            h, aux_i, top_k_i = layer(i, lp, h)
+        aux.append(aux_i)
+        top_k.append(top_k_i)
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     return TextModelOutput(
         last_hidden_state=h, kv_cache=kv_cache,
@@ -126,6 +157,96 @@ def codec_logits_from_hidden(params: Dict, hidden: torch.Tensor,
     flat = matmul(hidden, params["codec_head"]).float()
     B, T = hidden.shape[:2]
     return flat.reshape(B, T, cfg.codec_channels, cfg.codec_embed_size)
+
+
+class ModelOutput(NamedTuple):
+    loss: Optional[torch.Tensor]
+    codec_loss: Optional[torch.Tensor]
+    aux_loss: torch.Tensor
+    logits: Optional[torch.Tensor]
+    codec_logits: torch.Tensor
+    router_top_k: torch.Tensor
+
+
+def _shifted_ce(logits: torch.Tensor, labels: torch.Tensor, dims) -> torch.Tensor:
+    """Next-token cross-entropy: logits [B, T, ..., V] against labels
+    [B, T, ...] shifted by one position, -100 ignored; the sum of the NLL
+    over `dims` divided by the count of valid labels there (at least 1)."""
+    shift_logits = logits[:, :-1]
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum(dim=dims) / valid.sum(dim=dims).clamp_min(1)
+
+
+def model_forward(
+    params: Dict,
+    cfg: UniMoEAudioConfig,
+    input_ids: torch.Tensor,
+    *,
+    codec_input_ids: Optional[torch.Tensor] = None,   # [B, T, C] aligned
+    attention_mask: Optional[torch.Tensor] = None,    # [B, T]
+    position_ids: Optional[torch.Tensor] = None,      # [3, B, T]
+    inputs_embeds: Optional[torch.Tensor] = None,
+    codec_labels: Optional[torch.Tensor] = None,      # [B, T, C], -100 = ignore
+    labels: Optional[torch.Tensor] = None,            # [B, T] text labels, -100 = ignore
+    aux_balance_weight: Optional[torch.Tensor] = None,
+    aux_loss_weight=0.0,
+    pixel_values: Optional[torch.Tensor] = None,
+    pixel_values_videos: Optional[torch.Tensor] = None,
+    training: bool = False,
+    seed: Optional[int] = None,
+    remat: bool = False,
+    use_flash: Optional[bool] = None,
+) -> ModelOutput:
+    """Full-model forward without a cache — the training / eval path
+    (`model.py:432-567`): input embedding with the codec scatter, the
+    decoder stack, the lm and codec heads, the per-channel shifted codec CE
+    summed over channels, the optional text-label CE, plus
+    aux_loss_weight · mean(aux)."""
+    if pixel_values is not None or pixel_values_videos is not None:
+        raise NotImplementedError("vision inputs come with the VT2M slice")
+    tc = cfg.text_config
+    B, T = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones(B, T, dtype=torch.int32, device=input_ids.device)
+    if inputs_embeds is None:
+        inputs_embeds = calculate_input_embedding(
+            params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
+    if position_ids is None:
+        pos = torch.cumsum(attention_mask, dim=-1) - 1
+        pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+        position_ids = pos[None].expand(3, B, T)
+    abw = None
+    if aux_balance_weight is not None:
+        abw = attention_mask * aux_balance_weight
+
+    out = text_model_forward(
+        params, inputs_embeds, position_ids, tc,
+        kv_valid_mask=attention_mask, padding_token_mask=attention_mask,
+        aux_balance_weight=abw, training=training, seed=seed, remat=remat,
+        use_flash=use_flash)
+    hidden = out.last_hidden_state
+
+    logits = None
+    if labels is not None:
+        logits = matmul(hidden, params["lm_head"]).float()
+    codec_logits = codec_logits_from_hidden(params, hidden, cfg)
+
+    loss = codec_loss = None
+    mean_aux = out.aux_loss.mean()
+    if labels is not None:
+        loss = _shifted_ce(logits, labels, (0, 1)) + aux_loss_weight * mean_aux
+    if codec_labels is not None:
+        # Per-channel mean NLL, summed over channels; a channel with no
+        # label contributes 0.
+        codec_loss = _shifted_ce(codec_logits, codec_labels, (0, 1)).sum()
+        loss = (loss if loss is not None else aux_loss_weight * mean_aux) + codec_loss
+    return ModelOutput(loss=loss, codec_loss=codec_loss, aux_loss=mean_aux, logits=logits,
+                       codec_logits=codec_logits, router_top_k=out.router_top_k)
 
 
 def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bfloat16,

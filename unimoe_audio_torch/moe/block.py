@@ -1,5 +1,6 @@
-"""The DCMoE block, inference path — counterpart of `dcmoe_block`
-(`unimoe_audio_tpu/moe/block.py:42-236`) with dense dispatch.
+"""The DCMoE block — counterpart of `dcmoe_block`
+(`unimoe_audio_tpu/moe/block.py:42-236`) with dense dispatch, for inference
+and training.
 
   params = {
     "gate":    [D, num_experts]        router projection (no bias)
@@ -8,9 +9,13 @@
   }
 
 Null experts exist only in the router.  Fixed experts are always on, and
-`padding_token_mask` gates the dynamic selection.  Training (jitter, the
-Gumbel mixer, token drop), a8 and the non-dense dispatch modes come with
-later slices and raise here.
+`padding_token_mask` gates the dynamic selection.  Training adds the f32
+router (`fp32_gate`), input jitter on the router's input (experts see the
+un-jittered hidden states) and the `aux_balance_weight` emphasis of the
+load-balancing loss; the mixer stays the closed-form eval mixer, as in the
+JAX package with `ignore_differentiable_router=True`.  The Gumbel mixer,
+token drop, a8 and the non-dense dispatch modes come with later slices and
+raise here.
 """
 
 from __future__ import annotations
@@ -33,25 +38,58 @@ class MoEOutput(NamedTuple):
     aux_loss: torch.Tensor           # scalar
 
 
+def input_jitter(shape, seed: int, eps: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """Multiplicative router-input noise U(1 - eps, 1 + eps), drawn from a
+    generator seeded with `seed` on `device`.  The seed, not a generator's
+    running state, fixes the draw, so a recompute under activation
+    checkpointing draws the same noise.  (The numbers differ from
+    `jax.random.uniform`'s for the same seed.)"""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return (u * (2 * eps) + (1 - eps)).to(dtype)
+
+
 def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *,
                 padding_token_mask: Optional[torch.Tensor] = None,
+                aux_balance_weight: Optional[torch.Tensor] = None,
                 training: bool = False,
+                seed: Optional[int] = None,
                 dispatch_mode: str = "dense") -> MoEOutput:
-    if training:
-        raise NotImplementedError("DCMoE training comes with the training slice")
+    """Forward of the DCMoE block (`block.py:42-236`).  `seed` (training
+    with input jitter) takes the place of the JAX package's rng key;
+    aux_balance_weight [B, T] weights tokens in the load-balancing loss."""
+    if dispatch_mode.endswith("_a8") and training:
+        raise ValueError("a8 expert compute is serving-only (round() is not "
+                         "differentiable); drop the _a8 suffix for training")
     if dispatch_mode != "dense":
         raise NotImplementedError(
             f"dispatch_mode={dispatch_mode!r} comes with a later slice; this one is dense")
     if cfg.token_drop:
-        raise NotImplementedError("token_drop comes with the training slice")
+        raise NotImplementedError("token_drop comes with a later training slice")
+    if training and not cfg.ignore_differentiable_router:
+        raise NotImplementedError(
+            "the Gumbel / straight-through mixer (ignore_differentiable_router=False) "
+            "comes with a later training slice")
     B, T, dim = hidden_states.shape
     S = B * T
     E_dyn = cfg.num_dynamic_experts
     E_real = cfg.mlp_dynamic_expert_num
     E_total = cfg.num_experts
+    original = hidden_states
 
-    x = hidden_states.reshape(S, dim)
+    x = hidden_states
+    if training and cfg.fp32_gate:
+        x = x.float()
+    if training and cfg.input_jitter_noise > 0:
+        if seed is None:
+            raise ValueError("training DCMoE requires a seed")
+        x = x * input_jitter(x.shape, seed, cfg.input_jitter_noise, x.dtype, x.device)
+    x = x.reshape(S, dim)
+
     gate_w = params["gate"]
+    if training and cfg.fp32_gate:
+        gate_w = gate_w.float()
     # The router weight may be f32 under bf16 activations (as initialised);
     # the product runs in the promoted type, as jnp's `@` does.
     ct = torch.promote_types(x.dtype, gate_w.dtype)
@@ -76,7 +114,9 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
         # assignment would stage the 1 as a CPU tensor and read it back.
         expert_mask[:, E_dyn:].fill_(1)
 
-    aux_loss = R.load_balancing_loss(expert_mask, full_router_logits, E_dyn)
+    aux_loss = R.load_balancing_loss(
+        expert_mask, full_router_logits, E_dyn,
+        None if aux_balance_weight is None else aux_balance_weight.reshape(S))
 
     if E_dyn < E_total:
         global_weight = R.global_routing_weight(
@@ -84,11 +124,12 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     else:
         global_weight = routing_weights
 
-    gw = global_weight.to(x.dtype)
-    out = D.moe_ffn_dense(x, expert_mask[:, :E_real], gw[:, :E_real], params["dynamic"])
+    x_orig = original.reshape(S, dim)
+    gw = global_weight.to(x_orig.dtype)
+    out = D.moe_ffn_dense(x_orig, expert_mask[:, :E_real], gw[:, :E_real], params["dynamic"])
 
     if cfg.mlp_fixed_expert_num > 0:
-        x_fixed = x[None].expand(cfg.mlp_fixed_expert_num, *x.shape)
+        x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)
         y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"])      # [nF, S, D]
         w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
         out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)

@@ -1,7 +1,9 @@
-"""DCMoE routing math, inference path — counterpart of
-`unimoe_audio_tpu/moe/router.py` (Top-P expert count, the closed-form eval
-mixer, the global routing weight and the load-balancing loss).  The
-training mixer (Gumbel, straight-through) comes with the training slice.
+"""DCMoE routing math — counterpart of `unimoe_audio_tpu/moe/router.py`
+(Top-P expert count, the closed-form eval mixer with its gradient, the
+global routing weight and the load-balancing loss).  Training uses the
+eval mixer, as the JAX package does under the default
+`ignore_differentiable_router=True`; the Gumbel / straight-through
+`sparse_expert_mixer` (`router.py:60-171`) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -45,12 +47,15 @@ def sparse_expert_mixer_eval(scores: torch.Tensor, top_k: torch.Tensor, *,
     oh = (rank[:, :, None] == idx[None, None, :]).float()          # [S, e, r]
     v = (oh * scores[:, :, None]).sum(dim=1)                       # [S, r] desc
     oh = oh.transpose(1, 2)                                        # [S, r, e]
-    factor = torch.maximum(v.abs()[:, :, None], v.abs()[:, None, :])
-    ratio = (v[:, :, None] - v[:, None, :]) / factor               # [S, r, j]
+    # Gradient as in the JAX package: the permutation, the near-set and the
+    # shifts by v_r are constants (stop_gradient there, detach here).
+    vs = v.detach()
+    factor = torch.maximum(vs.abs()[:, :, None], vs.abs()[:, None, :])
+    ratio = (vs[:, :, None] - vs[:, None, :]) / factor             # [S, r, j]
     include = (idx[None, None, :] >= idx[None, :, None]) & ~(ratio > 2 * jitter_eps)
-    z = torch.exp(v[:, None, :] - v[:, :, None])
+    z = torch.exp(v[:, None, :] - vs[:, :, None])
     denom = torch.where(include, z, torch.zeros_like(z)).sum(dim=-1)   # [S, r]
-    mult = torch.exp(v - v) / denom
+    mult = torch.exp(v - vs) / denom
     active = idx[None, :] < top_k[:, None]                         # [S, r]
     w = (torch.where(active, mult, torch.zeros_like(mult))[:, :, None] * oh).sum(dim=1)
     m = torch.where(active[:, :, None], oh, torch.zeros_like(oh)).sum(dim=1)

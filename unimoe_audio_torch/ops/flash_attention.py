@@ -1,24 +1,31 @@
-"""Causal GQA flash-attention forward: the hand-written CUDA kernel
-`csrc/flash_attention_fwd.cu` and its plain PyTorch version.
+"""Causal GQA flash attention with exact gradients: the hand-written CUDA
+kernels `csrc/flash_attention_fwd.cu` (forward) and
+`csrc/flash_attention_bwd.cu` (dq; dk and dv), their plain PyTorch versions,
+and the autograd function that joins them.
 
-Replaces the Pallas TPU kernel `_flash_kernel`
-(`unimoe_audio_tpu/ops/flash_attention.py:30-97`, reached through
-`_flash_forward` and the public `flash_attention` :386-403), which runs the
-prefill of the generate loop.  Layout as there: q [B, H, T, Dh],
-k/v [B, KV, S, Dh], kv_valid [B, S] (1 = attendable); query head h reads kv
-head h // (H / KV); query row i sits at key position i + S - T.  A row with
-no attendable key outputs 0.
+Replaces the Pallas TPU kernels of `unimoe_audio_tpu/ops/flash_attention.py`:
+`_flash_kernel` (:30-97, the forward, reached through `_flash_forward` and
+the public `flash_attention` :386-403), and the two backward kernels of its
+custom VJP, `_flash_bwd_dq_kernel` (:150-205) and `_flash_bwd_dkv_kernel`
+(:208-275).  Layout as there: q [B, H, T, Dh], k/v [B, KV, S, Dh],
+kv_valid [B, S] (1 = attendable); query head h reads kv head h // (H / KV);
+query row i sits at key position i + S - T.  A row with no attendable key
+outputs 0 and gets no gradient.
 
-What bounds it on the H100: at prefill shapes (B = 8, H = 16, KV = 2,
-T = S = 128, Dh = 128) one call reads and writes about 9 MB and does about
-0.5 GFLOP, so it is bound by memory traffic and launch latency.  The kernel
-keeps every score tile in shared memory (the [T, S] matrix never reaches
-device memory) and reads each K/V tile once per query tile; see the source
-for the design.
+What bounds them on the H100: at prefill shapes (B = 8, H = 16, KV = 2,
+T = S = 128, Dh = 128) a forward moves about 9 MB and does about 0.5 GFLOP,
+so it is bound by memory traffic and launch latency; at the training shape
+(B = 4, T = S = 2048) each kernel does 34-138 GFLOP on about 70 MB and is
+bound by the tensor cores.  The kernels keep every score tile in shared
+memory (the [T, S] matrices never reach device memory); see the sources
+for the designs.
 
-`flash_attention` takes a CPU tensor to the plain version and a CUDA tensor
-to the kernel, with no fallback between them.  `flash_attention.launches`
-counts the kernel's launches.
+`flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
+the plain version and a CUDA tensor to the kernel, with no fallback between
+them; its backward runs the two backward kernels on the card and their plain
+versions on the CPU.  Each
+wrapper counts its kernel's launches: `flash_attention.launches`,
+`flash_attention_bwd_dq.launches`, `flash_attention_bwd_dkv.launches`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,21 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type scores and softmax statistics are computed in: f32, or f64
+    for f64 inputs (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _allowed(kv_valid, T: int, S: int, causal: bool):
+    """[B, 1, T, S] bool: key s is attendable by query row t."""
+    allowed = (kv_valid[:, None, None, :] > 0)
+    if causal:
+        tri = torch.ones(T, S, dtype=torch.bool, device=kv_valid.device).tril(S - T)
+        allowed = allowed & tri
+    return allowed
 
 
 def flash_attention_reference(q, k, v, kv_valid, causal: bool = True,
@@ -43,11 +65,8 @@ def flash_attention_reference(q, k, v, kv_valid, causal: bool = True,
     g = H // KV
     kk = k.repeat_interleave(g, dim=1)
     vv = v.repeat_interleave(g, dim=1)
-    s = torch.einsum("bhtd,bhsd->bhts", q, kk).float() * Dh ** -0.5
-    allowed = (kv_valid[:, None, None, :] > 0).expand(B, H, T, S)
-    if causal:
-        tri = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
-        allowed = allowed & tri
+    s = torch.einsum("bhtd,bhsd->bhts", q, kk).to(_acc_dtype(q.dtype)) * Dh ** -0.5
+    allowed = _allowed(kv_valid, T, S, causal).expand(B, H, T, S)
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     live = allowed.any(dim=-1, keepdim=True)
     p = torch.softmax(s, dim=-1).to(q.dtype)
@@ -59,6 +78,50 @@ def flash_attention_reference(q, k, v, kv_valid, causal: bool = True,
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     l = torch.where(live[..., 0], l, torch.full_like(l, -NEG_INF))
     return out, m.reshape(B * H, T), l.reshape(B * H, T)
+
+
+def _bwd_tiles(q, k, v, do, m, l, dvec, kv_valid, causal):
+    """The backward kernels' shared arithmetic on whole matrices: P rebuilt
+    from the residuals and dS = where(allowed, P ∘ (dP − D), 0), both
+    [B, H, T, S] and rounded to the input dtype, as the kernels round them
+    before their products; plus kv expanded to H heads, in the accumulation
+    type."""
+    B, H, T, Dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    ct = _acc_dtype(q.dtype)
+    kk = k.repeat_interleave(H // KV, dim=1).to(ct)
+    vv = v.repeat_interleave(H // KV, dim=1).to(ct)
+    s = torch.einsum("bhtd,bhsd->bhts", q.to(ct), kk) * Dh ** -0.5
+    allowed = _allowed(kv_valid, T, S, causal)
+    linv = 1.0 / l.reshape(B, H, T, 1).to(ct).clamp_min(1e-30)
+    p = torch.where(allowed, torch.exp(s - m.reshape(B, H, T, 1).to(ct)) * linv, 0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", do.to(ct), vv)
+    ds = torch.where(allowed, p * (dp - dvec.reshape(B, H, T, 1).to(ct)), 0.0)
+    return p.to(q.dtype).to(ct), ds.to(q.dtype).to(ct), kk
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
+    """Plain version of the dq kernel (the formulas of `_flash_bwd_dq_kernel`):
+    dq = scale · dS · K, accumulated in f32."""
+    _, ds, kk = _bwd_tiles(q, k, v, do, m, l, dvec, kv_valid, causal)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kk) * q.shape[-1] ** -0.5
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
+    """Plain version of the dk/dv kernel (the formulas of
+    `_flash_bwd_dkv_kernel` plus the GQA group-sum): per query head
+    dv_h = Pᵀ · dO and dk_h = scale · dSᵀ · Q, summed over each kv head's
+    H / KV query heads, accumulated in f32."""
+    B, H, T, Dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    p, ds, _ = _bwd_tiles(q, k, v, do, m, l, dvec, kv_valid, causal)
+    ct = p.dtype
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, q.to(ct)) * Dh ** -0.5
+    dv = torch.einsum("bhts,bhtd->bhsd", p, do.to(ct))
+    dk = dk.reshape(B, KV, H // KV, S, Dh).sum(dim=2)
+    dv = dv.reshape(B, KV, H // KV, S, Dh).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, kv_valid):
@@ -88,44 +151,146 @@ def _check(q, k, v, kv_valid):
     return B, H, KV, T, S, Dh
 
 
-def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
+    B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
+            or do.data_ptr() % 16:
+        raise ValueError("dO must be a contiguous, 16-byte aligned tensor shaped and typed as q")
+    for name, t in (("m", m), ("l", l), ("D", dvec)):
+        if t.shape != (B * H, T) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous f32 [B*H, T] tensor")
+    if not (q.device == do.device == m.device == l.device == dvec.device):
+        raise ValueError("all inputs must be on one device")
+    return B, H, KV, T, S, Dh
+
+
+def _call(source: str, name: str, n_ptrs: int, *args) -> None:
+    """Launch the C entry `name` of csrc/<source>.cu on the current stream
+    (n_ptrs pointers, then 7 ints and the scale); raise if the launch
+    failed."""
     from .cuda_build import load
 
+    fn = getattr(load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
     o = torch.empty_like(q)
     m = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     l = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     if T == 0:
         return o, m, l
-    fn = load("flash_attention_fwd").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-                 o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 B, H, KV, T, S, Dh, int(causal), Dh ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        _call("flash_attention_fwd", "flash_attention_fwd", 7,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+              o.data_ptr(), m.data_ptr(), l.data_ptr(),
+              B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
     flash_attention.launches += 1
     return o, m, l
+
+
+def _cpu_only(q) -> None:
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+def flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
+    """dq [B, H, T, Dh] from the forward's inputs, dO, its residuals m, l
+    and D = rowsum(dO ∘ O) ([B*H, T] f32 each).  The kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if not q.is_cuda:
+        _cpu_only(q)
+        return flash_attention_bwd_dq_reference(q, k, v, do, m, l, dvec, kv_valid, causal)
+    B, H, KV, T, S, Dh = _check_bwd(q, k, v, do, m, l, dvec, kv_valid)
+    if T == 0 or S == 0:
+        return torch.zeros_like(q)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _call("flash_attention_bwd", "flash_attention_bwd_dq", 9,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
+              l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dq.data_ptr(),
+              B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
+    """(dk, dv) [B, KV, S, Dh], GQA group-summed, from the same inputs as
+    `flash_attention_bwd_dq`.  The kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if not q.is_cuda:
+        _cpu_only(q)
+        return flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, kv_valid, causal)
+    B, H, KV, T, S, Dh = _check_bwd(q, k, v, do, m, l, dvec, kv_valid)
+    if T == 0 or S == 0:
+        return torch.zeros_like(k), torch.zeros_like(v)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _call("flash_attention_bwd", "flash_attention_bwd_dkv", 10,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
+              l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def softmax_residual_rowsum(do, o) -> torch.Tensor:
+    """D = rowsum(dO ∘ O) [B*H, T] in f32 (f64 for f64 inputs), computed
+    outside the kernels as in the JAX package (:307)."""
+    B, H, T, _ = o.shape
+    ct = _acc_dtype(o.dtype)
+    return (do.to(ct) * o.to(ct)).sum(dim=-1).reshape(B * H, T)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the JAX package's custom VJP
+    (`_flash_with_vjp`, :119-143): the forward saves q, k, v, kv_valid, o
+    and the residuals m, l; the backward runs the dq and dk/dv kernels (the
+    plain versions for CPU tensors).  Returns (o, m, l); m and l carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal: bool):
+        if q.is_cuda:
+            o, m, l = _flash_forward_cuda(q, k, v, kv_valid, causal)
+        else:
+            _cpu_only(q)
+            o, m, l = flash_attention_reference(q, k, v, kv_valid, causal, return_stats=True)
+        ctx.save_for_backward(q, k, v, kv_valid, o, m, l)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(m, l)
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, do, _dm, _dl):
+        q, k, v, kv_valid, o, m, l = ctx.saved_tensors
+        do = do.contiguous()
+        dvec = softmax_residual_rowsum(do, o)
+        dq = flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, kv_valid: Optional[torch.Tensor] = None, *,
                     causal: bool = True, return_stats: bool = False):
     """Attention output [B, H, T, Dh]; with return_stats also the softmax
-    residuals m, l [B*H, T] f32.  The kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    residuals m, l [B*H, T] f32.  Through `FlashAttention`: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor; a graph is recorded only
+    when q, k or v requires a gradient."""
     if kv_valid is None:
         kv_valid = torch.ones(q.shape[0], k.shape[2], dtype=torch.int32, device=q.device)
-    if q.is_cuda:
-        o, m, l = _flash_forward_cuda(q, k, v, kv_valid, causal)
-        return (o, m, l) if return_stats else o
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return flash_attention_reference(q, k, v, kv_valid, causal, return_stats=return_stats)
+    o, m, l = FlashAttention.apply(q, k, v, kv_valid, causal)
+    return (o, m, l) if return_stats else o
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

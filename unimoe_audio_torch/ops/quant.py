@@ -32,9 +32,9 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def proj_matmul(x: torch.Tensor, proj: Dict) -> torch.Tensor:
-    """x @ proj['w'] (LoRA deltas come with the training slice)."""
+    """x @ proj["w"] (LoRA deltas come with the PEFT slice)."""
     if "lora_a" in proj:
-        raise NotImplementedError("LoRA projections come with the training slice")
+        raise NotImplementedError("LoRA projections come with the PEFT slice")
     return matmul(x, proj["w"])
 
 

@@ -1,0 +1,252 @@
+"""Training step of the port: AdamW with the warmup schedule, global-norm
+clipping, the no-decay mask and `trainable_pattern` freezing, the loss and
+one update — counterpart of `unimoe_audio_tpu/train/step.py`.
+
+The optimizer is written out by hand with optax's semantics, where torch's
+own differ: `clip_by_global_norm` scales by max_norm / norm only when
+norm >= max_norm (torch's `clip_grad_norm_` adds 1e-6 to the norm);
+`warmup_cosine_decay_schedule(0, lr, warmup, total)` gives lr 0 at count
+0, so the first update moves no parameter but advances the moments; AdamW
+has eps 1e-8 outside the square root, bias correction and decoupled decay;
+the moments are kept in the parameter dtype.  A frozen parameter
+(`trainable_pattern`) keeps its moments moving and gets a zero update, as
+optax's `masked(set_to_zero())` after the chain does.
+
+Unlike optax, the update is applied in place: parameters and moments are
+overwritten, with no second copy of either on the card.  The moment
+arithmetic runs in f32 and is stored back in the parameter dtype.
+
+Parameter names for the decay mask and `trainable_pattern` are the
+slash-joined paths of the JAX package's layer-stacked tree (e.g.
+`layers/moe/gate`): the port's per-layer list index is left out, so one
+regex selects the same parameters in both.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+from ..config import UniMoEAudioConfig
+from ..models.model import fold_seed, model_forward
+
+
+def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor) for every leaf, in a fixed order; list indices (the
+    per-layer dicts) do not enter the name."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from named_leaves(v, prefix)
+    else:
+        yield prefix, tree
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1 - min(max(count, 0), steps) / steps) + end
+
+
+def _cosine(init: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    if decay_steps <= 0:
+        raise ValueError("the cosine schedule needs decay_steps > 0")
+
+    def f(count: int) -> float:
+        c = min(count, decay_steps)
+        return init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
+    return f
+
+
+def _join(first: Callable[[int], float], second: Callable[[int], float],
+          boundary: int) -> Callable[[int], float]:
+    return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def make_lr_schedule(learning_rate: float, warmup_steps: int, total_steps: int,
+                     schedule: str = "cosine") -> Callable[[int], float]:
+    """Update count -> learning rate: linear warmup from 0, then cosine or
+    linear decay (optax's `warmup_cosine_decay_schedule` / joined linear
+    schedules, as `make_lr_schedule` in the JAX package); any other
+    `schedule` is a constant rate."""
+    if schedule == "cosine":
+        decay_steps = max(total_steps, warmup_steps + 1)
+        return _join(_linear(0.0, learning_rate, warmup_steps),
+                     _cosine(learning_rate, decay_steps - warmup_steps), warmup_steps)
+    if schedule == "linear":
+        return _join(_linear(0.0, learning_rate, warmup_steps),
+                     _linear(learning_rate, 0.0, total_steps - warmup_steps), warmup_steps)
+    return lambda count: learning_rate
+
+
+def _decays(name: str) -> bool:
+    """Whether a parameter takes weight decay: not norms, not biases (the
+    JAX package's decay mask, `step.py:82-86`)."""
+    return not any(s in name for s in ("layernorm", "norm", "_b", "/b"))
+
+
+@dataclass
+class OptState:
+    mu: List[torch.Tensor]                   # first moments, one per leaf
+    nu: List[torch.Tensor]                   # second moments
+    count: int = 0                           # updates applied
+
+
+@dataclass
+class AdamW:
+    """clip_by_global_norm(grad_clip) → AdamW(schedule) → zero update for
+    frozen parameters, as the optax chain of `make_optimizer`."""
+
+    schedule: Callable[[int], float]
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    trainable_pattern: Optional[str] = None
+    _pattern: Optional[re.Pattern] = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        if self.trainable_pattern is not None:
+            self._pattern = re.compile(self.trainable_pattern)
+
+    def trainable(self, name: str) -> bool:
+        return self._pattern is None or bool(self._pattern.search(name))
+
+    def init(self, params) -> OptState:
+        leaves = [t for _, t in named_leaves(params)]
+        return OptState(mu=[torch.zeros_like(t) for t in leaves],
+                        nu=[torch.zeros_like(t) for t in leaves])
+
+    @torch.no_grad()
+    def apply(self, params, grads: List[Optional[torch.Tensor]], state: OptState,
+              grad_norm: torch.Tensor) -> None:
+        """One update, in place.  grads align with `named_leaves(params)`;
+        None stands for a zero gradient (a parameter the loss does not
+        reach)."""
+        scale = torch.where(grad_norm < self.grad_clip, torch.ones_like(grad_norm),
+                            self.grad_clip / grad_norm)
+        lr = self.schedule(state.count)
+        count = state.count + 1
+        bc1 = 1 - self.b1 ** count
+        bc2 = 1 - self.b2 ** count
+        for (name, p), g, mu, nu in zip(named_leaves(params), grads, state.mu, state.nu):
+            mu32 = mu.float().mul_(self.b1)
+            nu32 = nu.float().mul_(self.b2)
+            if g is not None:
+                g32 = g.float() * scale
+                mu32.add_(g32, alpha=1 - self.b1)
+                nu32.addcmul_(g32, g32, value=1 - self.b2)
+            mu.copy_(mu32)
+            nu.copy_(nu32)
+            if not self.trainable(name):
+                continue
+            u = (mu32 / bc1).div_((nu32 / bc2).sqrt_().add_(self.eps))
+            p32 = p.float()
+            if self.weight_decay and _decays(name):
+                u.add_(p32, alpha=self.weight_decay)
+            p.copy_(p32.sub_(u, alpha=lr))
+        state.count = count
+
+
+def make_optimizer(*, learning_rate: float = 1e-4, weight_decay: float = 0.0,
+                   warmup_steps: int = 100, total_steps: int = 10000,
+                   schedule: str = "cosine", b1: float = 0.9, b2: float = 0.999,
+                   grad_clip: float = 1.0, trainable_pattern: Optional[str] = None,
+                   grad_accum_steps: int = 1) -> AdamW:
+    """AdamW + warmup-cosine/-linear decay, as `make_optimizer` in the JAX
+    package (`step.py:51-111`).  trainable_pattern: regex over parameter
+    names; parameters it does not match are frozen."""
+    if grad_accum_steps > 1:
+        raise NotImplementedError("grad_accum_steps > 1 comes with a later training slice")
+    return AdamW(schedule=make_lr_schedule(learning_rate, warmup_steps, total_steps, schedule),
+                 b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip,
+                 trainable_pattern=trainable_pattern)
+
+
+@dataclass
+class TrainState:
+    params: Dict
+    opt_state: OptState
+    step: int                                  # host counter of applied steps
+
+
+def init_train_state(params: Dict, optimizer: AdamW) -> TrainState:
+    """Marks every floating parameter as requiring a gradient."""
+    for _, t in named_leaves(params):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def aux_weight_at_step(cfg: UniMoEAudioConfig, step: int) -> float:
+    """Linearly decayed aux-loss weight (`step.py:114-121`)."""
+    tc = cfg.text_config
+    w0, w1 = tc.l_aux_weight, tc.min_l_aux_weight
+    steps = max(1, tc.l_aux_weight_decay_steps)
+    return w1 if step >= steps else w0 - (w0 - w1) / steps * step
+
+
+def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor], seed: int,
+            aux_weight: float, *, remat: bool = True,
+            use_flash: Optional[bool] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss and its metrics (`step.py:124-208`); `seed` stands
+    for the JAX rng key."""
+    if any(k.startswith("vision_") or k in ("pixel_values", "image_grid_thw") for k in batch):
+        raise NotImplementedError("vision training comes with the VT2M slice")
+    if "peft" in params:
+        raise NotImplementedError("PEFT adapters come with the PEFT slice")
+    out = model_forward(
+        params, cfg, batch["input_ids"],
+        codec_input_ids=batch.get("codec_input_ids"),
+        attention_mask=batch.get("attention_mask"),
+        position_ids=batch.get("position_ids"),
+        inputs_embeds=batch.get("inputs_embeds"),
+        codec_labels=batch.get("codec_labels"),
+        labels=batch.get("labels"),
+        aux_balance_weight=batch.get("aux_balance_weight"),
+        aux_loss_weight=aux_weight,
+        training=True, seed=seed, remat=remat, use_flash=use_flash)
+    zero = torch.zeros((), dtype=torch.float32, device=out.aux_loss.device)
+    metrics = {
+        "loss": out.loss,
+        "codec_loss": out.codec_loss if out.codec_loss is not None else zero,
+        "aux_loss": out.aux_loss,
+        "mean_top_k": out.router_top_k.float().mean(),
+    }
+    return out.loss, metrics
+
+
+def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient, in f32 (optax.global_norm)."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads if g is not None]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
+               cfg: UniMoEAudioConfig, optimizer: AdamW, remat: bool = True,
+               use_flash: Optional[bool] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One step (`step.py:211-249`): loss and gradients, then the update in
+    place — unless the loss or the gradient norm is not finite, in which
+    case parameters, moments and the step count stay as they were
+    (`skipped` = 1).  The finite test reads one flag to the host per step."""
+    aux_w = aux_weight_at_step(cfg, state.step)
+    loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
+                            remat=remat, use_flash=use_flash)
+    leaves = [t for _, t in named_leaves(state.params)]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grad_norm = global_norm(grads)
+    finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(grad_norm))
+    if finite:
+        optimizer.apply(state.params, list(grads), state.opt_state, grad_norm)
+        state.step += 1
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = grad_norm
+    metrics["skipped"] = torch.tensor(0.0 if finite else 1.0)
+    return state, metrics

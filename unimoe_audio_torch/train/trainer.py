@@ -1,0 +1,221 @@
+"""Training loop of the port: the steps, metrics and evaluation —
+counterpart of `unimoe_audio_tpu/train/trainer.py` for the paths this
+slice carries.  `Trainer.fit` (with `ckpt_dir=None`) is the entry point.
+
+The trainer runs on the card (`device="cuda"`, the default) and raises
+without one; the tests pass `device="cpu"`.  Checkpoints, `save_pretrained`,
+vision batches, ring attention and gradient accumulation come with later
+slices and raise here; the slice runs dense dispatch.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import UniMoEAudioConfig
+from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
+    train_step
+
+
+@dataclass
+class TrainerConfig:
+    """The JAX package's `TrainerConfig` (same names and defaults) less the
+    fields of paths not ported yet (checkpoint cadence, vision, non-dense
+    dispatch).  `ckpt_dir`, `ring_axis` and `grad_accum_steps > 1` are kept
+    so that a config asking for them is refused with a message."""
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"
+    grad_clip: float = 1.0
+    log_every: int = 10
+    ckpt_dir: Optional[str] = None
+    remat: bool = True
+    seed: int = 0
+    grad_accum_steps: int = 1
+    eval_every: int = 0
+    trainable_pattern: Optional[str] = None
+    ring_axis: Optional[str] = None
+
+
+def compress_strings_set(strings):
+    """Compact a set of dotted names by folding numeric components into
+    ranges, e.g. {'layers.0.w', 'layers.1.w', 'layers.2.w', 'norm.w'} →
+    {'layers.[0-2].w', 'norm.w'} (one numeric field per pass, repeated to a
+    fixpoint).  Returns a set of compacted strings."""
+
+    def fold_once(names):
+        groups: Dict[str, list] = {}
+        passthrough = []
+        for s in names:
+            parts = s.split(".")
+            idx = next((i for i, p in enumerate(parts) if p.isdigit()), None)
+            if idx is None:
+                passthrough.append(s)
+                continue
+            key = ".".join(parts[:idx] + ["\x00"] + parts[idx + 1:])
+            groups.setdefault(key, []).append(int(parts[idx]))
+        out = list(passthrough)
+        for key, vals in groups.items():
+            vals.sort()
+            spans, lo = [], vals[0]
+            prev = lo
+            for v in vals[1:]:
+                if v != prev + 1:
+                    spans.append((lo, prev))
+                    lo = v
+                prev = v
+            spans.append((lo, prev))
+            ranged = ",".join(str(a) if a == b else f"{a}-{b}" for a, b in spans)
+            out.append(key.replace("\x00", f"[{ranged}]"))
+        return out
+
+    names = list(strings)
+    while True:
+        folded = fold_once(names)
+        if len(folded) == len(names):
+            return set(folded)
+        names = folded
+
+
+class MetricsLogger:
+    """stdout + optional JSONL + optional wandb metrics sink.  wandb is used
+    when use_wandb is True (fails if the package is missing), or when it is
+    None and the package imports and one of WANDB_API_KEY / WANDB_PROJECT /
+    WANDB_MODE is set."""
+
+    def __init__(self, jsonl_path: Optional[str] = None, *,
+                 use_wandb: Optional[bool] = None,
+                 wandb_run_config: Optional[Dict[str, Any]] = None):
+        self.jsonl_path = jsonl_path
+        self._fh = open(jsonl_path, "a") if jsonl_path else None
+        self._wandb = None
+        env_on = any(os.environ.get(k) for k in ("WANDB_API_KEY", "WANDB_PROJECT", "WANDB_MODE"))
+        if use_wandb or (use_wandb is None and env_on):
+            try:
+                import wandb  # type: ignore
+
+                if wandb.run is None:
+                    wandb.init(project=os.environ.get("WANDB_PROJECT", "unimoe-audio-torch"),
+                               name=os.environ.get("WANDB_NAME") or None,
+                               config=wandb_run_config or {})
+                self._wandb = wandb
+            except ImportError:
+                if use_wandb:
+                    raise
+                print("[metrics] wandb env set but package unavailable — JSONL/stdout only")
+
+    def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        flat = {k: float(v) for k, v in metrics.items()}
+        print(f"step {step}: " + ", ".join(f"{k}: {v:.4g}" for k, v in flat.items()))
+        if self._fh:
+            self._fh.write(json.dumps({"step": step, **flat}) + "\n")
+            self._fh.flush()
+        if self._wandb is not None:
+            self._wandb.log(flat, step=step)
+
+    def close(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
+
+
+class Trainer:
+    """Holds the parameters (on `device`), the optimizer state and the step
+    count; `fit` runs the steps, `evaluate` a forward-only pass."""
+
+    def __init__(self, cfg: UniMoEAudioConfig, params: Dict, tcfg: TrainerConfig, *,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer runs on a CUDA card and none is available; "
+                               "pass device='cpu' to train on the CPU")
+        for field_name, later in (("ckpt_dir", "checkpoints"), ("ring_axis", "ring attention")):
+            if getattr(tcfg, field_name) is not None:
+                raise NotImplementedError(f"{field_name}: {later} come with a later slice")
+        for name, t in named_leaves(params):
+            if t.device.type != self.device.type:
+                raise ValueError(f"parameter {name} is on {t.device}, the trainer on "
+                                 f"{self.device}")
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.optimizer = make_optimizer(
+            learning_rate=tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+            warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps,
+            schedule=tcfg.schedule, grad_clip=tcfg.grad_clip,
+            trainable_pattern=tcfg.trainable_pattern, grad_accum_steps=tcfg.grad_accum_steps)
+        self.state = init_train_state(params, self.optimizer)
+        self.logger = logger or MetricsLogger()
+        if tcfg.trainable_pattern is not None:
+            on = compress_strings_set(
+                n.replace("/", ".") for n, _ in named_leaves(params)
+                if self.optimizer.trainable(n))
+            print(f"[trainer] trainable ({tcfg.trainable_pattern!r}): {sorted(on)}")
+
+    def save_pretrained(self, out_dir: str) -> None:
+        raise NotImplementedError("save_pretrained comes with the checkpoint slice")
+
+    def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        if "pixel_values" in batch:
+            raise NotImplementedError("vision batches come with the VT2M slice")
+        return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+
+    @torch.no_grad()
+    def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
+                 max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Forward-only pass: mean of the loss metrics over eval_batches,
+        with seed 0 for the jitter (the JAX package's fixed key)."""
+        sums: Dict[str, float] = {}
+        n = 0
+        for j, batch in enumerate(eval_batches):
+            if max_batches is not None and j >= max_batches:
+                break
+            _, m = loss_fn(self.state.params, self.cfg, self._place_batch(batch), 0,
+                           aux_weight_at_step(self.cfg, self.state.step), remat=False)
+            for k, v in m.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        return {f"eval_{k}": v / max(n, 1) for k, v in sums.items()}
+
+    def fit(self, batches: Iterable[Dict[str, np.ndarray]], max_steps: Optional[int] = None,
+            eval_batches: Optional[List[Dict[str, np.ndarray]]] = None) -> List[Dict[str, float]]:
+        """Run one step per batch (up to max_steps); every log_every steps
+        log and keep the metrics.  Returns the kept metrics."""
+        history = []
+        t0 = time.time()
+        i = 0
+        for i, batch in enumerate(batches):
+            if max_steps is not None and i >= max_steps:
+                break
+            self.state, metrics = train_step(
+                self.state, self._place_batch(batch), self.tcfg.seed, cfg=self.cfg,
+                optimizer=self.optimizer, remat=self.tcfg.remat)
+            if i % self.tcfg.log_every == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                if metrics["skipped"]:
+                    print(f"[warning] non-finite loss/grad at step {i} "
+                          f"(loss={metrics['loss']}) — update skipped")
+                metrics["steps_per_sec"] = (i + 1) / (time.time() - t0)
+                self.logger.log(i, metrics)
+                history.append({"step": i, **metrics})
+            if (self.tcfg.eval_every and eval_batches is not None
+                    and i > 0 and i % self.tcfg.eval_every == 0):
+                em = self.evaluate(eval_batches)
+                self.logger.log(i, em)
+                history.append({"step": i, **em})
+        if self.tcfg.eval_every and eval_batches is not None:
+            em = self.evaluate(eval_batches)
+            self.logger.log(i, em)
+            history.append({"step": i, **em})
+        return history
