@@ -8,12 +8,17 @@ sm_90a) and the CUDA toolkit.  Phases, each of which exits non-zero on
 failure:
 
 1. set-up: the card's name and power limit (nvidia-smi); the kernel sources
-   unimoe_audio_torch/csrc/flash_attention_{fwd,bwd}.cu built with nvcc;
+   unimoe_audio_torch/csrc/{flash_attention_fwd,flash_attention_bwd,
+   grouped_gemm}.cu built with nvcc, one process per source, in parallel;
 2. each hand-written kernel against its plain PyTorch version on the card,
-   at the main paths' shapes plus ragged, left-padded, S > T, non-causal
-   and Dh 64 cases.  A small model's bf16 prefill, and its bf16 training
-   loss and gradient, are held against their f32 CPU runs;
-3. the two paths through the user's entry points, each with the launch
+   at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
+   non-causal and Dh 64 for the flash kernels; empty groups, groups smaller
+   than a tile, boundaries inside tiles, a budget below S x E, a width of
+   100 and rows past the last group for the grouped GEMMs (outputs filled
+   with NaN before each launch).  A small model's bf16 prefill, and its
+   bf16 training loss and gradient (dense and gmm dispatch), are held
+   against their f32 CPU runs;
+3. the paths through the user's entry points, each with the launch
    counters zeroed just before it and read just after:
    - text to music: `UniMoEAudio.text_to_music` at the full width and
      depth of the flagship model (36 layers, hidden 2048, bf16, random
@@ -21,8 +26,13 @@ failure:
      that the prompt buckets to 128 tokens (so the prefill takes the flash
      kernel), through `generate_chunked`; then repeated short calls for the
      prefill's spread and one under torch.profiler;
+   - the same model and captions through `generate_chunked(...,
+     dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
+     decode step), with the device-to-host reads per decode step of a
+     short gmm run and a short dense run under torch.profiler;
    - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
-     B 4 x T 2048, remat on, one warm-up and five timed steps;
+     B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
+     dispatch and then with `dispatch_mode="gmm"` on the same batch;
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take.
 
@@ -43,6 +53,7 @@ import sys
 import tempfile
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -84,8 +95,23 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 4, 2048
 TRAIN_TIMED_STEPS = 5
 # Extra T2M prefills timed after the main call.
 PREFILL_REPEATS = 5
+# Grouped GEMMs (K4, K4t, K5) vs their plain versions in bf16: both multiply
+# bf16 values exactly and sum in f32 in other orders, and K4t and K5 round
+# their sums to bf16.  The limits of K2 / K3, set before the first reading.
+GMM_RTOL, GMM_ATOL = 2e-2, 2e-2
+GMM_REL_L2 = 1e-2
+# Small-model training through gmm: its gradient error vs the f32 CPU run no
+# worse than 1.25 x the dense route's.
+TRAIN_GMM_VS_DENSE = 1.25
+# The flagship gmm training run's step 0 loss vs the dense run's, relative.
+TRAIN_GMM_LOSS_REL = 1e-2
+# Frames of the flagship gmm serving run, and of the short profiled runs
+# that count device-to-host reads per decode step.
+GMM_SERVING_FRAMES = 100
+READS_FRAMES = 8
 
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
+GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
 
 WORDS = ("warm analog synth pads drift over a slow hip hop beat with dusty vinyl "
          "crackle mellow electric piano chords deep sub bass and soft brushed "
@@ -300,7 +326,8 @@ def check_small_training() -> None:
     """A 2-layer model with head_dim 128 (input jitter off: the CPU and the
     card draw different noise), one `loss_fn` value and gradient with remat
     on, B 4 x T 128 with left padding: in bf16 on the card through the flash
-    kernels and through the einsum path (use_flash=False), each held against
+    kernels and through the einsum path (use_flash=False), and through the
+    flash kernels with gmm dispatch (the grouped GEMMs), each held against
     the f32 run on the CPU (the path the parity tests hold against JAX)."""
     import torch
     from unimoe_audio_torch.config import tiny_test_config
@@ -329,11 +356,12 @@ def check_small_training() -> None:
              "codec_labels": labels,
              "aux_balance_weight": np.where(labels[..., 0] != -100, 10.0, 1.0).astype(np.float32)}
 
-    def loss_and_grad(device, dtype, use_flash):
+    def loss_and_grad(device, dtype, use_flash, dispatch_mode="dense"):
         params = _to(cpu, device=device, dtype=dtype)
         TS.init_train_state(params, TS.make_optimizer())
         tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        loss, _ = TS.loss_fn(params, cfg, tb, 0, 0.025, remat=True, use_flash=use_flash)
+        loss, _ = TS.loss_fn(params, cfg, tb, 0, 0.025, remat=True, use_flash=use_flash,
+                             dispatch_mode=dispatch_mode)
         leaves = [t for _, t in TS.named_leaves(params)]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)   # lm_head is unused
         flat = torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten().cpu()
@@ -359,36 +387,63 @@ def check_small_training() -> None:
           f"einsum {e_loss} (limit {TRAIN_LOSS_REL})")
     check(f_grad < TRAIN_GRAD_REL_L2 and f_grad <= TRAIN_FLASH_VS_EINSUM * e_grad,
           f"bf16 training gradient vs f32: flash {f_grad}, einsum {e_grad}")
+    counts = _launch_counts()
+    gmm_loss, gmm_grad = loss_and_grad("cuda", torch.bfloat16, None, "gmm")
+    g_launch = {k: v - counts[k] for k, v in _launch_counts().items() if k in GROUPED}
+    want = dict(zip(GROUPED, (6 * L, 3 * L, 3 * L)))    # 3 projections; remat recomputes
+    check(g_launch == want, f"small gmm training launches {g_launch}, want {want}")
+    g_loss = abs(gmm_loss - ref_loss) / abs(ref_loss)
+    g_grad = _rel(gmm_grad, ref_grad)
+    check(g_loss < TRAIN_LOSS_REL and g_grad < TRAIN_GRAD_REL_L2
+          and g_grad <= TRAIN_GMM_VS_DENSE * f_grad,
+          f"bf16 gmm training vs f32: loss {g_loss}, gradient {g_grad} (dense {f_grad})")
     print(f"reference check: 2-layer training loss and gradient, bf16 card vs f32 CPU: loss "
           f"{ref_loss:.5f} (f32), relative error flash {f_loss:.3e}, einsum {e_loss:.3e} "
           f"(limit {TRAIN_LOSS_REL}); gradient relative L2 flash {f_grad:.3e}, einsum "
           f"{e_grad:.3e} (limits {TRAIN_GRAD_REL_L2}, and flash <= {TRAIN_FLASH_VS_EINSUM} x "
           f"einsum); flash launches fwd/dq/dkv {tuple(a - b for a, b in zip(after, before))}",
           flush=True)
+    print(f"reference check: the same through gmm dispatch: loss relative error {g_loss:.3e}, "
+          f"gradient relative L2 {g_grad:.3e} (limit {TRAIN_GMM_VS_DENSE} x dense {f_grad:.3e}); "
+          f"grouped launches {g_launch}", flush=True)
 
 
 def _launch_counts():
     from unimoe_audio_torch.ops import flash_attention as FA
+    from unimoe_audio_torch.ops import grouped_gemm as GG
 
     return {"flash_attention_fwd": FA.flash_attention.launches,
             "flash_attention_bwd_dq": FA.flash_attention_bwd_dq.launches,
-            "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches}
+            "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches,
+            "grouped_gemm_gmm": GG.gmm.launches,
+            "grouped_gemm_gmm_transposed": GG.gmm.transposed_launches,
+            "grouped_gemm_tgmm": GG.tgmm.launches}
+
+
+def _set_launch_counts(counts: dict) -> None:
+    from unimoe_audio_torch.ops import flash_attention as FA
+    from unimoe_audio_torch.ops import grouped_gemm as GG
+
+    FA.flash_attention.launches = counts["flash_attention_fwd"]
+    FA.flash_attention_bwd_dq.launches = counts["flash_attention_bwd_dq"]
+    FA.flash_attention_bwd_dkv.launches = counts["flash_attention_bwd_dkv"]
+    GG.gmm.launches = GG.grouped_matmul.launches = counts["grouped_gemm_gmm"]
+    GG.gmm.transposed_launches = counts["grouped_gemm_gmm_transposed"]
+    GG.tgmm.launches = counts["grouped_gemm_tgmm"]
 
 
 def _zero_launch_counts() -> None:
-    from unimoe_audio_torch.ops import flash_attention as FA
-
-    FA.flash_attention.launches = 0
-    FA.flash_attention_bwd_dq.launches = 0
-    FA.flash_attention_bwd_dkv.launches = 0
+    _set_launch_counts(dict.fromkeys(_launch_counts(), 0))
 
 
-def run_train_slice(card: str) -> dict:
+def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
     """The training path through the user's entry point, `Trainer.fit`, at
     the flagship width with TRAIN_LAYERS layers, bf16, random weights from
     seed 0, on the batch of the JAX package's train probe (all codec
     placeholders, codec labels = codec ids), remat on, AdamW lr 1e-4 with one
-    warm-up step of the schedule.  Returns the launch counts of the run."""
+    warm-up step of the schedule, with `dispatch_mode` in the DCMoE blocks
+    (gmm: its step 0 loss is held against the dense run's `dense_losses`).
+    Returns the launch counts of the run and its losses."""
     import dataclasses
 
     import torch
@@ -408,7 +463,8 @@ def run_train_slice(card: str) -> dict:
              "attention_mask": np.ones((B, T), np.int32),
              "codec_labels": codec.astype(np.int32)}
     trainer = Trainer(cfg, params, TrainerConfig(learning_rate=1e-4, warmup_steps=1,
-                                                 total_steps=100, log_every=1, remat=True))
+                                                 total_steps=100, log_every=1, remat=True,
+                                                 dispatch_mode=dispatch_mode))
     n_steps = 1 + TRAIN_TIMED_STEPS
     marks = []                              # (time, launch counts) at each step's start
 
@@ -429,25 +485,37 @@ def run_train_slice(card: str) -> dict:
 
     L = TRAIN_LAYERS
     per_step = [{k: b[1][k] - a[1][k] for k in a[1]} for a, b in zip(marks, marks[1:])]
+    gmm = dispatch_mode == "gmm"
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-            "flash_attention_bwd_dkv": L}
+            "flash_attention_bwd_dkv": L,
+            # 3 projections per layer, in the forward and the remat recompute
+            "grouped_gemm_gmm": 6 * L if gmm else 0,
+            "grouped_gemm_gmm_transposed": 3 * L if gmm else 0,
+            "grouped_gemm_tgmm": 3 * L if gmm else 0}
     check(all(p == want for p in per_step), f"launches per step {per_step}, want {want}")
     losses = [h["loss"] for h in history]
     check(len(losses) == n_steps and all(np.isfinite(losses)), f"losses {losses}")
     check(not any(h["skipped"] for h in history), "a training step was skipped")
     check(losses[-1] < losses[1], f"loss did not fall: {losses}")
+    if dense_losses is not None:
+        rel0 = abs(losses[0] - dense_losses[0]) / abs(dense_losses[0])
+        check(rel0 < TRAIN_GMM_LOSS_REL, f"{dispatch_mode} step 0 loss {losses[0]} vs dense "
+              f"{dense_losses[0]}: relative {rel0} (limit {TRAIN_GMM_LOSS_REL})")
+        print(f"train slice [{card}]: {dispatch_mode} step 0 loss vs dense: relative {rel0:.3e} "
+              f"(limit {TRAIN_GMM_LOSS_REL})", flush=True)
     step_s = [b[0] - a[0] for a, b in zip(marks[1:], marks[2:])]
     med = float(np.median(step_s))
-    print(f"train slice [{card}]: {L} layers at flagship width, {n_params / 1e9:.3f} B params "
+    print(f"train slice [{card}] {dispatch_mode}: {L} layers at flagship width, "
+          f"{n_params / 1e9:.3f} B params "
           f"bf16, B {B} x T {T}, remat on; losses {[round(x, 4) for x in losses]}; "
           f"grad norms {[round(h['grad_norm'], 3) for h in history]}", flush=True)
-    print(f"train slice [{card}]: step times (s) {[round(x, 4) for x in step_s]}, median "
-          f"{med:.4f} s, {B * T / med:.1f} tokens/s; peak memory allocated {peak_gb:.2f} GB; "
+    print(f"train slice [{card}] {dispatch_mode}: step times (s) "
+          f"{[round(x, 4) for x in step_s]}, median {med:.4f} s, {B * T / med:.1f} tokens/s; peak memory allocated {peak_gb:.2f} GB; "
           f"launches per step {per_step[0]}; warm-up step {marks[1][0] - marks[0][0]:.2f} s",
           flush=True)
     profile_train_step(trainer, batch, med, card)
     del trainer, params
-    return launches
+    return launches, losses
 
 
 def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
@@ -472,6 +540,7 @@ def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
     for e in kernels:
         key = e.key.lower()
         kind = ("flash (K1/K2/K3)" if "flash" in key else
+                "grouped gemm (K4/K4t/K5)" if "gmm_kernel" in key else
                 "gemm" if any(w in key for w in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
                 "elementwise / reduce / copy")
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
@@ -631,6 +700,18 @@ def time_flash(model, prompts, launches, card):
     count = flash_attention.launches
     ms = cuda_ms(lambda: flash_attention(q, k, v, vt), iters=200)
     flash_attention.launches = count                          # timing launches are not the path's
+    # The kernel's own device time, from torch.profiler: the CUDA-event mean
+    # above includes the host's path to each launch, longer than this kernel.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            flash_attention(q, k, v, vt)
+        torch.cuda.synchronize()
+    flash_attention.launches = count
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "flash_fwd_kernel" in e.key]
+    device_ms = (sum(e.self_device_time_total for e in ev) / sum(e.count for e in ev) / 1e3
+                 if ev else None)
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, vt, True), iters=50)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=allowed),
                          iters=200)
@@ -652,9 +733,12 @@ def time_flash(model, prompts, launches, card):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
+        "device_ms_profiler": device_ms,
     }
     print(f"kernel timing [{card}]: flash_attention_fwd B={B} H={H} KV={KV} T=S={T} Dh={Dh}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+          f"kernel {ms:.4f} ms (its device time under torch.profiler: "
+          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}), "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
           f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP)", flush=True)
     print(json.dumps({"kernel": rec}), flush=True)
@@ -740,6 +824,332 @@ def time_flash_bwd(launches: dict, errs: dict, card: str) -> list:
     return recs
 
 
+def flagship_group_sizes(S: int, seed: int):
+    """`moe_ffn_gmm`'s group sizes for S tokens routed by the flagship router
+    (Top-P over 8 routed + 1 null expert, the eval mixer) on random hidden
+    states, with a router weight of the flagship's init scale; returns
+    (group_sizes int32 [8] on the card, rows A = ceil(8 S / 128) x 128)."""
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig
+    from unimoe_audio_torch.moe import router as R
+    from unimoe_audio_torch.moe.dispatch import gmm_group_sizes
+
+    tc = TextMoEConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(S, tc.hidden_size, generator=gen, device="cuda")
+    wg = torch.randn(tc.hidden_size, tc.num_experts, generator=gen, device="cuda") \
+        * tc.initializer_range
+    logits = (h @ wg)[:, :tc.num_dynamic_experts]
+    top_k = R.dynamic_expert_selection(logits, tc.mlp_dynamic_top_p)
+    _, mask = R.sparse_expert_mixer_eval(logits, top_k, jitter_eps=tc.router_jitter_noise)
+    E = tc.mlp_dynamic_expert_num
+    A = -(-S * E // 128) * 128
+    return gmm_group_sizes(mask[:, :E], A), A
+
+
+def grouped_operands(A, K, N, E, seed):
+    """x [A, K] bf16, W [E, K, N] bf16 (1/sqrt(K) scale), dy [A, N] f32."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(A, K, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=gen, device="cuda") * K ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(A, N, generator=gen, device="cuda")
+    return x, w, dy
+
+
+def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
+    """K4, K4t and K5 vs their plain versions on the same inputs, each
+    through its wrapper and once more into an output filled with NaN before
+    the launch, so that an element the kernel does not write fails.
+    Elementwise limits and the relative L2 error of the whole output.
+    Returns the largest max |err| of each kernel."""
+    import torch
+    from unimoe_audio_torch.ops import grouped_gemm as GG
+
+    gs = sizes if torch.is_tensor(sizes) else torch.tensor(sizes, dtype=torch.int32,
+                                                           device="cuda")
+    E = gs.numel()
+    x, w, dy = grouped_operands(A, K, N, E, seed)
+    counts = _launch_counts()
+    cases = (
+        ("grouped_gemm_gmm", lambda: GG.gmm(x, w, gs),
+         lambda o: GG.launch_gmm(x, w, gs, o, False), (A, N), torch.float32,
+         lambda: GG.gmm_reference(x, w, gs)),
+        ("grouped_gemm_gmm_transposed", lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
+         lambda o: GG.launch_gmm(dy, w, gs, o, True), (A, K), torch.bfloat16,
+         lambda: GG.gmm_reference(dy, w, gs, transpose_rhs=True)),
+        ("grouped_gemm_tgmm", lambda: GG.tgmm(x, dy, gs, E),
+         lambda o: GG.launch_tgmm(x, dy, gs, o), (E, K, N), torch.bfloat16,
+         lambda: GG.tgmm_reference(x, dy, gs, E)),
+    )
+    errs, rels = {}, {}
+    for name, wrapper, launch, shape, dtype, plain in cases:
+        got = wrapper()
+        filled = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+        launch(filled)
+        torch.cuda.synchronize()
+        want = plain().float()
+        for tag, out in (("wrapper", got), ("NaN-filled output", filled)):
+            o = out.float()
+            check(o.shape == want.shape and bool(torch.isfinite(o).all()),
+                  f"grouped {label} {name} ({tag}): wrong shape or non-finite output")
+            err = (o - want).abs()
+            rel = ((o - want).norm() / want.norm().clamp_min(1e-30)).item()
+            check(bool((err <= GMM_ATOL + GMM_RTOL * want.abs()).all()) and rel <= GMM_REL_L2,
+                  f"grouped {label} {name} ({tag}): max err {err.max().item()}, "
+                  f"relative L2 {rel}")
+            errs[name] = max(errs.get(name, 0.0), err.max().item())
+            rels[name] = max(rels.get(name, 0.0), rel)
+        del got, filled, want
+    _set_launch_counts(counts)                 # not launches of a main path
+    print(f"kernel check: grouped {label} A={A} K={K} N={N} groups {gs.tolist()}: " + ", ".join(
+        f"{n} max|err| {errs[n]:.3e} rel L2 {rels[n]:.2e}" for n in errs)
+        + f" (rtol {GMM_RTOL}, atol {GMM_ATOL}, rel L2 {GMM_REL_L2}; wrapper and NaN-filled "
+        f"output)", flush=True)
+    return errs
+
+
+def check_grouped_all() -> dict:
+    """The grouped GEMMs at the training, prefill and decode shapes of the
+    flagship (group sizes from its router), then the edge cases.  Returns
+    the largest max |err| of each kernel over all cases."""
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig
+    from unimoe_audio_torch.moe.dispatch import gmm_group_sizes
+
+    tc = TextMoEConfig()
+    D, Fd = tc.hidden_size, tc.dynamic_intermediate_size
+    errs = []
+    gs, A = flagship_group_sizes(TRAIN_B * TRAIN_T, seed=30)
+    errs.append(check_grouped("training gate/up", A, D, Fd, gs, seed=31))
+    errs.append(check_grouped("training down", A, Fd, D, gs, seed=32))
+    gs, A = flagship_group_sizes(8 * 128, seed=33)
+    errs.append(check_grouped("T2M prefill", A, D, Fd, gs, seed=34))
+    gs, A = flagship_group_sizes(8, seed=35)
+    errs.append(check_grouped("T2M decode", A, D, Fd, gs, seed=36))
+    # Empty first, middle and last groups, a group of 3 rows, boundaries
+    # inside 128-row tiles.
+    errs.append(check_grouped("empty groups", 256, 256, 384, [0, 70, 0, 3, 97, 86, 0, 0],
+                              seed=37))
+    # A budget of 128 rows below S x E = 256 selected slots: [64, 64, 0, 0].
+    budget = gmm_group_sizes(torch.ones(64, 4, dtype=torch.int32, device="cuda"), 128)
+    errs.append(check_grouped("budget below S x E", 128, 256, 384, budget, seed=38))
+    # Widths of 100 (no 16-byte vectors) and 50 rows past the last group.
+    errs.append(check_grouped("width 100", 300, 100, 100, [17, 0, 200, 33], seed=39))
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def generate_dispatch(model, prompts, dispatch_mode: str, max_tokens: int, min_tokens: int,
+                      seed: int):
+    """`generate_chunked` on the model's parameters and the CFG-paired
+    prompts, with the knobs `text_to_music` uses; returns the result and
+    the device-synchronised timings."""
+    import torch
+    from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.generate.loop import generate_chunked, pad_buffer
+
+    cfg = model.config
+    ids, mask = model._tokenize(prompts)
+    prefill, steps = dl.prepare_audio_prompt(
+        [None] * (len(prompts) // 2), num_channels=cfg.codec_channels,
+        bos_value=cfg.codec_bos_value, delay_pattern=cfg.codec_delay_pattern)
+    buf = pad_buffer(torch.as_tensor(prefill, device="cuda"), max_tokens)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    timings: dict = {}
+    with torch.inference_mode():
+        res = generate_chunked(
+            model.params, cfg, torch.as_tensor(ids, device="cuda"),
+            torch.as_tensor(mask, device="cuda"), None, buf, steps, gen,
+            max_tokens=max_tokens, min_tokens=min_tokens, cfg_scale=10.0, temperature=1.0,
+            top_p=1.0, cfg_filter_top_k=45, eos_prob_mul_factor=0.6, timings=timings,
+            dispatch_mode=dispatch_mode)
+    return res, timings
+
+
+def device_reads_per_step(model, prompts, dispatch_mode: str) -> float:
+    """Device-to-host reads (`aten::_local_scalar_dense`, the host blocking on
+    a device value) per decode step of a short run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res, _ = generate_dispatch(model, prompts, dispatch_mode, READS_FRAMES, READS_FRAMES,
+                                   seed=4)
+    n = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+    return n / res.steps
+
+
+def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
+    """The flagship model of the text-to-music slice through
+    `generate_chunked(..., dispatch_mode="gmm")`: GMM_SERVING_FRAMES frames
+    for the same captions, the codes decoded to wavs.  Checks the codes, the
+    wavs, and 3 x 36 K4 launches per prefill and per decode step (no K4t, no
+    K5); compares the device-to-host reads per decode step with dense
+    dispatch.  Returns the launch counts of the run."""
+    import torch
+    from unimoe_audio_torch.codec import delay as dl
+
+    cfg = model.config
+    L = cfg.text_config.num_hidden_layers
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    res, t = generate_dispatch(model, prompts, "gmm", GMM_SERVING_FRAMES,
+                               GMM_SERVING_FRAMES - 20, seed=0)
+    launches = _launch_counts()
+    want = 3 * L * (1 + res.steps)
+    check(launches["grouped_gemm_gmm"] == want,
+          f"gmm serving: {launches['grouped_gemm_gmm']} K4 launches, want 3 x {L} x "
+          f"(1 prefill + {res.steps} decode steps) = {want}")
+    check(launches["grouped_gemm_gmm_transposed"] == launches["grouped_gemm_tgmm"] == 0,
+          f"gmm serving launched a backward kernel: {launches}")
+    codes = res.codes.cpu().numpy()
+    lengths = res.lengths.cpu().numpy()
+    audios = dl.generate_output(codes, lengths, pad_value=cfg.codec_pad_value,
+                                delay_pattern=cfg.codec_delay_pattern)
+    paths = [os.path.join(out_dir, f"gmm_{i}.wav") for i in range(len(audios))]
+    model.dac.decode_batch([a.T for a in audios], paths, min_duration=1)
+    for p, a in zip(paths, audios):
+        check(bool((a >= 0).all() and (a < model.dac.config.codebook_size).all()),
+              "gmm serving: codes out of range")
+        with wave.open(p) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        check(pcm.size > 0 and int(np.abs(pcm).max()) > 0, f"{p}: silent")
+    reads = {m: device_reads_per_step(model, prompts, m) for m in ("dense", "gmm")}
+    check(reads["gmm"] <= reads["dense"],
+          f"gmm serving reads the device more often per decode step: {reads}")
+    print(f"gmm serving [{card}]: {len(audios)} requests ({len(prompts)} CFG rows), "
+          f"{res.steps} decode steps, frames {lengths.tolist()}; prefill {t['prefill_s'] * 1e3:.2f} ms; decode "
+          f"{t['decode_s'] * 1e3 / res.steps:.2f} ms/frame; K4 launches "
+          f"{launches['grouped_gemm_gmm']} = 3 x {L} x (1 + {res.steps}); device-to-host reads "
+          f"per decode step ({READS_FRAMES}-frame profiled runs): gmm {reads['gmm']:.3f}, dense "
+          f"{reads['dense']:.3f}", flush=True)
+    return launches
+
+
+def _grouped_library(kind: str, x, w, dy, gs):
+    """One PyTorch call computing the same function, for timing only:
+    torch._grouped_mm where this PyTorch has it (bf16 output; for tgmm on
+    copies of x and dy whose groups are zero-padded to multiples of 8 rows,
+    as it requires, which leaves every dW[g] the same), else a per-group
+    torch.matmul loop.  Returns (fn, label)."""
+    import torch
+
+    dyb = dy.to(torch.bfloat16)
+    sizes = [int(n) for n in gs.tolist()]
+    starts = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        if kind == "gmm":
+            wt = w.transpose(1, 2).contiguous().transpose(1, 2)        # column-major W[g]
+            return (lambda: torch._grouped_mm(x, wt, offs=offs)), "torch._grouped_mm"
+        if kind == "gmm_transposed":
+            return (lambda: torch._grouped_mm(dyb, w.transpose(1, 2), offs=offs)), \
+                "torch._grouped_mm"
+        padded = [-(-n // 8) * 8 for n in sizes]
+        pstarts = np.concatenate([[0], np.cumsum(padded)]).astype(int)
+        xp = x.new_zeros(int(pstarts[-1]), x.shape[1])
+        dp = dyb.new_zeros(int(pstarts[-1]), dy.shape[1])
+        for g, n in enumerate(sizes):
+            xp[pstarts[g]:pstarts[g] + n] = x[starts[g]:starts[g] + n]
+            dp[pstarts[g]:pstarts[g] + n] = dyb[starts[g]:starts[g] + n]
+        xt, dyc = xp.t().contiguous(), dp.t().contiguous().t()
+        poffs = torch.tensor(pstarts[1:], dtype=torch.int32, device=x.device)
+        return (lambda: torch._grouped_mm(xt, dyc, offs=poffs)), \
+            "torch._grouped_mm (groups zero-padded to 8 rows)"
+    spans = [(g, int(a), int(b)) for g, (a, b) in enumerate(zip(starts[:-1], starts[1:])) if b > a]
+    if kind == "gmm":
+        fn = lambda: [torch.matmul(x[a:b], w[g]) for g, a, b in spans]          # noqa: E731
+    elif kind == "gmm_transposed":
+        fn = lambda: [torch.matmul(dyb[a:b], w[g].t()) for g, a, b in spans]    # noqa: E731
+    else:
+        fn = lambda: [torch.matmul(x[a:b].t(), dyb[a:b]) for g, a, b in spans]  # noqa: E731
+    return fn, "per-group torch.matmul"
+
+
+def time_grouped(errs: dict, card: str) -> list:
+    """K4, K4t and K5 at the training shape (the gate / up projection, group
+    sizes from the flagship router), K4 also at the down projection and at
+    the T2M prefill and decode shapes: kernel, plain version and one library
+    call, with the bound over what these group sizes need."""
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig
+    from unimoe_audio_torch.ops import grouped_gemm as GG
+
+    tc = TextMoEConfig()
+    D, Fd, E = tc.hidden_size, tc.dynamic_intermediate_size, tc.mlp_dynamic_expert_num
+    counts = _launch_counts()
+
+    def bound(nbytes, flops):
+        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        return max(tb, to), ("bytes" if tb >= to else "operations"), nbytes, flops
+
+    ms_by, lib_by, bound_by = {}, {}, {}
+
+    def k4_case(key, S, K, N, seed):
+        gs, A = flagship_group_sizes(S, seed)
+        x, w, dy = grouped_operands(A, K, N, E, seed + 1)
+        live = int((gs > 0).sum())
+        b = bound(A * K * 2 + live * K * N * 2 + A * N * 4 + E * 4, 2 * A * K * N)
+        iters = 20 if A > 128 else 200
+        ms_by[key] = cuda_ms(lambda: GG.gmm(x, w, gs), iters=iters)
+        lib_fn, lib_label = _grouped_library("gmm", x, w, dy, gs)
+        lib_by[key] = cuda_ms(lib_fn, iters=iters)
+        bound_by[key] = b[0]
+        print(f"kernel timing [{card}]: grouped_gemm_gmm {key} A={A} K={K} N={N} groups "
+              f"{gs.tolist()}: kernel {ms_by[key]:.4f} ms, {lib_label} {lib_by[key]:.4f} ms, "
+              f"bound {b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP)",
+              flush=True)
+        return b, (x, w, dy, gs)
+
+    k4_case("train_down", TRAIN_B * TRAIN_T, Fd, D, 40)
+    k4_case("t2m_prefill", 8 * 128, D, Fd, 42)
+    k4_case("t2m_decode", 8, D, Fd, 44)
+    b_k4, (x, w, dy, gs) = k4_case("train_gate_up", TRAIN_B * TRAIN_T, D, Fd, 46)
+    A, K, N = x.shape[0], D, Fd
+    live = int((gs > 0).sum())
+    recs = []
+    for name, kind, fn, plain, b in (
+            ("grouped_gemm_gmm", "gmm", None, lambda: GG.gmm_reference(x, w, gs), b_k4),
+            ("grouped_gemm_gmm_transposed", "gmm_transposed",
+             lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
+             lambda: GG.gmm_reference(dy, w, gs, transpose_rhs=True),
+             bound(A * N * 4 + live * K * N * 2 + A * K * 2, 2 * A * K * N)),
+            ("grouped_gemm_tgmm", "tgmm", lambda: GG.tgmm(x, dy, gs, E),
+             lambda: GG.tgmm_reference(x, dy, gs, E),
+             bound(A * K * 2 + A * N * 4 + E * K * N * 2, 2 * A * K * N))):
+        ms = ms_by["train_gate_up"] if fn is None else cuda_ms(fn, iters=20)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        lib_fn, lib_label = _grouped_library(kind, x, w, dy, gs)
+        lib_ms = cuda_ms(lib_fn, iters=20)
+        if lib_label.startswith("torch._grouped_mm"):      # the yardstick computes the same
+            lib_err = (lib_fn().float() - plain().float()).abs().max().item()
+            lib_label += f", max |diff| vs plain {lib_err:.3e}"
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "unimoe_audio_torch/csrc/grouped_gemm.cu",
+            "replaces": ("jax/experimental/pallas/ops/tpu/megablox/gmm.py:573" if kind == "tgmm"
+                         else "jax/experimental/pallas/ops/tpu/megablox/gmm.py:314"),
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b[0],
+            "bound_by": b[1],
+            "library_ms": lib_ms,
+            "library": lib_label,
+        }
+        if kind == "gmm":
+            rec.update(ms_by_shape=ms_by, library_ms_by_shape=lib_by, bound_ms_by_shape=bound_by)
+        print(f"kernel timing [{card}]: {name} at the training shape A={A} K={K} N={N}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library ({lib_label}) {lib_ms:.4f} ms, bound "
+              f"{b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP)",
+              flush=True)
+        print(json.dumps({"kernel": rec}), flush=True)
+        recs.append(rec)
+    _set_launch_counts(counts)
+    return recs
+
+
 def main() -> None:
     import torch
 
@@ -758,9 +1168,14 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        print(f"time: {phase} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     t0 = time.perf_counter()
-    for src in KERNEL_SOURCES:
-        cuda_build.load(src)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:     # one nvcc per source
+        list(pool.map(cuda_build.load, KERNEL_SOURCES))
     print(f"build: {', '.join(KERNEL_SOURCES)} built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for src in KERNEL_SOURCES:
@@ -773,6 +1188,7 @@ def main() -> None:
     check_flash(8, 16, 2, 128, 128, 128, (111, 40, 111, 0, 111, 70, 111, 5), seed=2)
     check_flash(2, 16, 2, 100, 160, 64, (7, 0), seed=3)
     check_small_prefill()
+    stamp("build and small checks")
 
     # The serving path runs before any training-shape work, on an emptied
     # allocator, so its timings do not follow the multi-GB plain versions.
@@ -780,8 +1196,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         model, prompts, t2m_launches = run_slice(card, out_dir)
-    fwd_rec = time_flash(model, prompts, t2m_launches, card)
-    profile_short_call(model, prompts, card)
+        fwd_rec = time_flash(model, prompts, t2m_launches, card)
+        profile_short_call(model, prompts, card)
+        stamp("dense serving")
+        gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
+        stamp("gmm serving")
     del model
     torch.cuda.empty_cache()
 
@@ -795,23 +1214,31 @@ def main() -> None:
     check_flash_bwd(2, 16, 2, 100, 160, 128, (7, 0), True, seed=13)
     check_flash_bwd(2, 16, 2, 192, 192, 128, (0, 5), False, seed=14)
     check_flash_bwd(2, 16, 2, 200, 200, 64, (30, 0), True, seed=15)
+    grouped_errs = check_grouped_all()
     check_small_training()
     torch.cuda.empty_cache()
+    stamp("training-shape kernel checks and the small training check")
 
-    train_launches = run_train_slice(card)
+    train_launches, dense_losses = run_train_slice(card)
     bwd_recs = time_flash_bwd(train_launches, bwd_errs, card)
-    # Launches summed over the two paths' runs, each counted from 0; the
-    # error is the larger of the checks at the two paths' shapes.
-    fwd_rec["launches"] = t2m_launches["flash_attention_fwd"] \
-        + train_launches["flash_attention_fwd"]
-    fwd_rec["launches_by_path"] = {"t2m": t2m_launches["flash_attention_fwd"],
-                                   "train": train_launches["flash_attention_fwd"]}
+    torch.cuda.empty_cache()
+    stamp("dense training")
+    gmm_train_launches, _ = run_train_slice(card, "gmm", dense_losses)
+    torch.cuda.empty_cache()
+    stamp("gmm training")
+    grouped_recs = time_grouped(grouped_errs, card)
+    stamp("grouped GEMM timing")
+    # Launches by path (each run counted from 0) and summed over the paths;
+    # K1's error is the larger of the checks at the two paths' shapes.
+    paths = {"t2m": t2m_launches, "t2m_gmm": gmm_t2m_launches, "train": train_launches,
+             "train_gmm": gmm_train_launches}
+    for rec in (fwd_rec, *bwd_recs, *grouped_recs):
+        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"], "train": fwd_train_err}
     fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], fwd_train_err)
-    for rec in bwd_recs:
-        rec["launches_by_path"] = {"t2m": 0, "train": rec["launches"]}
 
-    print(json.dumps({"kernels": [fwd_rec, *bwd_recs]}), flush=True)
+    print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *grouped_recs]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

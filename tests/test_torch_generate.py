@@ -2,7 +2,8 @@
 
 Slice gate: on the tiny f32 model, greedy decoding through the port's
 `generate` and `generate_chunked` (crossing chunk boundaries) gives codes
-and lengths EQUAL to JAX `generate_jit`'s.  Sampler: the bisection top-k
+and lengths EQUAL to JAX `generate_jit`'s, with dense dispatch, with gmm
+dispatch and with packed decode at a capacity.  Sampler: the bisection top-k
 set equals JAX's bit for bit (ties included), and sampled draws follow the
 renormalised softmax (torch and JAX generators differ, so sampling is
 checked by distribution).  Delay helpers: numpy equality.
@@ -68,6 +69,44 @@ def test_greedy_codes_equal_jax(setup, chunk_frames):
         # The cache grew across at least one chunk boundary.
         assert state.cache.k.shape[1] > chunk_frames * 4
         assert got.steps > chunk_frames
+    assert (np.asarray(want.lengths) > 0).all()
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    assert got.steps == int(want.steps)
+
+
+def _jax_generate(setup, **kw):
+    cfg, tp, ids, mask, prefill, steps, _ = setup
+    return generate_jit(
+        JM.init_model_params(jax.random.PRNGKey(0), cfg, dtype=jnp.float32), cfg,
+        jnp.asarray(ids), jnp.asarray(mask), None, j_pad_buffer(jnp.asarray(prefill), MAX_TOKENS),
+        jnp.asarray(steps, jnp.int32), jax.random.PRNGKey(0), max_tokens=MAX_TOKENS,
+        min_tokens=jnp.int32(KNOBS["min_tokens"]), cfg_scale=jnp.float32(KNOBS["cfg_scale"]),
+        temperature=jnp.float32(1.0), top_p=jnp.float32(1.0),
+        cfg_filter_top_k=KNOBS["cfg_filter_top_k"], eos_prob_mul_factor=jnp.float32(1.0),
+        do_sample=False, **kw)
+
+
+@pytest.mark.parametrize("chunk_frames,kw", [
+    (8, {"dispatch_mode": "gmm"}),
+    (None, {"decode_dispatch_mode": "packed", "decode_capacity": 2}),
+])
+def test_greedy_codes_equal_jax_dispatch_modes(setup, chunk_frames, kw):
+    """The slice gate through the other dispatch modes: greedy codes,
+    lengths and steps equal JAX `generate_jit`'s with gmm in the prefill and
+    every decode step (megablox in interpret mode there, the plain grouped
+    products here; `generate_chunked` across chunk boundaries), and with
+    packed decode at capacity 2 of the 4 rows (tokens are dropped)."""
+    cfg, tp, ids, mask, prefill, steps, _ = setup
+    want = _jax_generate(setup, **kw)
+    buf = pad_buffer(torch.tensor(prefill), MAX_TOKENS)
+    args = (tp, cfg, torch.tensor(ids), torch.tensor(mask), None, buf, steps,
+            torch.Generator().manual_seed(0))
+    if chunk_frames is None:
+        got = generate(*args, max_tokens=MAX_TOKENS, do_sample=False, **KNOBS, **kw)
+    else:
+        got = generate_chunked(*args, chunk_frames=chunk_frames, max_tokens=MAX_TOKENS,
+                               do_sample=False, **KNOBS, **kw)
     assert (np.asarray(want.lengths) > 0).all()
     np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
     np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))

@@ -1,8 +1,9 @@
 """The training slice of the PyTorch port vs the JAX package, f32 on the
 CPU: `loss_fn` values and gradients (codec labels with holes, the text-label
-path, remat on and off), three `train_step`s against optax (parameters and
-every metric, with and without `trainable_pattern`), the lr schedule, the
-skip of a non-finite step, `Trainer.fit`, the `Collator` and the bridge back
+path, remat on and off, the packed and gmm dispatch modes), three
+`train_step`s against optax (parameters and every metric, with and without
+`trainable_pattern`), the lr schedule, the
+skip of a non-finite step, `Trainer.fit` (dense and gmm), the `Collator` and the bridge back
 to the JAX layout.  Input jitter is off wherever the two are compared (the
 two frameworks draw different random numbers); remat with jitter on is held
 against remat off in the port alone."""
@@ -118,11 +119,11 @@ def _assert_params_close(got, want, lr_sum):
 _JAX_LOSS = {}
 
 
-def _jax_loss_and_grads(jp, cfg, batch, key):
+def _jax_loss_and_grads(jp, cfg, batch, key, **kw):
     if key not in _JAX_LOSS:
         (loss, metrics), grads = jax.value_and_grad(JS.loss_fn, has_aux=True)(
             jp, cfg, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0),
-            jnp.float32(0.025), remat=False)
+            jnp.float32(0.025), remat=False, **kw)
         _JAX_LOSS[key] = (float(loss), {k: float(v) for k, v in metrics.items()},
                           jax.tree.map(np.asarray, grads))
     return _JAX_LOSS[key]
@@ -137,6 +138,25 @@ def test_loss_fn_matches_jax(setup, text_labels, remat):
     params = _torch_params(cfg, tree)
     TS.init_train_state(params, TS.make_optimizer())
     loss, metrics = TS.loss_fn(params, cfg, _tensors(batch), 0, 0.025, remat=remat)
+    np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
+    for k, v in jmetrics.items():
+        np.testing.assert_allclose(metrics[k].item(), v, rtol=LOSS_RTOL, err_msg=k)
+    _assert_tree_close(_grads(params, loss), jgrads, GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
+
+
+@pytest.mark.parametrize("mode,capacity", [("packed", 20), ("gmm", None)])
+def test_loss_fn_dispatch_modes_match_jax(setup, mode, capacity):
+    """`loss_fn` through the packed (capacity 20 of 48 tokens: tokens are
+    dropped) and gmm dispatch modes, remat on, vs JAX's (megablox in
+    interpret mode): loss, metrics and gradients at the tolerances above."""
+    cfg, jp, tree = setup
+    batch = _batch(cfg, seed=1, text_labels=True)
+    jloss, jmetrics, jgrads = _jax_loss_and_grads(jp, cfg, batch, (mode, capacity),
+                                                  dispatch_mode=mode, capacity=capacity)
+    params = _torch_params(cfg, tree)
+    TS.init_train_state(params, TS.make_optimizer())
+    loss, metrics = TS.loss_fn(params, cfg, _tensors(batch), 0, 0.025, dispatch_mode=mode,
+                               capacity=capacity, remat=True)
     np.testing.assert_allclose(loss.item(), jloss, rtol=LOSS_RTOL)
     for k, v in jmetrics.items():
         np.testing.assert_allclose(metrics[k].item(), v, rtol=LOSS_RTOL, err_msg=k)
@@ -298,6 +318,28 @@ def test_trainer_fit_matches_jax(setup):
     ev = ttr.evaluate(batches[:2])
     assert set(ev) == {"eval_loss", "eval_codec_loss", "eval_aux_loss", "eval_mean_top_k"}
     assert np.isfinite(ev["eval_loss"])
+
+
+def test_trainer_fit_gmm_matches_jax(setup):
+    """`Trainer.fit` with dispatch_mode='gmm' for 2 steps (remat on) vs the
+    JAX `Trainer.fit` with the same config: losses, metrics, the final
+    parameters and the gmm evaluation."""
+    cfg, jp, tree = setup
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=8, log_every=1, remat=True,
+              dispatch_mode="gmm")
+    batches = [_batch(cfg, seed=30 + i) for i in range(2)]
+    jtr = JTrainer(cfg, jax.tree.map(jnp.array, jp), JTrainerConfig(**kw))
+    jhist = jtr.fit(batches)
+    ttr = Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(**kw), device="cpu")
+    thist = ttr.fit(batches)
+    assert len(thist) == len(jhist) == 2
+    for t, j in zip(thist, jhist):
+        for k in ("loss", "codec_loss", "aux_loss", "grad_norm"):
+            np.testing.assert_allclose(t[k], j[k], rtol=LOSS_RTOL, err_msg=k)
+    _assert_params_close(params_to_numpy(ttr.state.params), jtr.state.params,
+                         sum(TS.make_lr_schedule(1e-3, 1, 8)(i) for i in range(2)))
+    jev, tev = jtr.evaluate(batches[:1]), ttr.evaluate(batches[:1])
+    np.testing.assert_allclose(tev["eval_loss"], jev["eval_loss"], rtol=LOSS_RTOL)
 
 
 def test_trainer_defaults_to_cuda_and_refuses_later_slices(setup):

@@ -78,12 +78,19 @@ def generate(
     return_state: bool = False,
     do_sample: bool = True,
     timings: Optional[Dict[str, float]] = None,
+    dispatch_mode: str = "dense",
+    decode_dispatch_mode: Optional[str] = None,
+    decode_capacity: Optional[int] = None,
+    prefill_capacity: Optional[int] = None,
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
     `generate_chunked` can grow the cache between chunks.  With a `timings`
     dict the device is synchronised around the prefill and the decode and
-    their seconds are added to "prefill_s" / "decode_s"."""
+    their seconds are added to "prefill_s" / "decode_s".  `dispatch_mode`
+    runs the DCMoE blocks of the prefill, and of the decode steps unless
+    `decode_dispatch_mode` is given; the capacities go to the packed path of
+    each phase."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -127,6 +134,7 @@ def generate(
             kv_cache=cache, cache_position=0, kv_valid_mask=kv_valid,
             padding_token_mask=attention_mask,
             use_flash=True if prefill_flash else None,
+            dispatch_mode=dispatch_mode, capacity=prefill_capacity,
         )
         state = LoopState(
             dec_step=start_step,
@@ -170,6 +178,7 @@ def generate(
         out = text_model_forward(
             params, emb, position_ids, tc,
             kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
+            dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
         )
         logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]  # [2B, C, Vc]
 

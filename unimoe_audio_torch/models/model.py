@@ -62,6 +62,8 @@ def text_model_forward(
     seed: Optional[int] = None,
     remat: bool = False,
     use_flash: Optional[bool] = None,
+    dispatch_mode: str = "dense",
+    capacity: Optional[int] = None,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
     the final RMSNorm (`model.py:55-266`).
@@ -76,6 +78,7 @@ def text_model_forward(
     layer its jitter seed (`fold_seed`); `remat` checkpoints each layer
     (`torch.utils.checkpoint`, non-reentrant), as `jax.checkpoint(layer_fn)`
     does, and the recompute draws the same jitter from the same seed.
+    `dispatch_mode` and `capacity` go to every layer's DCMoE block.
     """
     if cfg.has_sliding_layers:
         raise NotImplementedError("sliding-window layers are not ported yet")
@@ -112,7 +115,8 @@ def text_model_forward(
         moe_out = dcmoe_block(
             lp["moe"], hn, cfg, padding_token_mask=padding_token_mask,
             aux_balance_weight=aux_balance_weight, training=training,
-            seed=fold_seed(seed, i) if training and seed is not None else None)
+            seed=fold_seed(seed, i) if training and seed is not None else None,
+            dispatch_mode=dispatch_mode, capacity=capacity)
         return residual + moe_out.hidden_states, moe_out.aux_loss, moe_out.router_top_k
 
     h = inputs_embeds
@@ -201,6 +205,8 @@ def model_forward(
     seed: Optional[int] = None,
     remat: bool = False,
     use_flash: Optional[bool] = None,
+    dispatch_mode: str = "dense",
+    capacity: Optional[int] = None,
 ) -> ModelOutput:
     """Full-model forward without a cache — the training / eval path
     (`model.py:432-567`): input embedding with the codec scatter, the
@@ -228,7 +234,7 @@ def model_forward(
         params, inputs_embeds, position_ids, tc,
         kv_valid_mask=attention_mask, padding_token_mask=attention_mask,
         aux_balance_weight=abw, training=training, seed=seed, remat=remat,
-        use_flash=use_flash)
+        use_flash=use_flash, dispatch_mode=dispatch_mode, capacity=capacity)
     hidden = out.last_hidden_state
 
     logits = None

@@ -1,6 +1,6 @@
 """The DCMoE block — counterpart of `dcmoe_block`
-(`unimoe_audio_tpu/moe/block.py:42-236`) with dense dispatch, for inference
-and training.
+(`unimoe_audio_tpu/moe/block.py:42-236`) with the dense, packed and gmm
+dispatch modes, for inference and training.
 
   params = {
     "gate":    [D, num_experts]        router projection (no bias)
@@ -13,9 +13,10 @@ Null experts exist only in the router.  Fixed experts are always on, and
 router (`fp32_gate`), input jitter on the router's input (experts see the
 un-jittered hidden states) and the `aux_balance_weight` emphasis of the
 load-balancing loss; the mixer stays the closed-form eval mixer, as in the
-JAX package with `ignore_differentiable_router=True`.  The Gumbel mixer,
-token drop, a8 and the non-dense dispatch modes come with later slices and
-raise here.
+JAX package with `ignore_differentiable_router=True`.  `token_drop` caps
+each expert at `expert_capacity` tokens by router logit or by position.
+The Gumbel mixer, a8 expert compute (the quantization slice) and the ep
+dispatch mode (the parallel slice) raise here.
 """
 
 from __future__ import annotations
@@ -55,18 +56,28 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
                 aux_balance_weight: Optional[torch.Tensor] = None,
                 training: bool = False,
                 seed: Optional[int] = None,
-                dispatch_mode: str = "dense") -> MoEOutput:
+                dispatch_mode: str = "dense",
+                capacity: Optional[int] = None,
+                assignment_budget: Optional[int] = None) -> MoEOutput:
     """Forward of the DCMoE block (`block.py:42-236`).  `seed` (training
     with input jitter) takes the place of the JAX package's rng key;
-    aux_balance_weight [B, T] weights tokens in the load-balancing loss."""
-    if dispatch_mode.endswith("_a8") and training:
-        raise ValueError("a8 expert compute is serving-only (round() is not "
-                         "differentiable); drop the _a8 suffix for training")
-    if dispatch_mode != "dense":
+    aux_balance_weight [B, T] weights tokens in the load-balancing loss.
+    dispatch_mode: 'dense' | 'packed' | 'gmm'; capacity is the packed
+    path's per-expert slot count (None = S), assignment_budget the gmm
+    path's total row count (None = every slot)."""
+    if dispatch_mode.endswith("_a8"):
+        if training:
+            raise ValueError("a8 expert compute is serving-only (round() is not "
+                             "differentiable); drop the _a8 suffix for training")
+        if dispatch_mode == "gmm_a8":
+            raise ValueError("gmm dispatch has no a8 variant (the grouped kernels are bf16)")
         raise NotImplementedError(
-            f"dispatch_mode={dispatch_mode!r} comes with a later slice; this one is dense")
-    if cfg.token_drop:
-        raise NotImplementedError("token_drop comes with a later training slice")
+            f"dispatch_mode={dispatch_mode!r}: a8 expert compute comes with the quantization "
+            "slice")
+    if dispatch_mode == "ep":
+        raise NotImplementedError("dispatch_mode='ep' comes with the parallel slice")
+    if dispatch_mode not in ("dense", "packed", "gmm"):
+        raise ValueError(f"Unknown dispatch_mode: {dispatch_mode}")
     if training and not cfg.ignore_differentiable_router:
         raise NotImplementedError(
             "the Gumbel / straight-through mixer (ignore_differentiable_router=False) "
@@ -118,6 +129,28 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
         expert_mask, full_router_logits, E_dyn,
         None if aux_balance_weight is None else aux_balance_weight.reshape(S))
 
+    if cfg.token_drop:
+        cap = min(R.expert_capacity(S, E_dyn, cfg.capacity_factor, cfg.min_capacity), S)
+        dyn = expert_mask[:, :E_dyn]
+        if cfg.drop_policy == "probs":
+            # Keep each expert's top-`cap` tokens by router logit.
+            masked_logits = torch.where(dyn > 0, dynamic_logits,
+                                        torch.full_like(dynamic_logits,
+                                                        torch.finfo(torch.float32).min))
+            keep_idx = torch.topk(masked_logits.t(), cap, dim=-1).indices      # [E_dyn, cap]
+            cap_mask = torch.zeros(E_dyn, S, dtype=torch.int32, device=x.device)
+            cap_mask.scatter_(1, keep_idx, 1)
+            dyn = dyn * cap_mask.t()
+        elif cfg.drop_policy == "position":
+            locations = torch.cumsum(dyn, dim=0) - 1
+            dyn = dyn * (locations < cap).to(dyn.dtype)
+        else:
+            raise ValueError(f"Invalid drop_policy: {cfg.drop_policy}")
+        expert_mask = torch.cat([dyn, expert_mask[:, E_dyn:]], dim=-1)
+        routing_weights = torch.where(dyn > 0, routing_weights,
+                                      torch.zeros_like(routing_weights))
+        routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
+
     if E_dyn < E_total:
         global_weight = R.global_routing_weight(
             expert_mask, full_router_logits, E_dyn, routing_weights)
@@ -126,7 +159,17 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
 
     x_orig = original.reshape(S, dim)
     gw = global_weight.to(x_orig.dtype)
-    out = D.moe_ffn_dense(x_orig, expert_mask[:, :E_real], gw[:, :E_real], params["dynamic"])
+    real_mask, real_w = expert_mask[:, :E_real], gw[:, :E_real]
+    if dispatch_mode == "dense":
+        out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"])
+    elif dispatch_mode == "packed":
+        out = D.moe_ffn_packed(x_orig, real_mask, real_w, params["dynamic"],
+                               capacity if capacity is not None else S)
+    else:
+        # The budget counts (token, expert) assignments in all, a different
+        # unit from the per-expert `capacity`.
+        out = D.moe_ffn_gmm(x_orig, real_mask, real_w, params["dynamic"],
+                            assignment_budget=assignment_budget)
 
     if cfg.mlp_fixed_expert_num > 0:
         x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)

@@ -1,6 +1,7 @@
 """DCMoE routing math — counterpart of `unimoe_audio_tpu/moe/router.py`
 (Top-P expert count, the closed-form eval mixer with its gradient, the
-global routing weight and the load-balancing loss).  Training uses the
+global routing weight, the load-balancing loss and the static expert
+capacity).  Training uses the
 eval mixer, as the JAX package does under the default
 `ignore_differentiable_router=True`; the Gumbel / straight-through
 `sparse_expert_mixer` (`router.py:60-171`) comes with a later slice.
@@ -8,6 +9,7 @@ eval mixer, as the JAX package does under the default
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -92,3 +94,10 @@ def load_balancing_loss(expert_mask: torch.Tensor, full_router_logits: torch.Ten
         tokens_per_expert = (dyn_mask * wgt).sum(dim=0) / denom
         prob_per_expert = (gw * wgt).sum(dim=0) / denom
     return (tokens_per_expert * prob_per_expert).sum() * num_dynamic
+
+
+def expert_capacity(num_tokens: int, num_experts: int, capacity_factor: float,
+                    min_capacity: int) -> int:
+    """Static per-expert capacity, ceil(tokens / experts · factor), at least
+    min_capacity (`router.py:299-304`)."""
+    return max(math.ceil(num_tokens / num_experts * capacity_factor), min_capacity)

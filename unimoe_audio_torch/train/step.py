@@ -194,10 +194,11 @@ def aux_weight_at_step(cfg: UniMoEAudioConfig, step: int) -> float:
 
 
 def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor], seed: int,
-            aux_weight: float, *, remat: bool = True,
+            aux_weight: float, *, dispatch_mode: str = "dense", capacity: Optional[int] = None,
+            remat: bool = True,
             use_flash: Optional[bool] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss and its metrics (`step.py:124-208`); `seed` stands
-    for the JAX rng key."""
+    for the JAX rng key; dispatch_mode and capacity go to the DCMoE blocks."""
     if any(k.startswith("vision_") or k in ("pixel_values", "image_grid_thw") for k in batch):
         raise NotImplementedError("vision training comes with the VT2M slice")
     if "peft" in params:
@@ -212,7 +213,8 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
         labels=batch.get("labels"),
         aux_balance_weight=batch.get("aux_balance_weight"),
         aux_loss_weight=aux_weight,
-        training=True, seed=seed, remat=remat, use_flash=use_flash)
+        training=True, seed=seed, remat=remat, use_flash=use_flash,
+        dispatch_mode=dispatch_mode, capacity=capacity)
     zero = torch.zeros((), dtype=torch.float32, device=out.aux_loss.device)
     metrics = {
         "loss": out.loss,
@@ -230,7 +232,8 @@ def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
-               cfg: UniMoEAudioConfig, optimizer: AdamW, remat: bool = True,
+               cfg: UniMoEAudioConfig, optimizer: AdamW, dispatch_mode: str = "dense",
+               capacity: Optional[int] = None, remat: bool = True,
                use_flash: Optional[bool] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step (`step.py:211-249`): loss and gradients, then the update in
     place — unless the loss or the gradient norm is not finite, in which
@@ -238,7 +241,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
     (`skipped` = 1).  The finite test reads one flag to the host per step."""
     aux_w = aux_weight_at_step(cfg, state.step)
     loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
-                            remat=remat, use_flash=use_flash)
+                            dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
+                            use_flash=use_flash)
     leaves = [t for _, t in named_leaves(state.params)]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grad_norm = global_norm(grads)

@@ -5,7 +5,7 @@ slice carries.  `Trainer.fit` (with `ckpt_dir=None`) is the entry point.
 The trainer runs on the card (`device="cuda"`, the default) and raises
 without one; the tests pass `device="cpu"`.  Checkpoints, `save_pretrained`,
 vision batches, ring attention and gradient accumulation come with later
-slices and raise here; the slice runs dense dispatch.
+slices and raise here.
 """
 
 from __future__ import annotations
@@ -27,9 +27,11 @@ from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer,
 @dataclass
 class TrainerConfig:
     """The JAX package's `TrainerConfig` (same names and defaults) less the
-    fields of paths not ported yet (checkpoint cadence, vision, non-dense
-    dispatch).  `ckpt_dir`, `ring_axis` and `grad_accum_steps > 1` are kept
-    so that a config asking for them is refused with a message."""
+    fields of paths not ported yet (checkpoint cadence, vision).  `ckpt_dir`,
+    `ring_axis` and `grad_accum_steps > 1` are kept so that a config asking
+    for them is refused with a message.  `dispatch_mode` is 'dense',
+    'packed' (per-expert slot count `dispatch_capacity`, None = all tokens)
+    or 'gmm'."""
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
     warmup_steps: int = 100
@@ -39,6 +41,8 @@ class TrainerConfig:
     log_every: int = 10
     ckpt_dir: Optional[str] = None
     remat: bool = True
+    dispatch_mode: str = "dense"
+    dispatch_capacity: Optional[int] = None
     seed: int = 0
     grad_accum_steps: int = 1
     eval_every: int = 0
@@ -182,7 +186,9 @@ class Trainer:
             if max_batches is not None and j >= max_batches:
                 break
             _, m = loss_fn(self.state.params, self.cfg, self._place_batch(batch), 0,
-                           aux_weight_at_step(self.cfg, self.state.step), remat=False)
+                           aux_weight_at_step(self.cfg, self.state.step),
+                           dispatch_mode=self.tcfg.dispatch_mode,
+                           capacity=self.tcfg.dispatch_capacity, remat=False)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
@@ -200,7 +206,8 @@ class Trainer:
                 break
             self.state, metrics = train_step(
                 self.state, self._place_batch(batch), self.tcfg.seed, cfg=self.cfg,
-                optimizer=self.optimizer, remat=self.tcfg.remat)
+                optimizer=self.optimizer, dispatch_mode=self.tcfg.dispatch_mode,
+                capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat)
             if i % self.tcfg.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 if metrics["skipped"]:
