@@ -13,9 +13,11 @@ failure:
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
    non-causal and Dh 64 for the flash kernels; empty groups, groups smaller
-   than a tile, boundaries inside tiles, a budget below S x E, a width of
-   100 and rows past the last group for the grouped GEMMs (outputs filled
-   with NaN before each launch).  A small model's bf16 prefill, and its
+   than a tile, boundaries inside tiles, a budget below S x E, widths of
+   100 and odd widths (cp.async loads), rows past the last group, one
+   group, E = 1 and 64, groups split over K5 chunks, for the grouped GEMMs
+   (K4 in both tile configurations, outputs filled with NaN before each
+   launch, K5 launched twice and compared bit for bit).  A small model's bf16 prefill, and its
    bf16 training loss and gradient (dense and gmm dispatch), are held
    against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
@@ -28,8 +30,8 @@ failure:
      prefill's spread and one under torch.profiler;
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
-     decode step), with the device-to-host reads per decode step of a
-     short gmm run and a short dense run under torch.profiler;
+     decode step), then short dense and gmm runs in turns, and one of
+     each under torch.profiler (device-to-host reads per decode step);
    - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
      B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
      dispatch and then with `dispatch_mode="gmm"` on the same batch;
@@ -109,6 +111,7 @@ TRAIN_GMM_LOSS_REL = 1e-2
 # that count device-to-host reads per decode step.
 GMM_SERVING_FRAMES = 100
 READS_FRAMES = 8
+TURN_FRAMES = 12
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
@@ -147,6 +150,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_device_ms(fn, iters: int):
+    """Device time per call of fn under torch.profiler: the sum of the
+    kernels it launches, without the gaps between launches that a CUDA-event
+    mean includes when the host enqueues slower than the card runs.  None
+    when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
 
 
 def flash_inputs(B, H, KV, T, S, Dh, valid, seed):
@@ -416,8 +438,10 @@ def _launch_counts():
             "flash_attention_bwd_dq": FA.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches,
             "grouped_gemm_gmm": GG.gmm.launches,
+            **{f"grouped_gemm_gmm_{c}": n for c, n in GG.gmm.launches_by_config.items()},
             "grouped_gemm_gmm_transposed": GG.gmm.transposed_launches,
-            "grouped_gemm_tgmm": GG.tgmm.launches}
+            "grouped_gemm_tgmm": GG.tgmm.launches,
+            "grouped_gemm_tgmm_reduce": GG.tgmm.reduce_launches}
 
 
 def _set_launch_counts(counts: dict) -> None:
@@ -428,8 +452,11 @@ def _set_launch_counts(counts: dict) -> None:
     FA.flash_attention_bwd_dq.launches = counts["flash_attention_bwd_dq"]
     FA.flash_attention_bwd_dkv.launches = counts["flash_attention_bwd_dkv"]
     GG.gmm.launches = GG.grouped_matmul.launches = counts["grouped_gemm_gmm"]
+    for c in GG.GMM_CONFIGS:
+        GG.gmm.launches_by_config[c] = counts[f"grouped_gemm_gmm_{c}"]
     GG.gmm.transposed_launches = counts["grouped_gemm_gmm_transposed"]
     GG.tgmm.launches = counts["grouped_gemm_tgmm"]
+    GG.tgmm.reduce_launches = counts["grouped_gemm_tgmm_reduce"]
 
 
 def _zero_launch_counts() -> None:
@@ -449,6 +476,7 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
     import torch
     from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
     from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.ops import grouped_gemm as GG
     from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = UniMoEAudioConfig(
@@ -486,12 +514,17 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
     L = TRAIN_LAYERS
     per_step = [{k: b[1][k] - a[1][k] for k in a[1]} for a, b in zip(marks, marks[1:])]
     gmm = dispatch_mode == "gmm"
+    rows = B * T * cfg.text_config.mlp_dynamic_expert_num     # A: every slot has a row
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
             "flash_attention_bwd_dkv": L,
             # 3 projections per layer, in the forward and the remat recompute
             "grouped_gemm_gmm": 6 * L if gmm else 0,
+            **{f"grouped_gemm_gmm_{c}": 6 * L if gmm and GG.gmm_config(rows) == c else 0
+               for c in GG.GMM_CONFIGS},
             "grouped_gemm_gmm_transposed": 3 * L if gmm else 0,
-            "grouped_gemm_tgmm": 3 * L if gmm else 0}
+            "grouped_gemm_tgmm": 3 * L if gmm else 0,
+            "grouped_gemm_tgmm_reduce":
+                3 * L if gmm and GG.tgmm_workspace_slots(rows, 8) else 0}
     check(all(p == want for p in per_step), f"launches per step {per_step}, want {want}")
     losses = [h["loss"] for h in history]
     check(len(losses) == n_steps and all(np.isfinite(losses)), f"losses {losses}")
@@ -540,7 +573,7 @@ def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
     for e in kernels:
         key = e.key.lower()
         kind = ("flash (K1/K2/K3)" if "flash" in key else
-                "grouped gemm (K4/K4t/K5)" if "gmm_kernel" in key else
+                "grouped gemm (K4/K4t/K5)" if "gmm" in key else
                 "gemm" if any(w in key for w in ("gemm", "nvjet", "cutlass", "sm90_xmma")) else
                 "elementwise / reduce / copy")
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
@@ -859,11 +892,13 @@ def grouped_operands(A, K, N, E, seed):
 
 
 def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
-    """K4, K4t and K5 vs their plain versions on the same inputs, each
-    through its wrapper and once more into an output filled with NaN before
-    the launch, so that an element the kernel does not write fails.
-    Elementwise limits and the relative L2 error of the whole output.
-    Returns the largest max |err| of each kernel."""
+    """K4 (in its own configuration and in the other one), K4t and K5 vs
+    their plain versions on the same inputs, each through its wrapper and
+    once more into an output filled with NaN before the launch, so that an
+    element the kernel does not write fails; K5 a second time into another
+    NaN-filled output, which must equal the first bit for bit.  Elementwise
+    limits and the relative L2 error of the whole output.  Returns the
+    largest max |err| of each kernel."""
     import torch
     from unimoe_audio_torch.ops import grouped_gemm as GG
 
@@ -871,42 +906,58 @@ def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
                                                            device="cuda")
     E = gs.numel()
     x, w, dy = grouped_operands(A, K, N, E, seed)
+    config = GG.gmm_config(A)
+    other = next(c for c in GG.GMM_CONFIGS if c != config)
     counts = _launch_counts()
     cases = (
-        ("grouped_gemm_gmm", lambda: GG.gmm(x, w, gs),
+        ("grouped_gemm_gmm", config, lambda: GG.gmm(x, w, gs),
          lambda o: GG.launch_gmm(x, w, gs, o, False), (A, N), torch.float32,
          lambda: GG.gmm_reference(x, w, gs)),
-        ("grouped_gemm_gmm_transposed", lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
+        ("grouped_gemm_gmm", other, lambda: GG.gmm(x, w, gs, config=other),
+         lambda o: GG.launch_gmm(x, w, gs, o, False, config=other), (A, N), torch.float32,
+         lambda: GG.gmm_reference(x, w, gs)),
+        ("grouped_gemm_gmm_transposed", "", lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
          lambda o: GG.launch_gmm(dy, w, gs, o, True), (A, K), torch.bfloat16,
          lambda: GG.gmm_reference(dy, w, gs, transpose_rhs=True)),
-        ("grouped_gemm_tgmm", lambda: GG.tgmm(x, dy, gs, E),
+        ("grouped_gemm_tgmm", "", lambda: GG.tgmm(x, dy, gs, E),
          lambda o: GG.launch_tgmm(x, dy, gs, o), (E, K, N), torch.bfloat16,
          lambda: GG.tgmm_reference(x, dy, gs, E)),
     )
     errs, rels = {}, {}
-    for name, wrapper, launch, shape, dtype, plain in cases:
+    for name, tag, wrapper, launch, shape, dtype, plain in cases:
         got = wrapper()
         filled = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
         launch(filled)
+        if name == "grouped_gemm_tgmm":
+            again = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+            launch(again)
+            torch.cuda.synchronize()
+            check(torch.equal(filled, again),
+                  f"grouped {label} {name}: two launches on the same inputs differ")
         torch.cuda.synchronize()
         want = plain().float()
-        for tag, out in (("wrapper", got), ("NaN-filled output", filled)):
+        for where, out in (("wrapper", got), ("NaN-filled output", filled)):
             o = out.float()
+            what = f"grouped {label} {name} {tag} ({where})"
             check(o.shape == want.shape and bool(torch.isfinite(o).all()),
-                  f"grouped {label} {name} ({tag}): wrong shape or non-finite output")
+                  f"{what}: wrong shape or non-finite output")
             err = (o - want).abs()
             rel = ((o - want).norm() / want.norm().clamp_min(1e-30)).item()
             check(bool((err <= GMM_ATOL + GMM_RTOL * want.abs()).all()) and rel <= GMM_REL_L2,
-                  f"grouped {label} {name} ({tag}): max err {err.max().item()}, "
-                  f"relative L2 {rel}")
+                  f"{what}: max err {err.max().item()}, relative L2 {rel}")
             errs[name] = max(errs.get(name, 0.0), err.max().item())
             rels[name] = max(rels.get(name, 0.0), rel)
         del got, filled, want
     _set_launch_counts(counts)                 # not launches of a main path
-    print(f"kernel check: grouped {label} A={A} K={K} N={N} groups {gs.tolist()}: " + ", ".join(
-        f"{n} max|err| {errs[n]:.3e} rel L2 {rels[n]:.2e}" for n in errs)
-        + f" (rtol {GMM_RTOL}, atol {GMM_ATOL}, rel L2 {GMM_REL_L2}; wrapper and NaN-filled "
-        f"output)", flush=True)
+    slots = GG.tgmm_workspace_slots(A, E)
+    print(f"kernel check: grouped {label} A={A} K={K} N={N} groups {gs.tolist()}: K4 in "
+          f"{config} (and {other}) configuration, {GG.load_path(x, w)} loads; K5 "
+          f"{GG.load_path(x, dy.to(torch.bfloat16))} loads, chunks of {GG.TGMM_CHUNK_ROWS} rows, "
+          f"{'a reduction over ' + str(slots) + ' workspace slots' if slots else 'no reduction'}"
+          f", two launches bit-identical; " + ", ".join(
+              f"{n} max|err| {errs[n]:.3e} rel L2 {rels[n]:.2e}" for n in errs)
+          + f" (rtol {GMM_RTOL}, atol {GMM_ATOL}, rel L2 {GMM_REL_L2}; wrapper and NaN-filled "
+          f"output)", flush=True)
     return errs
 
 
@@ -935,8 +986,18 @@ def check_grouped_all() -> dict:
     # A budget of 128 rows below S x E = 256 selected slots: [64, 64, 0, 0].
     budget = gmm_group_sizes(torch.ones(64, 4, dtype=torch.int32, device="cuda"), 128)
     errs.append(check_grouped("budget below S x E", 128, 256, 384, budget, seed=38))
-    # Widths of 100 (no 16-byte vectors) and 50 rows past the last group.
+    # Widths of 100 (rows not a multiple of 16 bytes: cp.async) and 50 rows
+    # past the last group; odd widths.
     errs.append(check_grouped("width 100", 300, 100, 100, [17, 0, 200, 33], seed=39))
+    errs.append(check_grouped("odd widths", 200, 99, 37, [60, 0, 90, 20], seed=40))
+    # All rows in one group of 8; E = 1 over two K5 chunks; E = 64; a group
+    # split over three K5 chunks beside groups that are not.
+    errs.append(check_grouped("one group of 8", 512, 256, 384, [0, 0, 0, 512, 0, 0, 0, 0],
+                              seed=41))
+    errs.append(check_grouped("E = 1", 5000, 128, 256, [5000], seed=42))
+    errs.append(check_grouped("E = 64", 2048, 128, 256, [0] + [30] * 62 + [188], seed=43))
+    errs.append(check_grouped("split group", 9000, 128, 256, [0, 10, 8500, 0, 490, 0],
+                              seed=44))
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
@@ -967,16 +1028,31 @@ def generate_dispatch(model, prompts, dispatch_mode: str, max_tokens: int, min_t
     return res, timings
 
 
-def device_reads_per_step(model, prompts, dispatch_mode: str) -> float:
-    """Device-to-host reads (`aten::_local_scalar_dense`, the host blocking on
-    a device value) per decode step of a short run under torch.profiler."""
+def profile_decode(model, prompts, dispatch_mode: str) -> dict:
+    """A short run (READS_FRAMES frames) under torch.profiler: device-to-host
+    reads (`aten::_local_scalar_dense`, the host blocking on a device value)
+    per decode step, the decode's ms per step, the device kernel time of the
+    run per decode step, and the kernels and host operators that take the
+    most time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        res, _ = generate_dispatch(model, prompts, dispatch_mode, READS_FRAMES, READS_FRAMES,
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res, t = generate_dispatch(model, prompts, dispatch_mode, READS_FRAMES, READS_FRAMES,
                                    seed=4)
-    n = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
-    return n / res.steps
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in ev if e.device_type != torch.autograd.DeviceType.CUDA]
+    return {
+        "reads": sum(e.count for e in ev if e.key == "aten::_local_scalar_dense") / res.steps,
+        "decode_ms": t["decode_s"] * 1e3 / res.steps,
+        "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / res.steps,
+        "launches": sum(e.count for e in kernels) / res.steps,
+        "top_kernels": [(e.key[:50], round(e.self_device_time_total / 1e3, 2), e.count)
+                        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]],
+        "top_host": [(e.key[:50], round(e.self_cpu_time_total / 1e3, 2), e.count)
+                     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]],
+    }
 
 
 def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
@@ -984,10 +1060,13 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
     `generate_chunked(..., dispatch_mode="gmm")`: GMM_SERVING_FRAMES frames
     for the same captions, the codes decoded to wavs.  Checks the codes, the
     wavs, and 3 x 36 K4 launches per prefill and per decode step (no K4t, no
-    K5); compares the device-to-host reads per decode step with dense
-    dispatch.  Returns the launch counts of the run."""
+    K5), in the configuration `gmm_config` picks for each; compares the
+    decode's ms per frame with dense dispatch in turns, and the
+    device-to-host reads per decode step.  Returns the launch counts of the
+    run."""
     import torch
     from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.ops import grouped_gemm as GG
 
     cfg = model.config
     L = cfg.text_config.num_hidden_layers
@@ -1002,6 +1081,15 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
           f"(1 prefill + {res.steps} decode steps) = {want}")
     check(launches["grouped_gemm_gmm_transposed"] == launches["grouped_gemm_tgmm"] == 0,
           f"gmm serving launched a backward kernel: {launches}")
+    # K4's configuration from A: the prefill's 8 x T rows take the large
+    # tiles, each decode step's 8 x 8 (one 128-row tile) the small ones.
+    ids, _ = model._tokenize(prompts)
+    E = cfg.text_config.mlp_dynamic_expert_num
+    by_config = {c: 0 for c in GG.GMM_CONFIGS}
+    for S, n in ((ids.shape[0] * ids.shape[1], 1), (ids.shape[0], res.steps)):
+        by_config[GG.gmm_config(-(-S * E // 128) * 128)] += 3 * L * n
+    got = {c: launches[f"grouped_gemm_gmm_{c}"] for c in GG.GMM_CONFIGS}
+    check(got == by_config, f"gmm serving: K4 launches by configuration {got}, want {by_config}")
     codes = res.codes.cpu().numpy()
     lengths = res.lengths.cpu().numpy()
     audios = dl.generate_output(codes, lengths, pad_value=cfg.codec_pad_value,
@@ -1014,13 +1102,31 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
         with wave.open(p) as f:
             pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
         check(pcm.size > 0 and int(np.abs(pcm).max()) > 0, f"{p}: silent")
-    reads = {m: device_reads_per_step(model, prompts, m) for m in ("dense", "gmm")}
+    # The decode's ms per frame with dense and gmm dispatch in turns (dense,
+    # gmm, gmm, dense), so that both meet the same host; then one short run
+    # of each under the profiler.
+    turns = ("dense", "gmm", "gmm", "dense")
+    per_frame = []
+    for m in turns:
+        rt, tm = generate_dispatch(model, prompts, m, TURN_FRAMES, TURN_FRAMES, seed=5)
+        per_frame.append(tm["decode_s"] * 1e3 / rt.steps)
+    profiled = {m: profile_decode(model, prompts, m) for m in ("dense", "gmm")}
+    reads = {m: p["reads"] for m, p in profiled.items()}
     check(reads["gmm"] <= reads["dense"],
           f"gmm serving reads the device more often per decode step: {reads}")
+    print(f"gmm serving [{card}]: decode ms/frame in turns ({TURN_FRAMES}-frame runs, "
+          f"{' / '.join(turns)}): {' / '.join(f'{x:.2f}' for x in per_frame)}", flush=True)
+    for m, p in profiled.items():
+        print(f"gmm serving [{card}]: profiled {READS_FRAMES}-frame run, {m}: decode "
+              f"{p['decode_ms']:.2f} ms/step, device kernel time {p['device_ms']:.2f} ms and "
+              f"{p['launches']:.0f} launches per step, {p['reads']:.3f} device-to-host reads "
+              f"per step; top kernels (ms, count) {p['top_kernels']}; top host operators "
+              f"(self ms, count) {p['top_host']}", flush=True)
     print(f"gmm serving [{card}]: {len(audios)} requests ({len(prompts)} CFG rows), "
           f"{res.steps} decode steps, frames {lengths.tolist()}; prefill {t['prefill_s'] * 1e3:.2f} ms; decode "
           f"{t['decode_s'] * 1e3 / res.steps:.2f} ms/frame; K4 launches "
-          f"{launches['grouped_gemm_gmm']} = 3 x {L} x (1 + {res.steps}); device-to-host reads "
+          f"{launches['grouped_gemm_gmm']} = 3 x {L} x (1 + {res.steps}), by configuration "
+          f"{got}; device-to-host reads "
           f"per decode step ({READS_FRAMES}-frame profiled runs): gmm {reads['gmm']:.3f}, dense "
           f"{reads['dense']:.3f}", flush=True)
     return launches
@@ -1066,11 +1172,29 @@ def _grouped_library(kind: str, x, w, dy, gs):
     return fn, "per-group torch.matmul"
 
 
+def _tgmm_split_groups(gs, A: int):
+    """(group, first workspace slot, chunks) of each group K5 splits into
+    more than one chunk, numbered as the kernel numbers them."""
+    from unimoe_audio_torch.ops.grouped_gemm import TGMM_CHUNK_ROWS as R
+
+    out, start, slot = [], 0, 0
+    for g, n in enumerate(gs.tolist()):
+        end = min(start + max(int(n), 0), A)
+        c = -(-(end - start) // R)
+        if c > 1:
+            out.append((g, slot, c))
+            slot += c
+        start = end
+    return out
+
+
 def time_grouped(errs: dict, card: str) -> list:
-    """K4, K4t and K5 at the training shape (the gate / up projection, group
-    sizes from the flagship router), K4 also at the down projection and at
-    the T2M prefill and decode shapes: kernel, plain version and one library
-    call, with the bound over what these group sizes need."""
+    """K4 at the training gate/up and down shapes and at the T2M prefill and
+    decode shapes (group sizes from the flagship router), K4t and K5 at the
+    training gate/up shape: kernel, plain version and one library call, with
+    the bound over what these group sizes need, its share and the achieved
+    rate.  K5's time includes the rounding of its f32 dy and its reduction;
+    both are also timed apart, and the reduction gets its own record."""
     import torch
     from unimoe_audio_torch.config import TextMoEConfig
     from unimoe_audio_torch.ops import grouped_gemm as GG
@@ -1083,7 +1207,13 @@ def time_grouped(errs: dict, card: str) -> list:
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
         return max(tb, to), ("bytes" if tb >= to else "operations"), nbytes, flops
 
-    ms_by, lib_by, bound_by = {}, {}, {}
+    def rate(b, ms):
+        """Share of the bound, and the achieved rate in the bound's unit."""
+        if b[1] == "bytes":
+            return f"{100 * b[0] / ms:.1f} % of the bound, {b[2] / ms / 1e6:.1f} GB/s"
+        return f"{100 * b[0] / ms:.1f} % of the bound, {b[3] / ms / 1e9:.1f} TFLOP/s"
+
+    ms_by, lib_by, bound_by, dev_by, lib_dev_by = {}, {}, {}, {}, {}
 
     def k4_case(key, S, K, N, seed):
         gs, A = flagship_group_sizes(S, seed)
@@ -1095,10 +1225,27 @@ def time_grouped(errs: dict, card: str) -> list:
         lib_fn, lib_label = _grouped_library("gmm", x, w, dy, gs)
         lib_by[key] = cuda_ms(lib_fn, iters=iters)
         bound_by[key] = b[0]
+        dev_by[key] = profiled_device_ms(lambda: GG.gmm(x, w, gs), iters)
+        lib_dev_by[key] = profiled_device_ms(lib_fn, iters)
+        enqueue = {}                        # host time to enqueue one call (no synchronise)
+        for label, fn in (("kernel", lambda: GG.gmm(x, w, gs)), ("library", lib_fn)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            enqueue[label] = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+
+        def dev(v):
+            return "not measured" if v is None else f"{v:.4f} ms"
+
         print(f"kernel timing [{card}]: grouped_gemm_gmm {key} A={A} K={K} N={N} groups "
-              f"{gs.tolist()}: kernel {ms_by[key]:.4f} ms, {lib_label} {lib_by[key]:.4f} ms, "
-              f"bound {b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP)",
-              flush=True)
+              f"{gs.tolist()}, {GG.gmm_config(A)} configuration: kernel {ms_by[key]:.4f} ms "
+              f"({rate(b, ms_by[key])}; device time under torch.profiler {dev(dev_by[key])}), "
+              f"{lib_label} {lib_by[key]:.4f} ms (device time {dev(lib_dev_by[key])}), bound "
+              f"{b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP); host "
+              f"enqueue per call: kernel {enqueue['kernel']:.4f} ms, library "
+              f"{enqueue['library']:.4f} ms", flush=True)
         return b, (x, w, dy, gs)
 
     k4_case("train_down", TRAIN_B * TRAIN_T, Fd, D, 40)
@@ -1107,6 +1254,23 @@ def time_grouped(errs: dict, card: str) -> list:
     b_k4, (x, w, dy, gs) = k4_case("train_gate_up", TRAIN_B * TRAIN_T, D, Fd, 46)
     A, K, N = x.shape[0], D, Fd
     live = int((gs > 0).sum())
+
+    # K5's parts: the rounding of dy, the main kernel, the reduction.
+    dyb = dy.to(torch.bfloat16)
+    slots = GG.tgmm_workspace_slots(A, E)
+    dw = torch.empty(E, K, N, dtype=torch.bfloat16, device="cuda")
+    conv_ms = cuda_ms(lambda: dy.to(torch.bfloat16), iters=20)
+    main_reduce_ms = cuda_ms(lambda: GG.launch_tgmm(x, dyb, gs, dw), iters=20)
+    ws = GG.launch_tgmm(x, dyb, gs, dw)                 # the partials the reduction reads
+    reduce_ms = cuda_ms(lambda: GG.launch_tgmm_reduce(ws, gs, dw, A), iters=20)
+    split = _tgmm_split_groups(gs, A)
+    used = sum(c for _, _, c in split)
+    print(f"kernel timing [{card}]: grouped_gemm_tgmm parts at A={A} K={K} N={N}: dy f32 -> bf16 "
+          f"{conv_ms:.4f} ms, main kernel + reduction {main_reduce_ms:.4f} ms, reduction alone "
+          f"{reduce_ms:.4f} ms; groups split into chunks (group, first slot, chunks) {split}; "
+          f"workspace {slots} slots allocated ({slots * K * N * 4 / 1e6:.1f} MB), {used} written "
+          f"({used * K * N * 4 / 1e6:.1f} MB)", flush=True)
+
     recs = []
     for name, kind, fn, plain, b in (
             ("grouped_gemm_gmm", "gmm", None, lambda: GG.gmm_reference(x, w, gs), b_k4),
@@ -1139,13 +1303,58 @@ def time_grouped(errs: dict, card: str) -> list:
             "library": lib_label,
         }
         if kind == "gmm":
-            rec.update(ms_by_shape=ms_by, library_ms_by_shape=lib_by, bound_ms_by_shape=bound_by)
+            rec.update(ms_by_shape=ms_by, library_ms_by_shape=lib_by, bound_ms_by_shape=bound_by,
+                       device_ms_profiler_by_shape=dev_by,
+                       library_device_ms_profiler_by_shape=lib_dev_by)
+        if kind == "tgmm":
+            rec.update(ms_parts={"dy_to_bf16": conv_ms, "main": main_reduce_ms - reduce_ms,
+                                 "reduction": reduce_ms},
+                       workspace_bytes=slots * K * N * 4, workspace_bytes_written=used * K * N * 4)
         print(f"kernel timing [{card}]: {name} at the training shape A={A} K={K} N={N}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library ({lib_label}) {lib_ms:.4f} ms, bound "
-              f"{b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP)",
-              flush=True)
+              f"{ms:.4f} ms ({rate(b, ms)}), plain {plain_ms:.4f} ms, library ({lib_label}) "
+              f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, "
+              f"{b[3] / 1e9:.1f} GFLOP)", flush=True)
         print(json.dumps({"kernel": rec}), flush=True)
         recs.append(rec)
+
+    # The reduction against its plain version on the partials the main
+    # kernel left in ws (dw holds its result from the timing above).
+    check(len(split) > 0, f"the training shape split no group into chunks: {gs.tolist()}")
+
+    def reduce_plain():
+        return [ws[f:f + c].sum(0).to(torch.bfloat16) for _, f, c in split]
+
+    want = reduce_plain()
+    err = max((dw[g].float() - r.float()).abs().max().item() for (g, _, _), r in zip(split, want))
+    check(all(bool(((dw[g].float() - r.float()).abs() <= GMM_ATOL + GMM_RTOL * r.float().abs())
+                   .all()) for (g, _, _), r in zip(split, want)),
+          f"tgmm reduction differs from the plain sum of its partials: max err {err}")
+    red_plain_ms = cuda_ms(reduce_plain, iters=5, warmup=1)
+    red_lib_ms = None
+    if len(split) == 1:                       # one torch.sum computes the same sums
+        _, f, c = split[0]
+        red_lib_ms = cuda_ms(lambda: torch.sum(ws[f:f + c], 0), iters=20)
+    b = bound(used * K * N * 4 + len(split) * K * N * 2 + E * 4, 0)    # f32 adds: bytes bound it
+    rec = {
+        "name": "grouped_gemm_tgmm_reduce",
+        "route": "cuda",
+        "source": "unimoe_audio_torch/csrc/grouped_gemm.cu",
+        "replaces": "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573",
+        "max_abs_err": err,
+        "ms": reduce_ms,
+        "plain_ms": red_plain_ms,
+        "bound_ms": b[0],
+        "bound_by": b[1],
+        "library_ms": red_lib_ms,
+        "library": "torch.sum over the group's partials" if red_lib_ms is not None else None,
+    }
+    print(f"kernel timing [{card}]: grouped_gemm_tgmm_reduce at A={A} K={K} N={N}, {used} "
+          f"partials of {len(split)} group(s): kernel {reduce_ms:.4f} ms ({rate(b, reduce_ms)}), "
+          f"plain {red_plain_ms:.4f} ms, torch.sum "
+          f"{'not one call' if red_lib_ms is None else f'{red_lib_ms:.4f} ms'}, bound "
+          f"{b[0]:.4f} ms by {b[1]}; max |err| vs plain {err:.3e}", flush=True)
+    print(json.dumps({"kernel": rec}), flush=True)
+    recs.append(rec)
     _set_launch_counts(counts)
     return recs
 
@@ -1235,6 +1444,12 @@ def main() -> None:
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["name"] == "grouped_gemm_gmm":        # K4 by tile configuration and path
+            rec["launches_by_config"] = {
+                c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}
+                for c in ("small", "large")}
+    check(all(r["launches"] > 0 for r in grouped_recs),
+          f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"], "train": fwd_train_err}
     fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], fwd_train_err)
 

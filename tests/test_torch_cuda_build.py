@@ -1,0 +1,54 @@
+"""The port's kernel build key (`ops/cuda_build.source_digest`): a library
+is reused only while its source, every local header it includes (followed
+recursively) and the compiler flags are unchanged.  Runs on the CPU: it
+hashes files and compiles nothing."""
+
+import os
+
+import pytest
+
+from unimoe_audio_torch.ops import cuda_build
+
+
+def _write(path, text):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+@pytest.fixture
+def tree(tmp_path):
+    root = str(tmp_path)
+    _write(os.path.join(root, "k.cu"), '#include <cuda.h>\n#include "a.cuh"\nint k;\n')
+    _write(os.path.join(root, "a.cuh"), '#pragma once\n  #  include "sub/b.cuh"\nint a;\n')
+    _write(os.path.join(root, "sub", "b.cuh"), "int b;\n")
+    return root
+
+
+@pytest.mark.parametrize("edit", ["k.cu", "a.cuh", "sub/b.cuh"])
+def test_digest_follows_local_headers(tree, edit):
+    """An edit to the source or to any header it reaches changes the key."""
+    src = os.path.join(tree, "k.cu")
+    before = cuda_build.source_digest(src)
+    assert cuda_build.source_digest(src) == before
+    with open(os.path.join(tree, edit), "a") as f:
+        f.write("// edited\n")
+    assert cuda_build.source_digest(src) != before
+
+
+def test_digest_follows_flags_not_system_headers(tree):
+    """Other flags give another key; a system include is not read."""
+    src = os.path.join(tree, "k.cu")
+    assert cuda_build.source_digest(src, cuda_build.NVCC_FLAGS + ("-lineinfo",)) \
+        != cuda_build.source_digest(src)
+    assert len(cuda_build.source_digest(src)) == 16
+
+
+def test_shipped_sources_hash_their_headers():
+    """The grouped-GEMM source includes the PTX header, and its key covers it."""
+    src = os.path.join(cuda_build.CSRC_DIR, "grouped_gemm.cu")
+    with open(src, "rb") as f:
+        assert b'#include "hopper_ptx.cuh"' in f.read()
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm"):
+        assert len(cuda_build.source_digest(os.path.join(cuda_build.CSRC_DIR,
+                                                         name + ".cu"))) == 16

@@ -397,13 +397,143 @@ def test_cuda_grouped_matmul_launches_or_raises(cuda):
     x, w, _, gs = _cuda_case(256, 128, 128, [100, 0, 156], 1, cuda)
     x.requires_grad_(True)
     w.requires_grad_(True)
-    before = (GG.gmm.launches, GG.gmm.transposed_launches, GG.tgmm.launches)
+    def counts():
+        return (GG.gmm.launches, GG.gmm.launches_by_config["small"], GG.gmm.transposed_launches,
+                GG.tgmm.launches, GG.tgmm.reduce_launches)
+
+    before = counts()
     GG.grouped_matmul(x, w, gs).sum().backward()
     torch.cuda.synchronize()
-    after = (GG.gmm.launches, GG.gmm.transposed_launches, GG.tgmm.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1, 0)
     assert x.grad.dtype == w.grad.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="gmm_reference"):
         GG.gmm(x.detach().float(), w.detach(), gs)
     with pytest.raises(ValueError, match="tgmm_reference"):
         GG.tgmm(x.detach().float(), x.detach().float(), gs, 3)
+
+
+# K4 cases for both tile configurations: boundaries inside tiles with empty
+# groups; all rows in one group of 8; E = 1; E = 64; empty first and last
+# groups; rows past the last group (the last tile holds only such rows);
+# the decode shape; widths whose row stride is not a multiple of 16 bytes
+# (cp.async), one of them odd.
+GMM_CASES = [
+    (256, 128, 256, [0, 70, 0, 3, 97, 86, 0]),
+    (300, 64, 192, [0, 0, 0, 300, 0, 0, 0, 0]),
+    (384, 192, 320, [384]),
+    (1024, 128, 136, [0] + [16] * 60 + [24, 0, 40]),
+    (640, 128, 256, [0, 200, 150, 290, 0]),
+    (300, 128, 128, [17, 0, 200, 33]),
+    (128, 2048, 2752, [5, 9, 0, 2, 7, 1, 0, 104]),
+    (300, 100, 100, [17, 0, 250, 33]),
+    (200, 99, 37, [60, 0, 90, 20]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", GG.GMM_CONFIGS)
+@pytest.mark.parametrize("A,K,N,sizes", GMM_CASES)
+def test_gmm_kernel_configs_match_plain(cuda, config, A, K, N, sizes):
+    """K4 in each tile configuration, forced through the wrapper, vs its
+    plain version, into an output filled with NaN before the launch."""
+    x, w, _, gs = _cuda_case(A, K, N, sizes, 2, cuda)
+    before = GG.gmm.launches_by_config[config]
+    got = GG.gmm(x, w, gs, config=config)
+    out = torch.full((A, N), float("nan"), device=cuda)
+    GG.launch_gmm(x, w, gs, out, False, config=config)
+    torch.cuda.synchronize()
+    assert GG.gmm.launches_by_config[config] == before + 1
+    want = GG.gmm_reference(x, w, gs)
+    _close(got, want, f"gmm {config}")
+    _close(out, want, f"gmm {config} (NaN-filled)")
+
+
+# K5 cases: a group split over several chunks beside groups that are not,
+# an empty first and last group, E = 1 over several chunks, an unaligned
+# width (cp.async) with a split group.
+TGMM_CASES = [
+    (9000, 128, 256, [0, 10, 8500, 0, 490, 0]),
+    (8300, 64, 64, [8300]),
+    (4500, 100, 60, [4200, 0, 300]),
+    (512, 256, 384, [0, 100, 0, 3, 97, 86, 0, 226]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,K,N,sizes", TGMM_CASES)
+def test_tgmm_kernel_chunks_match_plain_and_repeat(cuda, A, K, N, sizes):
+    """K5 vs its plain version into a NaN-filled output, and a second launch
+    on the same inputs equal bit for bit (no atomics: the partials are summed
+    in chunk order)."""
+    x, _, dy, gs = _cuda_case(A, K, N, sizes, 3, cuda)
+    E = len(sizes)
+    outs = []
+    for _ in range(2):
+        out = torch.full((E, K, N), float("nan"), device=cuda, dtype=torch.bfloat16)
+        ws = GG.launch_tgmm(x, dy, gs, out)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert (ws is not None) == (GG.tgmm_workspace_slots(A, E) > 0)
+    _close(outs[0], GG.tgmm_reference(x, dy, gs, E), "tgmm")
+    assert torch.equal(outs[0], outs[1]), "tgmm: two launches differ"
+
+
+def test_gmm_config_from_rows():
+    """K4's configuration follows the row count: decode-sized A takes the
+    small tiles, prefill and training the large ones."""
+    assert GG.gmm_config(1) == GG.gmm_config(128) == "small"
+    assert GG.gmm_config(GG.GMM_SMALL_MAX_ROWS) == "small"
+    assert GG.gmm_config(GG.GMM_SMALL_MAX_ROWS + 1) == "large"
+    assert GG.gmm_config(8192) == GG.gmm_config(65536) == "large"
+    x = torch.zeros(8, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="config"):
+        GG.launch_gmm(x, torch.zeros(2, 16, 8, dtype=torch.bfloat16),
+                      torch.tensor([4, 4], dtype=torch.int32), torch.zeros(8, 8), False,
+                      config="medium")
+
+
+@pytest.mark.parametrize("shapes,path", [
+    (((128, 2048), (8, 2048, 2752)), "tma"),
+    (((300, 100), (4, 100, 100)), "cp.async"),
+    (((300, 64), (4, 64, 36)), "cp.async"),
+    (((200, 99),), "cp.async"),
+])
+def test_load_path_from_row_strides(shapes, path):
+    """TMA where every row stride is a multiple of 16 bytes, cp.async
+    otherwise; a base off 16-byte alignment also takes cp.async."""
+    ts = [torch.zeros(s, dtype=torch.bfloat16) for s in shapes]
+    assert GG.load_path(*ts) == path
+    if path == "tma":
+        assert GG.load_path(torch.zeros(2 * 2048 + 1, dtype=torch.bfloat16)[1:].view(2, 2048)) \
+            == "cp.async"
+
+
+def _tgmm_slots_needed(sizes, rows, chunk):
+    """The chunks of the groups with more than one, as the kernel numbers
+    them (sizes clamped to the rows)."""
+    need, start = 0, 0
+    for n in sizes:
+        end = min(start + max(n, 0), rows)
+        c = -(-(end - start) // chunk) if end - start > chunk else 1
+        need += c if c > 1 else 0
+        start = end
+    return need
+
+
+@pytest.mark.parametrize("chunk", [64, 4096])
+def test_tgmm_workspace_covers_every_split(chunk):
+    """The workspace sized from host ints holds the partials of every split
+    of the rows into groups: random splits, one group holding all rows, and
+    splits at chunk + 1 rows each (the most multi-chunk groups)."""
+    rng = np.random.default_rng(5)
+    for _ in range(200):
+        E = int(rng.integers(1, 65))
+        rows = int(rng.integers(1, 20 * chunk))
+        cuts = np.sort(rng.integers(0, rows + 1, size=E - 1))
+        sizes = np.diff(np.concatenate([[0], cuts, [rows]])).tolist()
+        assert _tgmm_slots_needed(sizes, rows, chunk) <= GG.tgmm_workspace_slots(rows, E, chunk)
+    for E, rows in ((1, 10 * chunk + 3), (8, 8 * (chunk + 1)), (64, 3 * (chunk + 1) + 5)):
+        sizes = [chunk + 1] * E if rows == E * (chunk + 1) else [rows] + [0] * (E - 1)
+        assert _tgmm_slots_needed(sizes, rows, chunk) <= GG.tgmm_workspace_slots(rows, E, chunk)
+    assert GG.tgmm_workspace_slots(chunk, 8, chunk) == 0
+    assert GG.tgmm_workspace_slots(65536, 8) == 23

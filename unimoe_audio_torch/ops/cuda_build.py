@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` for `sm_90a` into a shared library at first use, then bound with
 `ctypes`.  Libraries land in `unimoe_audio_torch/_build/` (listed in
-`.gitignore`), keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is compiled at
+`.gitignore`), keyed by a hash of the source, every local header it
+includes (`#include "..."`, followed recursively) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing is compiled at
 import time: the CPU tests import every module of the port.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict
@@ -40,14 +42,33 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_digest(src: str, flags=NVCC_FLAGS) -> str:
+    """Hash of a source, the local headers it includes (recursively,
+    resolved beside the including file) and the compiler flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(path[len(os.path.dirname(os.path.abspath(src))):].encode() + b"\0" + text)
+        todo += [os.path.join(os.path.dirname(path), m.decode())
+                 for m in _LOCAL_INCLUDE.findall(text)]
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, building it if needed."""
     if name in _loaded:
         return _loaded[name]
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"{name}-{source_digest(src)}.so")
     build_logs[name] = ""
     if not os.path.isfile(lib):
         os.makedirs(BUILD_DIR, exist_ok=True)

@@ -15,12 +15,26 @@ A row that no group owns comes out of `gmm` as 0 and adds nothing to
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it takes the plain version; nothing falls back from one to the other.  The
-kernels take bf16 operands, plus an f32 dy (the cotangent of K4's f32
-output), which they round to bf16 as they load it; they accumulate in f32.
-The plain versions round the same way whenever the weights (gmm) or x
-(tgmm) are bf16.  Launch counters: `gmm.launches` (K4),
-`gmm.transposed_launches` (K4ᵀ), `tgmm.launches` (K5) and
-`grouped_matmul.launches` (K4 launched by `grouped_matmul`'s forward).
+kernels take bf16 operands and accumulate in f32.  An f32 dy (the
+cotangent of K4's f32 output) is rounded to bf16: by K4ᵀ as it loads it,
+by `tgmm` once before K5, and by `GroupedMatmul.backward` once for both;
+the plain versions round the same way whenever the weights (gmm) or x
+(tgmm) are bf16.
+
+K4 has two tile configurations, chosen from the row count A (a host int) by
+`gmm_config`: "small" (decode-sized A: 128 x 64 tiles, three CTAs per SM, a
+weight stream bound by bytes) and "large" (128 x 256 tiles, bound by the
+tensor cores).  Both K4 and K5 load through TMA where every row stride is a
+multiple of 16 bytes and through cp.async otherwise (`load_path`).  K5
+splits a group's rows into chunks of at most `TGMM_CHUNK_ROWS`; the chunks
+of a group with more than one write f32 partials into a workspace
+(`tgmm_workspace_slots` of [K, N] each) that a second kernel sums in chunk
+order.
+
+Launch counters: `gmm.launches` (K4) with `gmm.launches_by_config`,
+`gmm.transposed_launches` (K4ᵀ), `tgmm.launches` (K5),
+`tgmm.reduce_launches` (K5's reduction) and `grouped_matmul.launches` (K4
+launched by `grouped_matmul`'s forward).
 """
 
 from __future__ import annotations
@@ -29,6 +43,37 @@ import ctypes
 import torch
 
 MAX_GROUPS = 64          # the kernels keep the group offsets in shared memory
+GMM_CONFIGS = ("small", "large")
+GMM_SMALL_MAX_ROWS = 512  # K4 takes its small-A configuration up to this many rows
+TGMM_CHUNK_ROWS = 4096    # K5's largest chunk of one group's rows
+
+
+def gmm_config(rows: int) -> str:
+    """K4's tile configuration for A = rows: "small" streams each group's
+    weights over many narrow column tiles (decode), "large" computes wide
+    tiles (prefill, training)."""
+    return "small" if rows <= GMM_SMALL_MAX_ROWS else "large"
+
+
+def load_path(*tensors: torch.Tensor) -> str:
+    """How the wgmma kernels load these 2-d/3-d operands: "tma" when every
+    row stride is a multiple of 16 bytes and every base 16-byte aligned,
+    else "cp.async"."""
+    ok = all(t.shape[-1] * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0
+             for t in tensors)
+    return "tma" if ok else "cp.async"
+
+
+def tgmm_workspace_slots(rows: int, num_groups: int, chunk_rows: int = TGMM_CHUNK_ROWS) -> int:
+    """f32 [K, N] partials K5 may write for A = rows: an upper bound, from
+    host ints, on the chunks of the groups that have more than one.  Such a
+    group has more than chunk_rows rows, so at most rows // (chunk_rows + 1)
+    of them exist, and their chunks number at most ceil(rows / chunk_rows)
+    + that count - 1.  0 when no group can have two chunks."""
+    if rows <= chunk_rows:
+        return 0
+    multi = min(num_groups, rows // (chunk_rows + 1))
+    return -(-rows // chunk_rows) + multi - 1
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -92,38 +137,76 @@ def _check_common(name, x, other, group_sizes, num_groups):
         raise ValueError(f"{name}: x, the second operand and group_sizes must be on one device")
 
 
-def _call(entry: str, *args) -> None:
-    """Launch a C entry of csrc/grouped_gemm.cu on the current stream (4
-    tensors' pointers, then ints); raise if the launch failed."""
+_ENCODE_FAILED = 10000      # csrc/grouped_gemm.cu: + the CUresult of a failed encode
+
+
+def _call(entry: str, tensors, ints) -> None:
+    """Launch a C entry of csrc/grouped_gemm.cu on the current stream
+    (tensors' pointers, None as a null pointer, then ints); raise if it
+    failed."""
     from .cuda_build import load
 
     fn = getattr(load("grouped_gemm"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(args[0].device):
-        err = fn(*(t.data_ptr() for t in args[:4]), *args[4:],
+    with torch.cuda.device(tensors[0].device):
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
                  torch.cuda.current_stream().cuda_stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{entry}: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {err - _ENCODE_FAILED}")
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
 
-def launch_gmm(x, w, group_sizes, out, transpose_rhs: bool) -> None:
-    """K4 (or K4ᵀ) into a given output: every row of `out` is written."""
-    _call("grouped_gemm_gmm", x, w, group_sizes, out, x.shape[0], x.shape[1], out.shape[1],
-          w.shape[0], int(transpose_rhs), int(x.dtype == torch.float32))
+def launch_gmm(x, w, group_sizes, out, transpose_rhs: bool, *, config=None) -> None:
+    """K4 (in `config`, by default `gmm_config(A)`) or K4ᵀ into a given
+    output: every row of `out` is written."""
+    A, E = x.shape[0], w.shape[0]
+    if transpose_rhs:
+        _call("grouped_gemm_gmm", (x, w, group_sizes, out),
+              (A, x.shape[1], out.shape[1], E, 1, int(x.dtype == torch.float32)))
+        return
+    config = config or gmm_config(A)
+    if config not in GMM_CONFIGS:
+        raise ValueError(f"gmm: config must be one of {GMM_CONFIGS}, got {config!r}")
+    _call("grouped_gemm_gmm_wgmma", (x, w, group_sizes, out),
+          (A, x.shape[1], out.shape[1], E, int(config == "large"),
+           int(load_path(x, w) == "tma")))
 
 
-def launch_tgmm(x, dy, group_sizes, out) -> None:
-    """K5 into a given output: every element of `out` is written."""
-    _call("grouped_gemm_tgmm", x, dy, group_sizes, out, x.shape[0], x.shape[1], dy.shape[1],
-          out.shape[0], int(dy.dtype == torch.float32))
+def launch_tgmm(x, dy, group_sizes, out):
+    """K5 into a given output (every element of `out` is written), then its
+    reduction where a group may span several chunks; an f32 dy is rounded to
+    bf16 first.  Returns the f32 [tgmm_workspace_slots(A, E), K, N]
+    workspace of partials the reduction read, or None when it did not run."""
+    dy = dy.to(torch.bfloat16)
+    A, K = x.shape
+    E, N = out.shape[0], dy.shape[1]
+    slots = tgmm_workspace_slots(A, E)
+    ws = torch.empty(slots, K, N, dtype=torch.float32, device=x.device) if slots else None
+    _call("grouped_gemm_tgmm", (x, dy, group_sizes, out, ws),
+          (A, K, N, E, TGMM_CHUNK_ROWS, int(load_path(x, dy) == "tma")))
+    if ws is not None:
+        launch_tgmm_reduce(ws, group_sizes, out, A)
+    return ws
 
 
-def gmm(x, w, group_sizes, *, transpose_rhs: bool = False) -> torch.Tensor:
+def launch_tgmm_reduce(workspace, group_sizes, out, rows: int) -> None:
+    """K5's second kernel: dW[g] of every group of more than one chunk, the
+    sum of its partials in `workspace` in chunk order."""
+    E, K, N = out.shape
+    _call("grouped_gemm_tgmm_reduce", (workspace, group_sizes, out),
+          (rows, K, N, E, TGMM_CHUNK_ROWS))
+
+
+def gmm(x, w, group_sizes, *, transpose_rhs: bool = False, config=None) -> torch.Tensor:
     """out[r] = x[r] · W[g(r)] ([A, K] · [E, K, N] → [A, N]), or with
     transpose_rhs x[r] · W[g(r)]ᵀ ([A, N] · [E, K, N] → [A, K]).  The output
     is f32 (f64 for f64 inputs, plain version only), or W's dtype with
-    transpose_rhs (the input gradient's dtype in the VJP)."""
+    transpose_rhs (the input gradient's dtype in the VJP).  `config` forces
+    K4's tile configuration on the card (default `gmm_config(A)`)."""
     if not x.is_cuda:
         _cpu_only(x)
         return gmm_reference(x, w, group_sizes, transpose_rhs=transpose_rhs)
@@ -140,17 +223,20 @@ def gmm(x, w, group_sizes, *, transpose_rhs: bool = False) -> torch.Tensor:
                          f"(transpose_rhs={transpose_rhs}); got {tuple(x.shape)}")
     _check_common("gmm", x, w, group_sizes, E)
     out = torch.empty(x.shape[0], n_out, dtype=want_out, device=x.device)
-    launch_gmm(x, w, group_sizes, out, transpose_rhs)
+    config = config or gmm_config(x.shape[0])
+    launch_gmm(x, w, group_sizes, out, transpose_rhs, config=config)
     if transpose_rhs:
         gmm.transposed_launches += 1
     else:
         gmm.launches += 1
+        gmm.launches_by_config[config] += 1
     return out
 
 
 def tgmm(x, dy, group_sizes, num_groups: int) -> torch.Tensor:
     """dW[g] = Σ_{r in g} x[r]ᵀ dy[r] ([A, K], [A, N] → [E, K, N]) in x's
-    dtype; a group with no rows gets zeros."""
+    dtype; a group with no rows gets zeros.  On the card an f32 dy is
+    rounded to bf16 before K5."""
     if not x.is_cuda:
         _cpu_only(x)
         return tgmm_reference(x, dy, group_sizes, num_groups)
@@ -163,7 +249,8 @@ def tgmm(x, dy, group_sizes, num_groups: int) -> torch.Tensor:
                          f"{tuple(dy.shape)}")
     _check_common("tgmm", x, dy, group_sizes, num_groups)
     out = torch.empty(num_groups, x.shape[1], dy.shape[1], dtype=x.dtype, device=x.device)
-    launch_tgmm(x, dy, group_sizes, out)
+    if launch_tgmm(x, dy, group_sizes, out) is not None:
+        tgmm.reduce_launches += 1
     tgmm.launches += 1
     return out
 
@@ -185,6 +272,8 @@ class GroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, group_sizes = ctx.saved_tensors
         dy = dy.contiguous()
+        if w.dtype == torch.bfloat16:        # rounded once for K4ᵀ and K5, as both load it
+            dy = dy.to(torch.bfloat16)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = gmm(dy, w, group_sizes, transpose_rhs=True).to(x.dtype)
@@ -200,6 +289,8 @@ def grouped_matmul(x, w, group_sizes) -> torch.Tensor:
 
 
 gmm.launches = 0
+gmm.launches_by_config = dict.fromkeys(GMM_CONFIGS, 0)
 gmm.transposed_launches = 0
 tgmm.launches = 0
+tgmm.reduce_launches = 0
 grouped_matmul.launches = 0
