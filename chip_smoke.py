@@ -12,12 +12,13 @@ failure:
    grouped_gemm}.cu built with nvcc, one process per source, in parallel;
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
-   non-causal and Dh 64 for the flash kernels; empty groups, groups smaller
-   than a tile, boundaries inside tiles, a budget below S x E, widths of
-   100 and odd widths (cp.async loads), rows past the last group, one
-   group, E = 1 and 64, groups split over K5 chunks, for the grouped GEMMs
-   (K4 in both tile configurations, outputs filled with NaN before each
-   launch, K5 launched twice and compared bit for bit).  A small model's bf16 prefill, and its
+   non-causal, Dh 64 and K1's tile edges (T = S = 129; T 64 with S 300) for
+   the flash kernels; empty groups, groups smaller than a tile, boundaries
+   inside tiles, a budget below S x E, widths of 100 and odd widths
+   (cp.async loads), rows past the last group, one group, E = 1 and 64,
+   groups split over K5 chunks, for the grouped GEMMs (K4 in both tile
+   configurations, K4t with an f32 and a bf16 dy, outputs filled with NaN
+   before each launch, K5 launched twice and compared bit for bit).  A small model's bf16 prefill, and its
    bf16 training loss and gradient (dense and gmm dispatch), are held
    against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
@@ -36,7 +37,9 @@ failure:
      B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
      dispatch and then with `dispatch_mode="gmm"` on the same batch;
 4. timing of each kernel, its plain version and one PyTorch library call
-   at its path's shapes, with the least time the card could take.
+   at its path's shapes, with the least time the card could take (K1 also
+   at the training shape, against SDPA with a boolean mask and with
+   is_causal=True; K4t with the step's bf16 dy and with an f32 dy).
 
 The serving path runs after the small-shape checks and before any
 training-shape work; the training-shape checks follow it.
@@ -162,7 +165,7 @@ def profiled_device_ms(fn, iters: int):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -188,7 +191,7 @@ def allowed_mask(valid, T, S, causal=True):
     return (valid[:, None, :] > 0) & tri                                  # [B, T, S]
 
 
-def check_flash(B, H, KV, T, S, Dh, pads, seed) -> float:
+def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True) -> float:
     """Kernel vs plain version; dead rows exactly 0.  Returns max |err|."""
     import torch
     from unimoe_audio_torch.ops.flash_attention import (
@@ -198,18 +201,18 @@ def check_flash(B, H, KV, T, S, Dh, pads, seed) -> float:
     for b, p in enumerate(pads):
         valid[b, :p] = 0
     q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed)
-    o, m, l = flash_attention(q, k, v, vt, causal=True, return_stats=True)
+    o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
     torch.cuda.synchronize()
-    ro, rm, rl = flash_attention_reference(q, k, v, vt, True, return_stats=True)
+    ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
     o32, r32 = o.float(), ro.float()
-    name = f"flash B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} pads={list(pads)}"
+    name = f"flash B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} causal={causal} pads={list(pads)}"
     check(bool(torch.isfinite(o32).all()), f"{name}: non-finite output")
     check(bool(((o32 - r32).abs() <= FLASH_ATOL + FLASH_RTOL * r32.abs()).all()),
           f"{name}: output differs from the plain version, max err "
           f"{(o32 - r32).abs().max().item()}")
     check(bool(((m - rm).abs() <= STATS_ATOL + STATS_RTOL * rm.abs()).all()), f"{name}: m differs")
     check(bool(((l - rl).abs() <= STATS_ATOL + STATS_RTOL * rl.abs()).all()), f"{name}: l differs")
-    dead = ~allowed_mask(vt, T, S).any(-1)                                # [B, T]
+    dead = ~allowed_mask(vt, T, S, causal).any(-1)                        # [B, T]
     dead_rows = int(dead.sum()) * H
     check(bool((o32.abs().sum(-1)[dead[:, None, :].expand(B, H, T)] == 0).all()),
           f"{name}: a dead row is not exactly 0")
@@ -586,6 +589,12 @@ def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
     for e in top:
         print(f"train profile:   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
               f"{e.key[:90]}", flush=True)
+    # The port's kernels in this step: device time per launch.
+    ours = [e for e in kernels if any(w in e.key for w in ("flash_", "gmm_wgmma", "tgmm_reduce"))]
+    print(f"train profile [{card}]: the port's kernels, device ms per launch (launches): " + "; ".join(
+        f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '').split('(')[0]} "
+        f"{e.self_device_time_total / 1e3 / e.count:.4f} ({e.count})"
+        for e in sorted(ours, key=lambda e: e.key)), flush=True)
 
 
 def run_slice(card: str, out_dir: str):
@@ -778,11 +787,12 @@ def time_flash(model, prompts, launches, card):
     return rec
 
 
-def time_flash_bwd(launches: dict, errs: dict, card: str) -> list:
+def time_flash_bwd(launches: dict, errs: dict, card: str):
     """The dq and dk/dv kernels, their plain versions and one library call
-    (the backward of scaled_dot_product_attention with expanded KV and a
-    boolean mask, which computes dq, dk and dv at once) at the training
-    slice's shape."""
+    (the backward of scaled_dot_product_attention with expanded KV, which
+    computes dq, dk and dv at once, the faster of its boolean-mask and
+    is_causal forms) at the training slice's shape; K1 there too.  Returns the records of K2 and K3 and K1's
+    training-shape fields."""
     import torch
     import torch.nn.functional as F
     from unimoe_audio_torch.config import TextMoEConfig
@@ -802,26 +812,57 @@ def time_flash_bwd(launches: dict, errs: dict, card: str) -> list:
     qq = q.detach().requires_grad_(True)
     kk = k.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
     vv = v.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
-    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=allowed_mask(vt, T, T)[:, None])
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True),
-                     iters=10)
-    del out
+    # The SDPA backward in the two forms that compute the same function here
+    # (T = S, no padding), as for K1 below; the faster is the yardstick.
+    lib_by_form = {}
+    for form, kw in (("attn_mask", {"attn_mask": allowed_mask(vt, T, T)[:, None]}),
+                     ("is_causal", {"is_causal": True})):
+        out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
+        lib_by_form[form] = cuda_ms(
+            lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True), iters=10)
+        del out
+    lib_ms = min(lib_by_form.values())
 
     pairs = int(allowed_mask(vt, T, T).sum()) * H           # attended (query, key) pairs
 
-    # K1 at this shape too (its record stays at the T2M prefill shape).
+    # K1 at this shape too: its fields join K1's record (kept at the T2M
+    # prefill shape).  SDPA in two forms that compute the same function here
+    # (T = S, no padding): the explicit boolean mask, and is_causal=True,
+    # which lets PyTorch pick its flash backend; the faster is the yardstick.
     count = FA.flash_attention.launches
     fwd_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, vt), iters=20)
     FA.flash_attention.launches = count
+    fwd_dev = profiled_device_ms(lambda: FA.flash_attention(q, k, v, vt), 10)
+    FA.flash_attention.launches = count
+    fwd_plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v, vt, True), iters=3, warmup=1)
     with torch.no_grad():
-        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sdpa_mask_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, kk, vv, attn_mask=allowed_mask(vt, T, T)[:, None]), iters=20)
+        sdpa_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True), iters=20)
     fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (2 * B * H * T + vt.numel()) * 4
     fwd_t = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, 4 * Dh * pairs / PEAK_BF16_FLOPS * 1e3)
+    fwd_train = {
+        "shape": f"B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal",
+        "ms": fwd_ms,
+        "device_ms_profiler": fwd_dev,
+        "plain_ms": fwd_plain,
+        "bound_ms": max(fwd_t),
+        "bound_by": "bytes" if fwd_t[0] >= fwd_t[1] else "operations",
+        "library_ms": min(sdpa_mask_ms, sdpa_causal_ms),
+        "library_ms_attn_mask": sdpa_mask_ms,
+        "library_ms_is_causal": sdpa_causal_ms,
+    }
     print(f"kernel timing [{card}]: flash_attention_fwd at the training shape B={B} H={H} "
-          f"KV={KV} T=S={T} Dh={Dh} causal: kernel {fwd_ms:.4f} ms, sdpa {sdpa_fwd_ms:.4f} ms, "
-          f"bound {max(fwd_t):.4f} ms by {'bytes' if fwd_t[0] >= fwd_t[1] else 'operations'} "
-          f"({fwd_bytes / 1e6:.2f} MB, {4 * Dh * pairs / 1e9:.3f} GFLOP)", flush=True)
+          f"KV={KV} T=S={T} Dh={Dh} causal: kernel {fwd_ms:.4f} ms "
+          f"({100 * max(fwd_t) / fwd_ms:.1f} % of the bound, "
+          f"{4 * Dh * pairs / fwd_ms / 1e9:.1f} TFLOP/s; device time under torch.profiler "
+          f"{'not measured' if fwd_dev is None else f'{fwd_dev:.4f} ms'}), plain {fwd_plain:.4f} ms, "
+          f"sdpa with attn_mask {sdpa_mask_ms:.4f} ms, sdpa is_causal {sdpa_causal_ms:.4f} ms, "
+          f"bound {max(fwd_t):.4f} ms by {fwd_train['bound_by']} ({fwd_bytes / 1e6:.2f} MB, "
+          f"{4 * Dh * pairs / 1e9:.3f} GFLOP); launches in the dense run "
+          f"{launches['flash_attention_fwd']}",
+          flush=True)
 
     in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
         + (m.numel() + l.numel() + dvec.numel() + vt.numel()) * 4
@@ -847,14 +888,17 @@ def time_flash_bwd(launches: dict, errs: dict, card: str) -> list:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
+            "library_ms_attn_mask": lib_by_form["attn_mask"],
+            "library_ms_is_causal": lib_by_form["is_causal"],
         }
         print(f"kernel timing [{card}]: {name} B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq, dk, dv) "
-              f"{lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq, dk, dv) with "
+              f"attn_mask {lib_by_form['attn_mask']:.4f} ms, is_causal "
+              f"{lib_by_form['is_causal']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
               f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
         print(json.dumps({"kernel": rec}), flush=True)
         recs.append(rec)
-    return recs
+    return recs, fwd_train
 
 
 def flagship_group_sizes(S: int, seed: int):
@@ -906,6 +950,7 @@ def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
                                                            device="cuda")
     E = gs.numel()
     x, w, dy = grouped_operands(A, K, N, E, seed)
+    dyb = dy.to(torch.bfloat16)
     config = GG.gmm_config(A)
     other = next(c for c in GG.GMM_CONFIGS if c != config)
     counts = _launch_counts()
@@ -916,9 +961,12 @@ def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
         ("grouped_gemm_gmm", other, lambda: GG.gmm(x, w, gs, config=other),
          lambda o: GG.launch_gmm(x, w, gs, o, False, config=other), (A, N), torch.float32,
          lambda: GG.gmm_reference(x, w, gs)),
-        ("grouped_gemm_gmm_transposed", "", lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
+        ("grouped_gemm_gmm_transposed", "f32 dy", lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
          lambda o: GG.launch_gmm(dy, w, gs, o, True), (A, K), torch.bfloat16,
          lambda: GG.gmm_reference(dy, w, gs, transpose_rhs=True)),
+        ("grouped_gemm_gmm_transposed", "bf16 dy", lambda: GG.gmm(dyb, w, gs, transpose_rhs=True),
+         lambda o: GG.launch_gmm(dyb, w, gs, o, True), (A, K), torch.bfloat16,
+         lambda: GG.gmm_reference(dyb, w, gs, transpose_rhs=True)),
         ("grouped_gemm_tgmm", "", lambda: GG.tgmm(x, dy, gs, E),
          lambda o: GG.launch_tgmm(x, dy, gs, o), (E, K, N), torch.bfloat16,
          lambda: GG.tgmm_reference(x, dy, gs, E)),
@@ -951,7 +999,8 @@ def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
     _set_launch_counts(counts)                 # not launches of a main path
     slots = GG.tgmm_workspace_slots(A, E)
     print(f"kernel check: grouped {label} A={A} K={K} N={N} groups {gs.tolist()}: K4 in "
-          f"{config} (and {other}) configuration, {GG.load_path(x, w)} loads; K5 "
+          f"{config} (and {other}) configuration, {GG.load_path(x, w)} loads; K4t with f32 and "
+          f"bf16 dy, {GG.load_path(dyb, w)} loads; K5 "
           f"{GG.load_path(x, dy.to(torch.bfloat16))} loads, chunks of {GG.TGMM_CHUNK_ROWS} rows, "
           f"{'a reduction over ' + str(slots) + ' workspace slots' if slots else 'no reduction'}"
           f", two launches bit-identical; " + ", ".join(
@@ -959,6 +1008,57 @@ def check_grouped(label: str, A: int, K: int, N: int, sizes, seed: int) -> dict:
           + f" (rtol {GMM_RTOL}, atol {GMM_ATOL}, rel L2 {GMM_REL_L2}; wrapper and NaN-filled "
           f"output)", flush=True)
     return errs
+
+
+# K4's widths in tests/test_torch_dispatch.py (GMM_CASES): boundaries inside
+# tiles with empty groups, one group of 8, E = 1, E = 64, empty first and
+# last groups, rows past the last group, the decode shape, widths of 100 and
+# 37 (cp.async) and an odd contraction.
+GMM_CASES = [
+    (256, 128, 256, [0, 70, 0, 3, 97, 86, 0]),
+    (300, 64, 192, [0, 0, 0, 300, 0, 0, 0, 0]),
+    (384, 192, 320, [384]),
+    (1024, 128, 136, [0] + [16] * 60 + [24, 0, 40]),
+    (640, 128, 256, [0, 200, 150, 290, 0]),
+    (300, 128, 128, [17, 0, 200, 33]),
+    (128, 2048, 2752, [5, 9, 0, 2, 7, 1, 0, 104]),
+    (300, 100, 100, [17, 0, 250, 33]),
+    (200, 99, 37, [60, 0, 90, 20]),
+]
+
+
+def check_transposed_widths() -> float:
+    """K4t alone at the GMM_CASES widths with an f32 and a bf16 dy, into
+    outputs filled with NaN, against its plain version; an f32 dy gives the
+    bits of the same dy rounded to bf16 by hand.  Returns the largest max
+    |err|."""
+    import torch
+    from unimoe_audio_torch.ops import grouped_gemm as GG
+
+    worst = 0.0
+    for i, (A, K, N, sizes) in enumerate(GMM_CASES):
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        _, w, dy = grouped_operands(A, K, N, len(sizes), 60 + i)
+        outs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            outs[dt] = torch.full((A, K), float("nan"), dtype=torch.bfloat16, device="cuda")
+            GG.launch_gmm(dy.to(dt), w, gs, outs[dt], True)
+        torch.cuda.synchronize()
+        want = GG.gmm_reference(dy, w, gs, transpose_rhs=True).float()
+        for dt, out in outs.items():
+            o = out.float()
+            err = (o - want).abs()
+            rel = ((o - want).norm() / want.norm().clamp_min(1e-30)).item()
+            check(bool(torch.isfinite(o).all()) and bool((err <= GMM_ATOL + GMM_RTOL * want.abs()).all())
+                  and rel <= GMM_REL_L2, f"K4t A={A} K={K} N={N} {dt}: max err {err.max().item()}, "
+                  f"relative L2 {rel}")
+            worst = max(worst, err.max().item())
+        check(torch.equal(outs[torch.float32], outs[torch.bfloat16]),
+              f"K4t A={A} K={K} N={N}: an f32 dy and the same dy rounded to bf16 differ")
+    print(f"kernel check: K4t at {len(GMM_CASES)} widths (N of 100 and 37 through cp.async), "
+          f"f32 and bf16 dy into NaN-filled outputs: max|err| {worst:.3e} (rtol {GMM_RTOL}, atol "
+          f"{GMM_ATOL}, rel L2 {GMM_REL_L2}); f32 dy bit-identical to dy rounded by hand", flush=True)
+    return worst
 
 
 def check_grouped_all() -> dict:
@@ -998,7 +1098,10 @@ def check_grouped_all() -> dict:
     errs.append(check_grouped("E = 64", 2048, 128, 256, [0] + [30] * 62 + [188], seed=43))
     errs.append(check_grouped("split group", 9000, 128, 256, [0, 10, 8500, 0, 490, 0],
                               seed=44))
-    return {k: max(e[k] for e in errs) for k in errs[0]}
+    worst = {k: max(e[k] for e in errs) for k in errs[0]}
+    worst["grouped_gemm_gmm_transposed"] = max(worst["grouped_gemm_gmm_transposed"],
+                                               check_transposed_widths())
+    return worst
 
 
 def generate_dispatch(model, prompts, dispatch_mode: str, max_tokens: int, min_tokens: int,
@@ -1271,13 +1374,19 @@ def time_grouped(errs: dict, card: str) -> list:
           f"workspace {slots} slots allocated ({slots * K * N * 4 / 1e6:.1f} MB), {used} written "
           f"({used * K * N * 4 / 1e6:.1f} MB)", flush=True)
 
+    # K4t with the bf16 dy the training step gives it, and with an f32 dy
+    # (its rounding included), its device time under the profiler.
+    k4t_f32_ms = cuda_ms(lambda: GG.gmm(dy, w, gs, transpose_rhs=True), iters=20)
+    k4t_dev = profiled_device_ms(lambda: GG.gmm(dyb, w, gs, transpose_rhs=True), 10)
+    k4t_lib_dev = profiled_device_ms(_grouped_library("gmm_transposed", x, w, dy, gs)[0], 10)
+
     recs = []
     for name, kind, fn, plain, b in (
             ("grouped_gemm_gmm", "gmm", None, lambda: GG.gmm_reference(x, w, gs), b_k4),
             ("grouped_gemm_gmm_transposed", "gmm_transposed",
-             lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
-             lambda: GG.gmm_reference(dy, w, gs, transpose_rhs=True),
-             bound(A * N * 4 + live * K * N * 2 + A * K * 2, 2 * A * K * N)),
+             lambda: GG.gmm(dyb, w, gs, transpose_rhs=True),
+             lambda: GG.gmm_reference(dyb, w, gs, transpose_rhs=True),
+             bound(A * N * 2 + live * K * N * 2 + A * K * 2, 2 * A * K * N)),
             ("grouped_gemm_tgmm", "tgmm", lambda: GG.tgmm(x, dy, gs, E),
              lambda: GG.tgmm_reference(x, dy, gs, E),
              bound(A * K * 2 + A * N * 4 + E * K * N * 2, 2 * A * K * N))):
@@ -1306,6 +1415,14 @@ def time_grouped(errs: dict, card: str) -> list:
             rec.update(ms_by_shape=ms_by, library_ms_by_shape=lib_by, bound_ms_by_shape=bound_by,
                        device_ms_profiler_by_shape=dev_by,
                        library_device_ms_profiler_by_shape=lib_dev_by)
+        if kind == "gmm_transposed":
+            rec.update(dy_dtype="bfloat16", ms_f32_dy=k4t_f32_ms, device_ms_profiler=k4t_dev,
+                       library_device_ms_profiler=k4t_lib_dev)
+            print(f"kernel timing [{card}]: {name}: with an f32 dy (rounded to bf16 before the "
+                  f"launch) {k4t_f32_ms:.4f} ms; device time under torch.profiler, bf16 dy: kernel "
+                  f"{'not measured' if k4t_dev is None else f'{k4t_dev:.4f} ms'}, library "
+                  f"{'not measured' if k4t_lib_dev is None else f'{k4t_lib_dev:.4f} ms'}",
+                  flush=True)
         if kind == "tgmm":
             rec.update(ms_parts={"dy_to_bf16": conv_ms, "main": main_reduce_ms - reduce_ms,
                                  "reduction": reduce_ms},
@@ -1396,6 +1513,13 @@ def main() -> None:
     check_flash(8, 16, 2, 192, 192, 128, (0, 150, 3, 191, 64, 0, 100, 20), seed=1)
     check_flash(8, 16, 2, 128, 128, 128, (111, 40, 111, 0, 111, 70, 111, 5), seed=2)
     check_flash(2, 16, 2, 100, 160, 64, (7, 0), seed=3)
+    # K1's tile edges (128 query rows, 128 keys): one row and one key past a
+    # tile; one query tile over three key tiles, the last ragged (S > T);
+    # Dh 64 with S > T; non-causal.
+    check_flash(2, 16, 2, 129, 129, 128, (0, 5), seed=4)
+    check_flash(2, 16, 2, 64, 300, 128, (7, 0), seed=6)
+    check_flash(2, 16, 2, 100, 300, 64, (5, 0), seed=7)
+    check_flash(2, 16, 2, 192, 192, 128, (0, 5), seed=8, causal=False)
     check_small_prefill()
     stamp("build and small checks")
 
@@ -1429,7 +1553,7 @@ def main() -> None:
     stamp("training-shape kernel checks and the small training check")
 
     train_launches, dense_losses = run_train_slice(card)
-    bwd_recs = time_flash_bwd(train_launches, bwd_errs, card)
+    bwd_recs, fwd_train = time_flash_bwd(train_launches, bwd_errs, card)
     torch.cuda.empty_cache()
     stamp("dense training")
     gmm_train_launches, _ = run_train_slice(card, "gmm", dense_losses)
@@ -1452,6 +1576,9 @@ def main() -> None:
           f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"], "train": fwd_train_err}
     fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], fwd_train_err)
+    fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
+                                     for p in ("train", "train_gmm")}
+    fwd_rec["train_shape"] = fwd_train
 
     print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *grouped_recs]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,11 +44,25 @@ def test_digest_follows_flags_not_system_headers(tree):
     assert len(cuda_build.source_digest(src)) == 16
 
 
-def test_shipped_sources_hash_their_headers():
-    """The grouped-GEMM source includes the PTX header, and its key covers it."""
-    src = os.path.join(cuda_build.CSRC_DIR, "grouped_gemm.cu")
-    with open(src, "rb") as f:
-        assert b'#include "hopper_ptx.cuh"' in f.read()
+def test_shipped_sources_hash_their_headers(tmp_path):
+    """The wgmma sources include the shared Hopper headers (PTX wrappers and
+    the TMA encoder), and their keys cover them: an edit to either header
+    changes the key of both sources (checked on a copy of csrc/)."""
+    import shutil
+
+    for name in ("flash_attention_fwd", "grouped_gemm"):
+        with open(os.path.join(cuda_build.CSRC_DIR, name + ".cu"), "rb") as f:
+            text = f.read()
+        assert b'#include "hopper_ptx.cuh"' in text and b'#include "hopper_tma.cuh"' in text
     for name in ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm"):
         assert len(cuda_build.source_digest(os.path.join(cuda_build.CSRC_DIR,
                                                          name + ".cu"))) == 16
+    copy = str(tmp_path / "csrc")
+    shutil.copytree(cuda_build.CSRC_DIR, copy)
+    srcs = [os.path.join(copy, n + ".cu") for n in ("flash_attention_fwd", "grouped_gemm")]
+    for header in ("hopper_ptx.cuh", "hopper_tma.cuh"):
+        before = [cuda_build.source_digest(s) for s in srcs]
+        with open(os.path.join(copy, header), "a") as f:
+            f.write("// edited\n")
+        after = [cuda_build.source_digest(s) for s in srcs]
+        assert all(a != b for a, b in zip(after, before)), header

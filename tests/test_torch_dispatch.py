@@ -94,6 +94,23 @@ def test_gmm_plain_matches_megablox(jx, dtype, transpose_rhs):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_transposed_plain_matches_megablox_at_ragged_edges(jx, dtype):
+    """The transposed case of the test above where K4ᵀ's tiles are ragged:
+    an output width of 300 (not a multiple of its 256 columns) and a
+    contraction of 200 (not a multiple of its 64-deep stages); tolerances as
+    above."""
+    jdt = jx.jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    E, K, N = len(GROUPS), 300, 200
+    x, w = _operands(jx.jnp, 4, int(GROUPS.sum()), N, (E, K, N), jdt)
+    want = jx.gmm(x, w, jx.jnp.asarray(GROUPS), jdt, TILING, transpose_rhs=True, interpret=True)
+    got = GG.gmm(_t(x, tdt), _t(w, tdt), torch.tensor(GROUPS), transpose_rhs=True)
+    assert got.shape == (int(GROUPS.sum()), K) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=RTOL if dtype == "float32" else 8e-3, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tgmm_plain_matches_megablox(jx, dtype):
     """The plain `tgmm` equals megablox `tgmm` (empty groups give zeros).
     f32 at 1e-5; bf16 output within 2 bf16 ulps (rtol 8e-3), as above."""
@@ -446,6 +463,39 @@ def test_gmm_kernel_configs_match_plain(cuda, config, A, K, N, sizes):
     want = GG.gmm_reference(x, w, gs)
     _close(got, want, f"gmm {config}")
     _close(out, want, f"gmm {config} (NaN-filled)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("A,K,N,sizes", GMM_CASES)
+def test_gmm_transposed_kernel_matches_plain(cuda, dy_dtype, A, K, N, sizes):
+    """K4ᵀ (dx = dy · W[g]ᵀ, the contraction over N) at K4's widths with a
+    bf16 and an f32 dy, through the wrapper and into an output filled with
+    NaN before the launch; N of 100 and 37 take the cp.async loads."""
+    _, w, dy, gs = _cuda_case(A, K, N, sizes, 4, cuda)
+    dy = dy.to(dy_dtype)
+    before = GG.gmm.transposed_launches
+    got = GG.gmm(dy, w, gs, transpose_rhs=True)
+    out = torch.full((A, K), float("nan"), device=cuda, dtype=torch.bfloat16)
+    GG.launch_gmm(dy, w, gs, out, True)
+    torch.cuda.synchronize()
+    assert GG.gmm.transposed_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (A, K)
+    want = GG.gmm_reference(dy, w, gs, transpose_rhs=True)
+    _close(got, want, f"gmm transposed {dy_dtype}")
+    _close(out, want, f"gmm transposed {dy_dtype} (NaN-filled)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A,K,N,sizes", [GMM_CASES[0], GMM_CASES[6], GMM_CASES[7]])
+def test_gmm_transposed_f32_dy_is_rounded_once(cuda, A, K, N, sizes):
+    """An f32 dy gives K4ᵀ the same dx bits as the same dy rounded to bf16
+    (to nearest even) by hand: the wrapper rounds once before the launch."""
+    _, w, dy, gs = _cuda_case(A, K, N, sizes, 5, cuda)
+    a = GG.gmm(dy, w, gs, transpose_rhs=True)
+    b = GG.gmm(dy.to(torch.bfloat16), w, gs, transpose_rhs=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 # K5 cases: a group split over several chunks beside groups that are not,

@@ -61,10 +61,22 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("B,H,KV,T,S,causal,pad", CASES)
+# The forward kernel's tile edges (128 query rows, 128 keys per tile): one
+# row and one key past a tile, one query tile against three key tiles with
+# the last one ragged (S > T), and head_dim 64 with S > T.
+K1_EDGES = [
+    (1, 4, 2, 129, 129, True, 0),
+    (1, 4, 2, 64, 300, True, 7),
+    (2, 4, 2, 100, 160, True, 5),
+]
+K1_EDGE_DH = {K1_EDGES[2]: 64}
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,causal,pad", CASES + K1_EDGES)
 def test_plain_matches_jax(jx, B, H, KV, T, S, causal, pad):
     jnp, jfa = jx
-    q, k, v, valid = _inputs(B, H, KV, T, S, 128, pad, seed=T + S + pad)
+    Dh = K1_EDGE_DH.get((B, H, KV, T, S, causal, pad), 128)
+    q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + pad)
     got = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
                           torch.tensor(valid), causal=causal).numpy()
     pallas = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -197,11 +209,15 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,S,pad,Dh", [(128, 128, 0, 128), (192, 192, 37, 128),
-                                        (128, 200, 11, 64), (70, 70, 5, 128)])
+                                        (128, 200, 11, 64), (70, 70, 5, 128),
+                                        (129, 129, 0, 128), (64, 300, 7, 128),
+                                        (100, 300, 5, 64), (2048, 2048, 0, 128)])
 def test_kernel_matches_plain_bf16(cuda, T, S, pad, Dh):
-    """The CUDA kernel vs its plain version in bf16 at prefill-like shapes
-    (the plain version rounds probabilities to bf16 too): atol 2e-2 on
-    unit-scale values; dead rows exactly 0; m, l within 1e-2 relative."""
+    """The CUDA kernel vs its plain version in bf16 at prefill-like shapes,
+    the tile edges of the kernel (129 rows and keys; one query tile over
+    three key tiles; Dh 64 with S > T) and the training shape (the plain
+    version rounds probabilities to bf16 too): atol 2e-2 on unit-scale
+    values; dead rows exactly 0; m, l within 1e-2 relative."""
     q, k, v, valid = _inputs(4, 16, 2, T, S, Dh, pad, seed=T + pad)
     args = [torch.tensor(a, device=cuda) for a in (q, k, v)]
     args = [a.to(torch.bfloat16) for a in args]

@@ -10,275 +10,357 @@
 //   Outputs: o [B,H,T,Dh] bf16 and the softmax stats m, l [B*H, T] f32
 //   (p = exp(s - m) / l), the residuals a fused backward needs.
 //
-// What bounds it on the H100: at the prefill shapes (B = 2 * requests, H = 16,
-// KV = 2, T = S ~ 128-256, Dh = 128) the whole call moves a few MB and does
-// well under a GFLOP, so it is bound by memory traffic and launch latency,
-// not by the tensor cores.  The design keeps the [T, S] score matrix out of
-// device memory entirely (each score tile lives in shared memory only) and
-// reads each Q tile once and each K/V tile once per CTA.
+// What bounds it on the H100: at the training shape (B 4, H 16, T = S = 2048,
+// Dh 128, causal) a call does 69 GFLOP on about 40 MB, so the tensor cores
+// bound it (0.07 ms at 989 TFLOP/s); at the T2M prefill (B 8, T = S = 128) it
+// moves a few MB and does under a GFLOP, so bytes and the launch bound it.
+// The [T, S] scores never leave the SM: each score tile lives in registers.
 //
-// Design (not a block-by-block copy of the TPU kernel):
-//   * one CTA per (64-row query tile, b*H + h); 4 warps, each owning 16 rows;
-//   * a loop inside the CTA over 64-key K/V tiles up to the causal limit
-//     replaces the TPU grid's sequential third axis (tiles wholly above the
-//     diagonal are never loaded);
-//   * Q, K, V, the score tile, the bf16 probability tile and the f32 output
-//     accumulator all sit in shared memory; QK^T and PV run on the tensor
-//     cores through WMMA 16x16x16 bf16 fragments with f32 accumulation;
-//   * the online softmax (running max m, denominator l, rescale factor) is
-//     done per row by one warp with shuffles; P is rounded to bf16 before the
-//     PV product, as the TPU kernel does;
-//   * ragged T / S edges are masked in the kernel (zero-filled tiles, keys
-//     past S invalid, rows past T not stored): no host-side padding.
-// wgmma, TMA and warp specialisation are left for later work.
+// Design, a first Hopper kernel in the shape of FlashAttention-3 (without its
+// pingpong scheduling or the overlap of softmax with the products):
+//   * one CTA per (128 query rows, b * H + h): two consumer warpgroups of 64
+//     rows and one producer warpgroup (384 threads, one CTA per SM; setmaxnreg
+//     moves the producer's registers to the consumers).  The grid is
+//     (B * H, query tiles), the tile with the most K/V tiles launched first;
+//   * the producer loads the Q tile once by TMA, then K and V tiles of BKV =
+//     128 keys into a ring of 2 stages (separate full barriers for K and V,
+//     one empty barrier released by both warpgroups).  The tensor maps are
+//     3-d ({Dh, T, B*H} for q, {Dh, S, B*KV} for k and v) in boxes of 64
+//     columns, 128-byte swizzled: a tile past T or S is zero-filled within
+//     its head and never reads the next head's rows.  Causal tiles wholly
+//     above the diagonal are never loaded;
+//   * S = Q K^T by wgmma m64n128k16 from shared memory, Q a K-major A and the
+//     K tile a K-major B (Dh is contiguous in both), into registers;
+//   * scale (in log2 units), mask and online softmax on the accumulator
+//     fragment: a thread holds 2 rows, and a row's max and sum run over the 4
+//     lanes that share it.  Only tiles that hold an invalid key or cross the
+//     diagonal mask per element, by kv_valid (a 128-bit ballot per tile) and
+//     by the fragment's row and column;
+//   * P is rounded to bf16 in registers, as the TPU kernel does, and feeds
+//     O += P V from registers (wgmma with a register A fragment; V is the
+//     N-major B).  O stays in registers and is rescaled there;
+//   * epilogue o = acc / l from registers, dead rows 0, rows past T not
+//     stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "hopper_ptx.cuh"
+#include "hopper_tma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per CTA
-constexpr int BK = 64;              // keys per tile
-constexpr int NWARPS = BQ / 16;     // one warp per 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG = -1e30f;       // the TPU kernel's mask value
+typedef __nv_bfloat16 bf16;
 
-__host__ __device__ constexpr size_t up128(size_t x) { return (x + 127) / 128 * 128; }
+constexpr int BQ = 128;            // query rows per CTA: two consumer warpgroups of 64
+constexpr int BKV = 128;           // keys per K/V tile
+constexpr int STAGES = 2;          // K/V ring
+constexpr int THREADS = 384;       // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int CONSUMERS = 256;
+// 384 threads start with 168 registers each (65,536 / 384, rounded down to
+// 8); the producer warpgroup gives 144 of its own back so that the
+// consumers, with two 64-float accumulators, get 240: 128 x 24 + 256 x 240
+// = 64,512.
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float NEG = -1e30f;      // the TPU kernel's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// Shared memory: the Q tile, then K[stage] and V[stage], each DH / 64 boxes
+// of [rows x 64] bf16 (128-byte rows), then the barriers.
 template <int DH>
-struct Layout {
-  // Row strides (elements), padded against shared-memory bank conflicts and
-  // kept at multiples of 32 bytes per 16 rows, as WMMA requires.
-  static constexpr int LDQ = DH + 8;   // bf16 Q / K / V rows
-  static constexpr int LDS = BK + 4;   // f32 score rows
-  static constexpr int LDP = BK + 8;   // bf16 probability rows
-  static constexpr int LDO = DH + 4;   // f32 output-accumulator rows
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = up128(Q + sizeof(__nv_bfloat16) * BQ * LDQ);
-  static constexpr size_t V = up128(K + sizeof(__nv_bfloat16) * BK * LDQ);
-  static constexpr size_t SC = up128(V + sizeof(__nv_bfloat16) * BK * LDQ);
-  static constexpr size_t P = up128(SC + sizeof(float) * BQ * LDS);
-  static constexpr size_t O = up128(P + sizeof(__nv_bfloat16) * BQ * LDP);
-  static constexpr size_t M = up128(O + sizeof(float) * BQ * LDO);
-  static constexpr size_t L = M + sizeof(float) * BQ;
-  static constexpr size_t A = L + sizeof(float) * BQ;
-  static constexpr size_t VALID = A + sizeof(float) * BQ;
-  static constexpr size_t TOTAL = up128(VALID + sizeof(int) * BK);
+struct Smem {
+  static constexpr int BOXES = DH / 64;
+  static constexpr int QBOX = BQ * 128;
+  static constexpr int KVBOX = BKV * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BOXES * QBOX;
+  static constexpr int V = K + STAGES * BOXES * KVBOX;
+  static constexpr int BARS = V + STAGES * BOXES * KVBOX;   // q, kfull[S], vfull[S], empty[S]
+  static constexpr int TOTAL = BARS + 8 * (1 + 3 * STAGES) + 1024;   // + alignment slack
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_valid,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int H, int KV, int T, int S, int causal,
-                 float scale) {
-  using Lay = Layout<DH>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + Lay::Q);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::K);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + Lay::V);
-  float* ss = reinterpret_cast<float*>(smem + Lay::SC);
-  __nv_bfloat16* sp = reinterpret_cast<__nv_bfloat16*>(smem + Lay::P);
-  float* so = reinterpret_cast<float*>(smem + Lay::O);
-  float* sm = reinterpret_cast<float*>(smem + Lay::M);
-  float* sl = reinterpret_cast<float*>(smem + Lay::L);
-  float* sa = reinterpret_cast<float*>(smem + Lay::A);
-  int* svalid = reinterpret_cast<int*>(smem + Lay::VALID);
+struct OAcc;
+template <>
+struct OAcc<64> {
+  float d[32];
+  __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t db) {
+    hopper::wgmma_m64n64k16_rs<1>(d, a, db);
+  }
+};
+template <>
+struct OAcc<128> {
+  float d[64];
+  __device__ __forceinline__ void mma(const uint32_t (&a)[4], uint64_t db) {
+    hopper::wgmma_m64n128k16_rs<1>(d, a, db);
+  }
+};
 
-  const int bh = blockIdx.y;             // b * H + h
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / KV);          // GQA: query head -> kv head
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const int* __restrict__ kv_valid,
+                 bf16* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int H, int KV, int T, int S, int causal, float scale_log2) {
+  using L = Smem<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* sm = smem_raw + ((1024 - (raw & 1023)) & 1023);   // 1024-byte aligned
+  const uint32_t base = hopper::smem_u32(sm);
+  const uint32_t bar_q = base + L::BARS;
+  auto k_full = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bar_q + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bar_q + 8 * (1 + 2 * STAGES + s); };
+
+  const int bh = blockIdx.x;                       // b * H + h
+  const int b = bh / H, h = bh % H;
+  const int kv_row = b * KV + h / (H / KV);        // GQA: query head -> kv head
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int q_offset = S - T;
-
-  const __nv_bfloat16* qg = q + (size_t)bh * T * DH;
-  const __nv_bfloat16* kg = k + (size_t)(b * KV + kvh) * S * DH;
-  const __nv_bfloat16* vg = v + (size_t)(b * KV + kvh) * S * DH;
-  const int* validg = kv_valid + (size_t)b * S;
-
-  constexpr int VEC = 8;                 // bf16 per 16-byte load
-  constexpr int VPR = DH / VEC;          // 16-byte vectors per row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  // Q tile (rows past T zero-filled), output accumulator and row stats.
-  for (int i = tid; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    uint4 val = zero;
-    if (q0 + r < T) val = *reinterpret_cast<const uint4*>(qg + (size_t)(q0 + r) * DH + c);
-    *reinterpret_cast<uint4*>(sq + r * Lay::LDQ + c) = val;
-  }
-  for (int i = tid; i < BQ * DH; i += NTHREADS) so[(i / DH) * Lay::LDO + i % DH] = 0.f;
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    sm[i] = NEG;
-    sl[i] = 0.f;
-  }
-
-  // K/V tiles up to the causal limit of this CTA's last live query row.
-  int n_tiles = (S + BK - 1) / BK;
+  int n_tiles = (S + BKV - 1) / BKV;
   if (causal) {
-    const int last_q = min(q0 + BQ, T) - 1 + q_offset;
-    n_tiles = min(n_tiles, last_q < 0 ? 0 : last_q / BK + 1);
+    const int last = min(q0 + BQ, T) - 1 + q_offset;
+    n_tiles = min(n_tiles, last < 0 ? 0 : last / BKV + 1);
+  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(k_full(s), 1);
+      hopper::mbar_init(v_full(s), 1);
+      hopper::mbar_init(empty(s), CONSUMERS);
+    }
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    for (int i = tid; i < BK * VPR; i += NTHREADS) {
-      const int r = i / VPR, c = (i % VPR) * VEC;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kg + (size_t)(k0 + r) * DH + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (size_t)(k0 + r) * DH + c);
-      }
-      *reinterpret_cast<uint4*>(sk + r * Lay::LDQ + c) = kv;
-      *reinterpret_cast<uint4*>(sv + r * Lay::LDQ + c) = vv;
+  if (warp >= 8) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != 8 || lane != 0) return;
+    hopper::mbar_arrive_expect_tx(bar_q, L::BOXES * L::QBOX);
+    for (int x = 0; x < L::BOXES; ++x)
+      hopper::tma_load_3d(base + L::Q + x * L::QBOX, &map_q, bar_q, 64 * x, q0, bh);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      hopper::mbar_wait(empty(stage), phase ^ 1);
+      const uint32_t kd = base + L::K + stage * L::BOXES * L::KVBOX;
+      const uint32_t vd = base + L::V + stage * L::BOXES * L::KVBOX;
+      hopper::mbar_arrive_expect_tx(k_full(stage), L::BOXES * L::KVBOX);
+      for (int x = 0; x < L::BOXES; ++x)
+        hopper::tma_load_3d(kd + x * L::KVBOX, &map_k, k_full(stage), 64 * x, t * BKV, kv_row);
+      hopper::mbar_arrive_expect_tx(v_full(stage), L::BOXES * L::KVBOX);
+      for (int x = 0; x < L::BOXES; ++x)
+        hopper::tma_load_3d(vd + x * L::KVBOX, &map_v, v_full(stage), 64 * x, t * BKV, kv_row);
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
     }
-    for (int i = tid; i < BK; i += NTHREADS)
-      svalid[i] = (k0 + i < S) ? (validg[k0 + i] > 0) : 0;
-    __syncthreads();
-
-    // Scores for this warp's 16 rows: S = Q K^T (K read as a col-major B).
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-      for (int d = 0; d < DH; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sq + warp * 16 * Lay::LDQ + d, Lay::LDQ);
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, sk + j * 16 * Lay::LDQ + d, Lay::LDQ);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wmma::store_matrix_sync(ss + warp * 16 * Lay::LDS + j * 16, acc[j], Lay::LDS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax, one row at a time across the warp's 32 lanes.
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i;
-      const int q_abs = q0 + r + q_offset;
-      float s_loc[BK / 32];
-      float mx = NEG;
-#pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const int c = lane + 32 * u;
-        const bool ok = svalid[c] && (!causal || k0 + c <= q_abs);
-        s_loc[u] = ok ? ss[r * Lay::LDS + c] * scale : NEG;
-        mx = fmaxf(mx, s_loc[u]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sm[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const float p = expf(s_loc[u] - m_new);
-        sum += p;
-        sp[r * Lay::LDP + lane + 32 * u] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sl[r] = alpha * sl[r] + sum;
-        sm[r] = m_new;
-        sa[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // Rescale this warp's accumulator rows by alpha, then O += P V.
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i;
-      const float alpha = sa[r];
-      for (int c = lane; c < DH; c += 32) so[r * Lay::LDO + c] *= alpha;
-    }
-    __syncwarp();
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(fp[kk], sp + warp * 16 * Lay::LDP + kk * 16, Lay::LDP);
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        float* optr = so + warp * 16 * Lay::LDO + j * 16;
-        wmma::load_matrix_sync(acc, optr, Lay::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, sv + kk * 16 * Lay::LDQ + j * 16, Lay::LDQ);
-          wmma::mma_sync(acc, fp[kk], fb, acc);
-        }
-        wmma::store_matrix_sync(optr, acc, Lay::LDO, wmma::mem_row_major);
-      }
-    }
-    // Every warp must be done with this K/V tile before the next is loaded.
-    __syncthreads();
+    return;
   }
 
-  // Finalize: o = acc / l, dead rows (m never left -1e30) output 0, l = 1e30.
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    const int tq = q0 + r;
-    if (tq >= T) break;
-    const float m_r = sm[r];
-    const float l_r = sl[r];
-    const bool dead = m_r <= NEG * 0.5f;
-    const float denom = fmaxf(l_r, 1e-30f);
-    __nv_bfloat16* og = o + ((size_t)bh * T + tq) * DH;
-    for (int c = lane; c < DH; c += 32)
-      og[c] = __float2bfloat16(dead ? 0.f : so[r * Lay::LDO + c] / denom);
-    if (lane == 0) {
-      m_out[(size_t)bh * T + tq] = m_r;
-      l_out[(size_t)bh * T + tq] = dead ? -NEG : l_r;
+  // ---- consumer warpgroups: wg owns query rows q0 + 64 wg .. + 63 ----
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4, lw = warp % 4, quad = lane % 4;
+  const int row0 = q0 + 64 * wg + 16 * lw + lane / 4;      // this thread's rows: row0 + 8 i
+  const int wg_first = q0 + 64 * wg + q_offset;            // the warpgroup's first key position
+  const int* valid_b = kv_valid + (size_t)b * S;
+
+  OAcc<DH> acc;
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc.d[i] = 0.f;
+  float m_run[2] = {NEG, NEG};     // running max of the row, in log2 units
+  float l_run[2] = {0.f, 0.f};     // this thread's share of the row's sum
+
+  hopper::mbar_wait(bar_q, 0);
+  const uint32_t q_tile = base + L::Q + 64 * wg * 128;     // the warpgroup's 64 rows
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BKV;
+    // Key validity of this tile: bit c % 32 of word c / 32 for key k0 + c.
+    uint32_t vmask[BKV / 32];
+    bool all_valid = true;
+#pragma unroll
+    for (int u = 0; u < BKV / 32; ++u) {
+      const int c = k0 + 32 * u + lane;
+      vmask[u] = __ballot_sync(0xffffffffu, c < S && valid_b[c] > 0);
+      all_valid = all_valid && vmask[u] == 0xffffffffu;
+    }
+
+    // S = Q K^T: both K-major, k16 steps of 32 bytes in 128-byte rows, a new
+    // box every 4 steps.
+    float s[BKV / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+    const uint32_t k_tile = base + L::K + stage * L::BOXES * L::KVBOX;
+    hopper::mbar_wait(k_full(stage), phase);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint64_t da = hopper::sw128_desc(q_tile + (kk / 4) * L::QBOX + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = hopper::sw128_desc(k_tile + (kk / 4) * L::KVBOX + (kk % 4) * 32, 16, 1024);
+      hopper::wgmma_m64n128k16<0, 0>(s, da, db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(s);
+
+    // Scale to log2 units; mask where the tile holds an invalid key or
+    // crosses this warpgroup's diagonal.
+    const bool need_mask = !all_valid || (causal && k0 + BKV - 1 > wg_first);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * i + c] * scale_log2;
+          if (need_mask) {
+            const int col = 8 * j + 2 * quad + c;
+            const bool ok = ((vmask[j / 4] >> (col % 32)) & 1u) &&
+                            (!causal || k0 + col <= row0 + 8 * i + q_offset);
+            x = ok ? x : NEG;
+          }
+          s[4 * j + 2 * i + c] = x;
+        }
+      }
+    }
+
+    // Online softmax on the fragment; P = 2^(x - m), rounded to bf16 into
+    // the A fragments of P V.
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[i], mx);
+      alpha[i] = hopper::exp2_approx(m_run[i] - m_new);
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = hopper::exp2_approx(s[4 * j + 2 * i + c] - m_new);
+          s[4 * j + 2 * i + c] = p;
+          sum += p;
+        }
+      }
+      l_run[i] = alpha[i] * l_run[i] + sum;
+    }
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[k][r] = hopper::pack_bf16x2(s[8 * k + 2 * r], s[8 * k + 2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc.d[4 * j + 2 * i] *= alpha[i];
+        acc.d[4 * j + 2 * i + 1] *= alpha[i];
+      }
+
+    // O += P V: V N-major, k16 steps of 16 key rows (2048 bytes), 64-column
+    // boxes KVBOX bytes apart.
+    const uint32_t v_tile = base + L::V + stage * L::BOXES * L::KVBOX;
+    hopper::mbar_wait(v_full(stage), phase);
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k) hopper::fence_regs(pa[k]);
+    hopper::fence_regs(acc.d);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k)
+      acc.mma(pa[k], hopper::sw128_desc(v_tile + k * 2048, L::KVBOX, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc.d);
+#pragma unroll
+    for (int k = 0; k < BKV / 16; ++k) hopper::fence_regs(pa[k]);
+    hopper::mbar_arrive(empty(stage));
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  // Epilogue: o = acc / l; a dead row (m never left -1e30) outputs 0, l = 1e30.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * i;
+    if (row >= T) continue;
+    const bool dead = m_run[i] <= NEG * 0.5f;
+    const float inv = dead ? 0.f : 1.f / fmaxf(l, 1e-30f);
+    bf16* og = o + ((size_t)bh * T + row) * DH + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + 8 * j) =
+          __floats2bfloat162_rn(acc.d[4 * j + 2 * i] * inv, acc.d[4 * j + 2 * i + 1] * inv);
+    if (quad == 0) {
+      m_out[(size_t)bh * T + row] = dead ? NEG : m_run[i] * LN2;
+      l_out[(size_t)bh * T + row] = dead ? -NEG : l;
     }
   }
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_valid, void* o,
-                   void* m, void* l, int B, int H, int KV, int T, int S, int causal, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = Layout<DH>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_valid),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(m), static_cast<float*>(l), H, KV, T,
-      S, causal, scale);
-  return cudaGetLastError();
+int launch(const void* q, const void* k, const void* v, const void* kv_valid, void* o, void* m,
+           void* l, int B, int H, int KV, int T, int S, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr int smem = Smem<DH>::TOTAL;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  CUtensorMap mq, mk, mv;
+  memset(&mq, 0, sizeof(mq));
+  memset(&mk, 0, sizeof(mk));
+  memset(&mv, 0, sizeof(mv));
+  const uint64_t dq[3] = {(uint64_t)DH, (uint64_t)T, (uint64_t)B * H};
+  const uint32_t bq[3] = {64, BQ, 1};
+  int e = hopper::encode(&mq, q, 3, dq, bq);
+  if (e == 0 && S > 0) {                 // S = 0: no K/V tile is loaded, every row is dead
+    const uint64_t dkv[3] = {(uint64_t)DH, (uint64_t)S, (uint64_t)B * KV};
+    const uint32_t bkv[3] = {64, BKV, 1};
+    e = hopper::encode(&mk, k, 3, dkv, bkv);
+    if (e == 0) e = hopper::encode(&mv, v, 3, dkv, bkv);
+  }
+  if (e != 0) return e;
+  const dim3 grid(B * H, (T + BQ - 1) / BQ);
+  flash_fwd_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<const int*>(kv_valid), static_cast<bf16*>(o),
+      static_cast<float*>(m), static_cast<float*>(l), H, KV, T, S, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry for ctypes.  Returns the cudaError_t of the launch (0 = ok).
+// Plain C entry for ctypes.  Returns 0, the cudaError_t of the launch, or
+// 10000 + the CUresult of a failed tensor-map encode (hopper::ENCODE_FAILED).
+// q, k, v 16-byte aligned; B * H below 2^31 and ceil(T / 128) at most 65535
+// (the grid); T >= 1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_valid, void* o, void* m, void* l, int B, int H,
                                    int KV, int T, int S, int Dh, int causal, float scale,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 128) return (int)launch<128>(q, k, v, kv_valid, o, m, l, B, H, KV, T, S, causal, scale, st);
-  if (Dh == 64) return (int)launch<64>(q, k, v, kv_valid, o, m, l, B, H, KV, T, S, causal, scale, st);
+  if (B < 1 || H < 1 || KV < 1 || H % KV || T < 1 || S < 0 || (T + BQ - 1) / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (Dh == 128) return launch<128>(q, k, v, kv_valid, o, m, l, B, H, KV, T, S, causal, scale, st);
+  if (Dh == 64) return launch<64>(q, k, v, kv_valid, o, m, l, B, H, KV, T, S, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,9 +16,9 @@ What bounds them on the H100: at prefill shapes (B = 8, H = 16, KV = 2,
 T = S = 128, Dh = 128) a forward moves about 9 MB and does about 0.5 GFLOP,
 so it is bound by memory traffic and launch latency; at the training shape
 (B = 4, T = S = 2048) each kernel does 34-138 GFLOP on about 70 MB and is
-bound by the tensor cores.  The kernels keep every score tile in shared
-memory (the [T, S] matrices never reach device memory); see the sources
-for the designs.
+bound by the tensor cores.  The [T, S] matrices never reach device memory:
+K1 keeps each score tile in registers (TMA-fed wgmma), K2 and K3 in shared
+memory; see the sources for the designs.
 
 `flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
 the plain version and a CUDA tensor to the kernel, with no fallback between
@@ -31,6 +31,7 @@ wrapper counts its kernel's launches: `flash_attention.launches`,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -144,15 +145,26 @@ def _check(q, k, v, kv_valid):
     if kv_valid.shape != (B, S) or kv_valid.dtype != torch.int32 \
             or not kv_valid.is_contiguous():
         raise ValueError("kv_valid must be a contiguous int32 [B, S] tensor")
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the kernel's grid limit")
     if not (q.device == k.device == v.device == kv_valid.device):
         raise ValueError("q, k, v and kv_valid must be on one device")
     return B, H, KV, T, S, Dh
 
 
+FWD_BLOCK_Q = 128           # K1's query rows per CTA; its grid is (B*H, ceil(T / 128))
+
+
+def _check_fwd(q, k, v, kv_valid):
+    B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
+    if B * H >= 2 ** 31 or -(-T // FWD_BLOCK_Q) > 65535:
+        raise ValueError(f"B*H={B * H}, T={T} exceed the forward kernel's grid limits "
+                         f"(B*H < 2**31, ceil(T / {FWD_BLOCK_Q}) <= 65535)")
+    return B, H, KV, T, S, Dh
+
+
 def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
+    if B * H > 65535:
+        raise ValueError(f"B*H={B * H} exceeds the backward kernels' grid limit (65535)")
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
             or do.data_ptr() % 16:
         raise ValueError("dO must be a contiguous, 16-byte aligned tensor shaped and typed as q")
@@ -164,24 +176,36 @@ def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
     return B, H, KV, T, S, Dh
 
 
-def _call(source: str, name: str, n_ptrs: int, *args) -> None:
-    """Launch the C entry `name` of csrc/<source>.cu on the current stream
-    (n_ptrs pointers, then 7 ints and the scale); raise if the launch
-    failed."""
+_ENCODE_FAILED = 10000      # csrc/hopper_tma.cuh: + the CUresult of a failed encode
+
+
+@functools.cache
+def _entry(source: str, name: str, n_ptrs: int):
+    """The C entry `name` of csrc/<source>.cu, bound once: n_ptrs pointers,
+    7 ints, the scale and the stream."""
     from .cuda_build import load
 
     fn = getattr(load(source), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn
+
+
+def _call(source: str, name: str, n_ptrs: int, *args) -> None:
+    """Launch the C entry `name` of csrc/<source>.cu on the current stream
+    (n_ptrs pointers, then 7 ints and the scale); raise if the launch
+    failed."""
+    err = _entry(source, name, n_ptrs)(*args, torch.cuda.current_stream().cuda_stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {err - _ENCODE_FAILED}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
+    B, H, KV, T, S, Dh = _check_fwd(q, k, v, kv_valid)
     o = torch.empty_like(q)
     m = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     l = torch.empty((B * H, T), dtype=torch.float32, device=q.device)

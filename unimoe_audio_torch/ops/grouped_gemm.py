@@ -16,16 +16,19 @@ A row that no group owns comes out of `gmm` as 0 and adds nothing to
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it takes the plain version; nothing falls back from one to the other.  The
 kernels take bf16 operands and accumulate in f32.  An f32 dy (the
-cotangent of K4's f32 output) is rounded to bf16: by K4ᵀ as it loads it,
-by `tgmm` once before K5, and by `GroupedMatmul.backward` once for both;
-the plain versions round the same way whenever the weights (gmm) or x
-(tgmm) are bf16.
+cotangent of K4's f32 output) is rounded to bf16, to nearest even, once
+before the launch: by `launch_gmm` before K4ᵀ, by `launch_tgmm` before
+K5, and by `GroupedMatmul.backward` once for both; the plain
+versions round the same way whenever the weights (gmm) or x (tgmm) are
+bf16.
 
 K4 has two tile configurations, chosen from the row count A (a host int) by
 `gmm_config`: "small" (decode-sized A: 128 x 64 tiles, three CTAs per SM, a
 weight stream bound by bytes) and "large" (128 x 256 tiles, bound by the
-tensor cores).  Both K4 and K5 load through TMA where every row stride is a
-multiple of 16 bytes and through cp.async otherwise (`load_path`).  K5
+tensor cores); K4ᵀ, which runs in training only, takes the large one.  K4,
+K4ᵀ and K5 are modes of one wgmma kernel, and load through TMA where every
+row stride is a multiple of 16 bytes and through cp.async otherwise
+(`load_path`).  K5
 splits a group's rows into chunks of at most `TGMM_CHUNK_ROWS`; the chunks
 of a group with more than one write f32 partials into a workspace
 (`tgmm_workspace_slots` of [K, N] each) that a second kernel sums in chunk
@@ -40,6 +43,8 @@ launched by `grouped_matmul`'s forward).
 from __future__ import annotations
 
 import ctypes
+import functools
+
 import torch
 
 MAX_GROUPS = 64          # the kernels keep the group offsets in shared memory
@@ -137,19 +142,26 @@ def _check_common(name, x, other, group_sizes, num_groups):
         raise ValueError(f"{name}: x, the second operand and group_sizes must be on one device")
 
 
-_ENCODE_FAILED = 10000      # csrc/grouped_gemm.cu: + the CUresult of a failed encode
+_ENCODE_FAILED = 10000      # csrc/hopper_tma.cuh: + the CUresult of a failed encode
+
+
+@functools.cache
+def _entry(name: str, n_ptrs: int, n_ints: int):
+    """The C entry `name` of csrc/grouped_gemm.cu, bound once: n_ptrs
+    pointers, n_ints ints and the stream."""
+    from .cuda_build import load
+
+    fn = getattr(load("grouped_gemm"), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _call(entry: str, tensors, ints) -> None:
     """Launch a C entry of csrc/grouped_gemm.cu on the current stream
     (tensors' pointers, None as a null pointer, then ints); raise if it
     failed."""
-    from .cuda_build import load
-
-    fn = getattr(load("grouped_gemm"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _entry(entry, len(tensors), len(ints))
     with torch.cuda.device(tensors[0].device):
         err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
                  torch.cuda.current_stream().cuda_stream)
@@ -161,19 +173,21 @@ def _call(entry: str, tensors, ints) -> None:
 
 
 def launch_gmm(x, w, group_sizes, out, transpose_rhs: bool, *, config=None) -> None:
-    """K4 (in `config`, by default `gmm_config(A)`) or K4ᵀ into a given
-    output: every row of `out` is written."""
+    """K4 (in `config`, by default `gmm_config(A)`) or K4ᵀ (the large
+    configuration; an f32 x, the cotangent dy, is rounded to bf16 first)
+    into a given output: every row of `out` is written."""
     A, E = x.shape[0], w.shape[0]
     if transpose_rhs:
-        _call("grouped_gemm_gmm", (x, w, group_sizes, out),
-              (A, x.shape[1], out.shape[1], E, 1, int(x.dtype == torch.float32)))
+        x = x.to(torch.bfloat16)
+        _call("grouped_gemm_gmm_wgmma", (x, w, group_sizes, out),
+              (A, x.shape[1], out.shape[1], E, 1, int(load_path(x, w) == "tma"), 1))
         return
     config = config or gmm_config(A)
     if config not in GMM_CONFIGS:
         raise ValueError(f"gmm: config must be one of {GMM_CONFIGS}, got {config!r}")
     _call("grouped_gemm_gmm_wgmma", (x, w, group_sizes, out),
           (A, x.shape[1], out.shape[1], E, int(config == "large"),
-           int(load_path(x, w) == "tma")))
+           int(load_path(x, w) == "tma"), 0))
 
 
 def launch_tgmm(x, dy, group_sizes, out):
@@ -272,7 +286,7 @@ class GroupedMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, group_sizes = ctx.saved_tensors
         dy = dy.contiguous()
-        if w.dtype == torch.bfloat16:        # rounded once for K4ᵀ and K5, as both load it
+        if w.dtype == torch.bfloat16:        # rounded once for K4ᵀ and K5, which take bf16
             dy = dy.to(torch.bfloat16)
         dx = dw = None
         if ctx.needs_input_grad[0]:
