@@ -12,9 +12,11 @@ failure:
    grouped_gemm}.cu built with nvcc, one process per source, in parallel;
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
-   non-causal, Dh 64 and K1's tile edges (T = S = 129; T 64 with S 300) for
-   the flash kernels; empty groups, groups smaller than a tile, boundaries
-   inside tiles, a budget below S x E, widths of 100 and odd widths
+   non-causal, Dh 64 and the tile edges (T = S = 129; T 64 with S 300; for
+   K2 and K3 also T 200 with S 290, where K3's query range starts in
+   mid-tile, T > S and H = KV) for the flash kernels, K2 and K3 launched
+   twice and compared bit for bit; empty groups, groups smaller than a
+   tile, boundaries inside tiles, a budget below S x E, widths of 100 and odd widths
    (cp.async loads), rows past the last group, one group, E = 1 and 64,
    groups split over K5 chunks, for the grouped GEMMs (K4 in both tile
    configurations, K4t with an f32 and a bf16 dy, outputs filled with NaN
@@ -242,16 +244,19 @@ def bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed):
 
 def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
     """The dq and dk/dv kernels vs their plain versions on the same inputs;
-    dq of dead rows exactly 0.  Returns max |err| of dq, dk and dv."""
+    dq of dead rows exactly 0; a second launch on the same inputs gives the
+    same bits.  Returns max |err| of dq, dk and dv."""
     import torch
     from unimoe_audio_torch.ops import flash_attention as FA
 
     args = bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed)
-    counts = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    counts = _launch_counts()
     dq = FA.flash_attention_bwd_dq(*args, causal)
     dk, dv = FA.flash_attention_bwd_dkv(*args, causal)
+    dq2 = FA.flash_attention_bwd_dq(*args, causal)
+    dk2, dv2 = FA.flash_attention_bwd_dkv(*args, causal)
     torch.cuda.synchronize()
-    FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches = counts
+    _set_launch_counts(counts)                  # not launches of a main path
     rdq = FA.flash_attention_bwd_dq_reference(*args, causal)
     rdk, rdv = FA.flash_attention_bwd_dkv_reference(*args, causal)
     name = (f"flash bwd B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} causal={causal} "
@@ -266,6 +271,9 @@ def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
               f"{name}: {label} differs from the plain version, max err {err.max().item()}, "
               f"relative L2 {rel}")
         errs[label], rels[label] = err.max().item(), rel
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+              for a, b in ((dq, dq2), (dk, dk2), (dv, dv2))),
+          f"{name}: two launches on the same inputs differ")
     dead = ~allowed_mask(args[-1], T, S, causal).any(-1)                 # [B, T]
     dead_rows = int(dead.sum()) * H
     check(bool((dq.float().abs().sum(-1)[dead[:, None, :].expand(B, H, T)] == 0).all()),
@@ -273,7 +281,7 @@ def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
     print(f"kernel check: {name}: " + ", ".join(
         f"{lab} max|err| {errs[lab]:.3e} rel L2 {rels[lab]:.2e}" for lab in errs)
         + f" (rtol {BWD_RTOL}, atol {BWD_ATOL}, rel L2 {BWD_REL_L2}); "
-        f"{dead_rows} dead rows with dq exactly 0", flush=True)
+        f"{dead_rows} dead rows with dq exactly 0; a second launch bit-identical", flush=True)
     return errs
 
 
@@ -440,6 +448,7 @@ def _launch_counts():
     return {"flash_attention_fwd": FA.flash_attention.launches,
             "flash_attention_bwd_dq": FA.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches,
+            "flash_attention_bwd_dkv_reduce": FA.flash_attention_bwd_dkv.reduce_launches,
             "grouped_gemm_gmm": GG.gmm.launches,
             **{f"grouped_gemm_gmm_{c}": n for c, n in GG.gmm.launches_by_config.items()},
             "grouped_gemm_gmm_transposed": GG.gmm.transposed_launches,
@@ -454,6 +463,7 @@ def _set_launch_counts(counts: dict) -> None:
     FA.flash_attention.launches = counts["flash_attention_fwd"]
     FA.flash_attention_bwd_dq.launches = counts["flash_attention_bwd_dq"]
     FA.flash_attention_bwd_dkv.launches = counts["flash_attention_bwd_dkv"]
+    FA.flash_attention_bwd_dkv.reduce_launches = counts["flash_attention_bwd_dkv_reduce"]
     GG.gmm.launches = GG.grouped_matmul.launches = counts["grouped_gemm_gmm"]
     for c in GG.GMM_CONFIGS:
         GG.gmm.launches_by_config[c] = counts[f"grouped_gemm_gmm_{c}"]
@@ -520,6 +530,8 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
     rows = B * T * cfg.text_config.mlp_dynamic_expert_num     # A: every slot has a row
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
             "flash_attention_bwd_dkv": L,
+            # the GQA sum of the per-head dk, dv (16 query heads, 2 kv heads)
+            "flash_attention_bwd_dkv_reduce": L,
             # 3 projections per layer, in the forward and the remat recompute
             "grouped_gemm_gmm": 6 * L if gmm else 0,
             **{f"grouped_gemm_gmm_{c}": 6 * L if gmm and GG.gmm_config(rows) == c else 0
@@ -631,7 +643,8 @@ def run_slice(card: str, out_dir: str):
     check(launches["flash_attention_fwd"] == tc.num_hidden_layers * prefills,
           f"flash launches {launches['flash_attention_fwd']} != "
           f"{tc.num_hidden_layers} x {prefills} prefill")
-    check(launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"] == 0,
+    check(launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"]
+          == launches["flash_attention_bwd_dkv_reduce"] == 0,
           f"generation launched a backward kernel: {launches}")
     check(t["steps"] > 256, f"decode took {t['steps']} steps: no chunk boundary crossed")
     check(len(paths) == len(captions), "one wav per caption")
@@ -802,10 +815,10 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
     B, H, KV, T, Dh = TRAIN_B, tc.num_attention_heads, tc.num_key_value_heads, TRAIN_T, tc.head_dim
     args = bwd_inputs(B, H, KV, T, T, Dh, (0,) * B, True, seed=9)
     q, k, v, do, m, l, dvec, vt = args
-    count = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    counts = _launch_counts()
     dq_ms = cuda_ms(lambda: FA.flash_attention_bwd_dq(*args, True), iters=20)
     dkv_ms = cuda_ms(lambda: FA.flash_attention_bwd_dkv(*args, True), iters=20)
-    FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches = count
+    _set_launch_counts(counts)
     dq_plain = cuda_ms(lambda: FA.flash_attention_bwd_dq_reference(*args, True), iters=3, warmup=1)
     dkv_plain = cuda_ms(lambda: FA.flash_attention_bwd_dkv_reference(*args, True), iters=3,
                         warmup=1)
@@ -895,7 +908,9 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq, dk, dv) with "
               f"attn_mask {lib_by_form['attn_mask']:.4f} ms, is_causal "
               f"{lib_by_form['is_causal']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * rec['bound_ms'] / ms:.1f} % of the bound)",
+              flush=True)
         print(json.dumps({"kernel": rec}), flush=True)
         recs.append(rec)
     return recs, fwd_train
@@ -1547,6 +1562,17 @@ def main() -> None:
     check_flash_bwd(2, 16, 2, 100, 160, 128, (7, 0), True, seed=13)
     check_flash_bwd(2, 16, 2, 192, 192, 128, (0, 5), False, seed=14)
     check_flash_bwd(2, 16, 2, 200, 200, 64, (30, 0), True, seed=15)
+    # The tiles' edges (K2: 128 query rows, 64-key tiles; K3: 128 keys,
+    # 64-row query tiles): one row and one key past a tile; one query tile
+    # over five key tiles; Dh 64 with S > T; S - T = 90, so K3's key tiles
+    # 1 and 2 start their query range in mid-tile (rows 38 and 166); T > S,
+    # whose first 100 rows attend no key; H = KV (no GQA sum).
+    check_flash_bwd(2, 16, 2, 129, 129, 128, (0, 5), True, seed=16)
+    check_flash_bwd(2, 16, 2, 64, 300, 128, (7, 0), True, seed=17)
+    check_flash_bwd(2, 16, 2, 100, 300, 64, (5, 0), True, seed=18)
+    check_flash_bwd(2, 16, 2, 200, 290, 128, (3, 0), True, seed=19)
+    check_flash_bwd(2, 16, 2, 300, 200, 128, (0, 9), True, seed=20)
+    check_flash_bwd(2, 4, 4, 256, 256, 128, (0, 33), True, seed=21)
     grouped_errs = check_grouped_all()
     check_small_training()
     torch.cuda.empty_cache()
@@ -1568,6 +1594,9 @@ def main() -> None:
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["name"] == "flash_attention_bwd_dkv":    # and its GQA sum
+            rec["reduce_launches_by_path"] = {p: n["flash_attention_bwd_dkv_reduce"]
+                                              for p, n in paths.items()}
         if rec["name"] == "grouped_gemm_gmm":        # K4 by tile configuration and path
             rec["launches_by_config"] = {
                 c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}

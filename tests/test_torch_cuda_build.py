@@ -45,21 +45,23 @@ def test_digest_follows_flags_not_system_headers(tree):
 
 
 def test_shipped_sources_hash_their_headers(tmp_path):
-    """The wgmma sources include the shared Hopper headers (PTX wrappers and
-    the TMA encoder), and their keys cover them: an edit to either header
-    changes the key of both sources (checked on a copy of csrc/)."""
+    """The wgmma sources (all three: K1, K2 and K3, the grouped GEMMs)
+    include the shared Hopper headers (PTX wrappers, the TMA encoder and the
+    per-device kernel set-up), and their keys cover them: an edit to either
+    header changes the key of every source (checked on a copy of csrc/)."""
     import shutil
 
-    for name in ("flash_attention_fwd", "grouped_gemm"):
+    names = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
+    for name in names:
         with open(os.path.join(cuda_build.CSRC_DIR, name + ".cu"), "rb") as f:
             text = f.read()
         assert b'#include "hopper_ptx.cuh"' in text and b'#include "hopper_tma.cuh"' in text
-    for name in ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm"):
+        assert b"<mma.h>" not in text and b"static bool" not in text
         assert len(cuda_build.source_digest(os.path.join(cuda_build.CSRC_DIR,
                                                          name + ".cu"))) == 16
     copy = str(tmp_path / "csrc")
     shutil.copytree(cuda_build.CSRC_DIR, copy)
-    srcs = [os.path.join(copy, n + ".cu") for n in ("flash_attention_fwd", "grouped_gemm")]
+    srcs = [os.path.join(copy, n + ".cu") for n in names]
     for header in ("hopper_ptx.cuh", "hopper_tma.cuh"):
         before = [cuda_build.source_digest(s) for s in srcs]
         with open(os.path.join(copy, header), "a") as f:

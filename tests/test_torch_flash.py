@@ -120,6 +120,55 @@ def test_backward_plain_matches_jax_grad(jx, B, H, KV, T, S, causal, pad):
     assert (tq.grad.numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
 
 
+# bf16 cases for the per-head rounding of dk and dv: GQA groups of 2 and 4,
+# both head dims, S > T, left padding.
+BF16_BWD_CASES = [
+    # B, H, KV, T, S, Dh, pad
+    (1, 4, 2, 128, 128, 128, 0),
+    (2, 4, 2, 200, 200, 64, 17),
+    (1, 8, 2, 128, 192, 128, 9),
+]
+# Plain bf16 backward vs the JAX package's bf16 backward on the same
+# residuals: both round P, dS and each head's dk, dv to bf16 at the same
+# points, so they differ only where an f32 sum taken in another order lands
+# on the other side of a bf16 rounding.  Summing the heads in f32 and
+# rounding once (the port's rounding before the per-head kernels) does not
+# meet this limit.
+BF16_BWD_REL_L2 = 1e-4
+BF16_BWD_RTOL, BF16_BWD_ATOL = 8e-3, 1e-3       # one bf16 step
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad", BF16_BWD_CASES)
+def test_backward_plain_bf16_rounds_as_jax(jx, B, H, KV, T, S, Dh, pad):
+    """The plain dq and dk/dv versions in bf16 (what the CUDA kernels are
+    held to on the card) against the JAX package's `_flash_backward` in bf16
+    (Pallas in interpret mode) from the JAX forward's o, m, l: each query
+    head's dk and dv is rounded to bf16 before the GQA sum, as there."""
+    jnp, jfa = jx
+    q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + pad + 2)
+    g = np.random.default_rng(pad + 1).standard_normal((B, H, T, Dh)).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, g))
+    jvalid = jnp.asarray(valid)
+    o, m, l = jfa._flash_forward(jq, jk, jv, jvalid, True, 512, 512, True)
+    want = jfa._flash_backward(jq, jk, jv, jvalid, o, m, l, jg, True, 512, 512, True)
+
+    def bf16(a):
+        return torch.tensor(np.asarray(jnp.asarray(a).astype(jnp.float32))).to(torch.bfloat16)
+
+    tq, tk, tv, tg, to = (bf16(a) for a in (jq, jk, jv, jg, o))
+    tm = torch.tensor(np.asarray(m)[:, :T, 0])
+    tl = torch.tensor(np.asarray(l)[:, :T, 0])
+    vt = torch.tensor(valid)
+    dvec = FA.softmax_residual_rowsum(tg, to)
+    dq = FA.flash_attention_bwd_dq(tq, tk, tv, tg, tm, tl, dvec, vt, True)
+    dk, dv = FA.flash_attention_bwd_dkv(tq, tk, tv, tg, tm, tl, dvec, vt, True)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        got, w = got.float(), torch.tensor(np.asarray(w.astype(jnp.float32)))
+        assert ((got - w).norm() / w.norm()).item() <= BF16_BWD_REL_L2
+        torch.testing.assert_close(got, w, rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL)
+
+
 def test_gradcheck_f64():
     """FlashAttention's backward (the plain version on the CPU) against
     finite differences, f64: GQA, left padding with a dead row, S > T."""
@@ -265,25 +314,43 @@ def test_cuda_prefill_takes_kernel_or_raises(cuda, dtype):
         assert flash_attention.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T,S,pad,Dh,causal", [(128, 128, 0, 128, True), (200, 200, 37, 128, True),
-                                               (128, 200, 11, 64, True), (192, 192, 5, 128, False)])
-def test_backward_kernels_match_plain_bf16(cuda, T, S, pad, Dh, causal):
-    """The dq and dk/dv kernels vs their plain versions in bf16, from the
-    forward kernel's residuals: atol = rtol = 2e-2 (both round P and dS to
-    bf16); dq of dead rows exactly 0."""
+def _bwd_inputs(cuda, T, S, pad, Dh, causal):
+    """bf16 q, k, v, dO, the forward kernel's residuals m, l, D and kv_valid
+    (B 4, H 16, KV 2) on the card."""
     q, k, v, valid = _inputs(4, 16, 2, T, S, Dh, pad, seed=T + pad)
     q, k, v = (torch.tensor(a, device=cuda).to(torch.bfloat16) for a in (q, k, v))
     vt = torch.tensor(valid, device=cuda)
-    do = torch.randn(4, 16, T, Dh, device=cuda).to(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(T + S)
+    do = torch.randn(4, 16, T, Dh, generator=gen, device=cuda).to(torch.bfloat16)
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
-    dvec = FA.softmax_residual_rowsum(do, o)
-    before = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches)
+    return q, k, v, do, m, l, FA.softmax_residual_rowsum(do, o), vt
+
+
+# The backward kernels' tile edges (dq: 128 query rows, 64-key tiles; dk/dv:
+# 128 keys, 64-row query tiles): one row and one key past a tile; one query
+# tile over five key tiles; Dh 64 with S > T; S - T = 90, so dk/dv's key
+# tiles 1 and 2 start their query range in mid-tile.
+K23_EDGES = [(129, 129, 0, 128, True), (64, 300, 7, 128, True), (100, 300, 5, 64, True),
+             (200, 290, 3, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,pad,Dh,causal", [(128, 128, 0, 128, True), (200, 200, 37, 128, True),
+                                               (128, 200, 11, 64, True), (192, 192, 5, 128, False)]
+                         + K23_EDGES)
+def test_backward_kernels_match_plain_bf16(cuda, T, S, pad, Dh, causal):
+    """The dq and dk/dv kernels vs their plain versions in bf16, from the
+    forward kernel's residuals, at prefill-like shapes and the kernels' tile
+    edges: atol = rtol = 2e-2 (both round P and dS to bf16); dq of dead rows
+    exactly 0."""
+    q, k, v, do, m, l, dvec, vt = _bwd_inputs(cuda, T, S, pad, Dh, causal)
+    before = (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches,
+              FA.flash_attention_bwd_dkv.reduce_launches)
     dq = FA.flash_attention_bwd_dq(q, k, v, do, m, l, dvec, vt, causal)
     dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, vt, causal)
     torch.cuda.synchronize()
-    assert (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert (FA.flash_attention_bwd_dq.launches, FA.flash_attention_bwd_dkv.launches,
+            FA.flash_attention_bwd_dkv.reduce_launches) == tuple(b + 1 for b in before)
     rdq = FA.flash_attention_bwd_dq_reference(q, k, v, do, m, l, dvec, vt, causal)
     rdk, rdv = FA.flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, vt, causal)
     for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
@@ -292,6 +359,20 @@ def test_backward_kernels_match_plain_bf16(cuda, T, S, pad, Dh, causal):
         S - T if causal else S)
     dead = ~allowed.any(-1)
     assert (dq.float().abs().sum(-1)[dead[:, None].expand(4, 16, T)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,pad,Dh,causal", [(2048, 2048, 0, 128, True), (200, 290, 3, 128, True),
+                                               (192, 192, 5, 64, False)])
+def test_backward_kernels_bit_identical(cuda, T, S, pad, Dh, causal):
+    """Two launches of the dq and dk/dv kernels on the same inputs give the
+    same bits: no atomics, and the GQA sum runs in head order."""
+    args = _bwd_inputs(cuda, T, S, pad, Dh, causal)
+    first = (FA.flash_attention_bwd_dq(*args, causal), *FA.flash_attention_bwd_dkv(*args, causal))
+    again = (FA.flash_attention_bwd_dq(*args, causal), *FA.flash_attention_bwd_dkv(*args, causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.cuda

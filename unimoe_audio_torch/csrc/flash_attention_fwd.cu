@@ -319,13 +319,12 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, vo
            void* l, int B, int H, int KV, int T, int S, int causal, float scale,
            cudaStream_t stream) {
   constexpr int smem = Smem<DH>::TOTAL;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static hopper::PerDevice configured;
+  const cudaError_t set = configured.once([&] {
+    return cudaFuncSetAttribute(flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem);
+  });
+  if (set != cudaSuccess) return (int)set;
   CUtensorMap mq, mk, mv;
   memset(&mq, 0, sizeof(mq));
   memset(&mk, 0, sizeof(mk));

@@ -483,14 +483,14 @@ int launch_ws(dim3 grid, const CUtensorMap& ma, const CUtensorMap& mb, const voi
               int chunk_rows, cudaStream_t st) {
   auto kernel = gmm_wgmma_kernel<BN_, STAGES, MIN_CTAS, MODE, TMA>;
   constexpr int smem = smem_bytes(BN_, STAGES);
-  static bool configured = false;
-  if (!configured) {
+  static hopper::PerDevice configured;
+  const cudaError_t set = configured.once([&] {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+    return e;
+  });
+  if (set != cudaSuccess) return (int)set;
   const int pair4 = K % 2 == 0 && N % 2 == 0 && aligned(a, 4) && aligned(b, 4);
   kernel<<<grid, THREADS, smem, st>>>(ma, mb, static_cast<const bf16*>(a),
                                       static_cast<const bf16*>(b), static_cast<const int*>(gs),

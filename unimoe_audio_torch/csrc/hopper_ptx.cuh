@@ -176,9 +176,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // are the A fragment of its columns 16 s .. 16 s + 15, so a product's
 // result (rounded to bf16) feeds the next product from registers.
 
-// D[64 x 64] += A[64 x 16] . B[16 x 64], A and B from shared memory.
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A and B from shared memory; with
+// accumulate = 0, D = A . B, so the product that starts a sum needs no zero
+// fill of D.
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -193,7 +196,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D[64 x 128] += A[64 x 16] . B[16 x 128], A and B from shared memory.

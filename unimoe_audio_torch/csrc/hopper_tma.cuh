@@ -1,6 +1,7 @@
-// Host side of TMA: tensor maps for bf16 tensors, encoded by the driver's
-// cuTensorMapEncodeTiled, which is looked up through the CUDA runtime so that
-// a library including this header needs no link against libcuda.
+// Host side of the Hopper kernels: tensor maps for bf16 tensors, encoded by
+// libcuda's cuTensorMapEncodeTiled, which is looked up through the CUDA
+// runtime so that a library including this header needs no link against
+// libcuda; and `PerDevice`, which sets a kernel's attributes once per device.
 //
 // A map describes a contiguous bf16 tensor of up to 3 dimensions (innermost
 // first) cut into boxes of the given size, in the 128-byte swizzled layout
@@ -13,6 +14,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -60,5 +63,28 @@ inline int encode(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
 }
+
+// A kernel's attributes (such as its dynamic shared-memory limit) belong to
+// each device's context: `once(set)` runs `set` (returning a cudaError_t) on
+// the current device the first time that device launches the kernel, and
+// again after a failure.  One static instance per kernel; devices past 63 set
+// it on every launch.
+class PerDevice {
+ public:
+  template <typename Set>
+  cudaError_t once(Set set) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (bit & done_.load(std::memory_order_acquire)) return cudaSuccess;
+    e = set();
+    if (e == cudaSuccess) done_.fetch_or(bit, std::memory_order_acq_rel);
+    return e;
+  }
+
+ private:
+  std::atomic<unsigned long long> done_{0};
+};
 
 }  // namespace hopper

@@ -17,15 +17,17 @@ T = S = 128, Dh = 128) a forward moves about 9 MB and does about 0.5 GFLOP,
 so it is bound by memory traffic and launch latency; at the training shape
 (B = 4, T = S = 2048) each kernel does 34-138 GFLOP on about 70 MB and is
 bound by the tensor cores.  The [T, S] matrices never reach device memory:
-K1 keeps each score tile in registers (TMA-fed wgmma), K2 and K3 in shared
-memory; see the sources for the designs.
+all three kernels keep their score tiles in registers (TMA-fed wgmma); see
+the sources for the designs.
 
 `flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
 the plain version and a CUDA tensor to the kernel, with no fallback between
 them; its backward runs the two backward kernels on the card and their plain
 versions on the CPU.  Each
 wrapper counts its kernel's launches: `flash_attention.launches`,
-`flash_attention_bwd_dq.launches`, `flash_attention_bwd_dkv.launches`.
+`flash_attention_bwd_dq.launches`, `flash_attention_bwd_dkv.launches` and
+`flash_attention_bwd_dkv.reduce_launches` (the GQA sum of the per-head
+dk and dv, when H > KV).
 """
 
 from __future__ import annotations
@@ -112,16 +114,18 @@ def flash_attention_bwd_dq_reference(q, k, v, do, m, l, dvec, kv_valid, causal: 
 def flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
     """Plain version of the dk/dv kernel (the formulas of
     `_flash_bwd_dkv_kernel` plus the GQA group-sum): per query head
-    dv_h = Pᵀ · dO and dk_h = scale · dSᵀ · Q, summed over each kv head's
-    H / KV query heads, accumulated in f32."""
+    dv_h = Pᵀ · dO and dk_h = scale · dSᵀ · Q, accumulated in f32 and
+    rounded to the input dtype, then summed in f32 over each kv head's
+    H / KV query heads, as the JAX package rounds each head's dk, dv
+    before its sum (:372-379)."""
     B, H, T, Dh = q.shape
     KV, S = k.shape[1], k.shape[2]
     p, ds, _ = _bwd_tiles(q, k, v, do, m, l, dvec, kv_valid, causal)
     ct = p.dtype
     dk = torch.einsum("bhts,bhtd->bhsd", ds, q.to(ct)) * Dh ** -0.5
     dv = torch.einsum("bhts,bhtd->bhsd", p, do.to(ct))
-    dk = dk.reshape(B, KV, H // KV, S, Dh).sum(dim=2)
-    dv = dv.reshape(B, KV, H // KV, S, Dh).sum(dim=2)
+    dk = dk.to(k.dtype).to(ct).reshape(B, KV, H // KV, S, Dh).sum(dim=2)
+    dv = dv.to(v.dtype).to(ct).reshape(B, KV, H // KV, S, Dh).sum(dim=2)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -150,21 +154,25 @@ def _check(q, k, v, kv_valid):
     return B, H, KV, T, S, Dh
 
 
-FWD_BLOCK_Q = 128           # K1's query rows per CTA; its grid is (B*H, ceil(T / 128))
+# Rows of a CTA's tile: K1's and K2's query rows, K3's keys.  The grids are
+# (B*H, ceil(T / 128)) for K1 and K2 and (B*H, ceil(S / 128)) for K3.
+BLOCK_ROWS = 128
 
 
 def _check_fwd(q, k, v, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    if B * H >= 2 ** 31 or -(-T // FWD_BLOCK_Q) > 65535:
+    if B * H >= 2 ** 31 or -(-T // BLOCK_ROWS) > 65535:
         raise ValueError(f"B*H={B * H}, T={T} exceed the forward kernel's grid limits "
-                         f"(B*H < 2**31, ceil(T / {FWD_BLOCK_Q}) <= 65535)")
+                         f"(B*H < 2**31, ceil(T / {BLOCK_ROWS}) <= 65535)")
     return B, H, KV, T, S, Dh
 
 
 def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the backward kernels' grid limit (65535)")
+    if B * H >= 2 ** 31 or max(-(-T // BLOCK_ROWS), -(-S // BLOCK_ROWS)) > 65535:
+        raise ValueError(f"B*H={B * H}, T={T}, S={S} exceed the backward kernels' grid limits "
+                         f"(B*H < 2**31, ceil(T / {BLOCK_ROWS}) and ceil(S / {BLOCK_ROWS}) "
+                         f"<= 65535)")
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
             or do.data_ptr() % 16:
         raise ValueError("dO must be a contiguous, 16-byte aligned tensor shaped and typed as q")
@@ -248,7 +256,9 @@ def flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tru
 def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
     """(dk, dv) [B, KV, S, Dh], GQA group-summed, from the same inputs as
     `flash_attention_bwd_dq`.  The kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor.  On the card with H > KV the kernel writes
+    each query head's dk and dv into a [2, B*H, S, Dh] scratch tensor and
+    a second kernel sums each kv head's H / KV of them in head order."""
     if not q.is_cuda:
         _cpu_only(q)
         return flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, kv_valid, causal)
@@ -257,12 +267,16 @@ def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tr
         return torch.zeros_like(k), torch.zeros_like(v)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    part = torch.empty((2, B * H, S, Dh), dtype=k.dtype, device=k.device) if H > KV else None
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd", "flash_attention_bwd_dkv", 10,
+        _call("flash_attention_bwd", "flash_attention_bwd_dkv", 11,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
               l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              None if part is None else part.data_ptr(),
               B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
     flash_attention_bwd_dkv.launches += 1
+    if part is not None:
+        flash_attention_bwd_dkv.reduce_launches += 1
     return dk, dv
 
 
@@ -318,3 +332,4 @@ def flash_attention(q, k, v, kv_valid: Optional[torch.Tensor] = None, *,
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.reduce_launches = 0
