@@ -30,11 +30,23 @@ failure:
      weights from a seed) with the 16 kHz DAC, on four captions long enough
      that the prompt buckets to 128 tokens (so the prefill takes the flash
      kernel), through `generate_chunked`; then repeated short calls for the
-     prefill's spread and one under torch.profiler;
+     prefill's spread;
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
-     each under torch.profiler (device-to-host reads per decode step);
+     each under torch.profiler (launches, device time and device-to-host
+     reads per decode step);
+   - quantized serving: the flagship with `serving_mode="int4"` (int4
+     experts, `packed_a8` expert compute, the int8 KV cache) on 32 captions
+     through `text_to_music` and `generate_chunked` (the a8 branch counted
+     in every layer), profiled, then saved as a serving snapshot, reloaded,
+     and its greedy codes compared; the flagship with `serving_mode="int8"`
+     on the four captions; both in turns; `moe_ffn_gmm` over int8 QTensor
+     experts with and without an assignment budget against the CPU; a
+     2-layer flagship-width reference check, f32, card vs CPU; and
+     `serving_mode="int4-gptq"` at 4 layers (GPTQ's output error against
+     round-to-nearest int4's); and every serving_mode x kv_cache_dtype x
+     a8_compute setting at the tiny config;
    - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
      B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
      dispatch and then with `dispatch_mode="gmm"` on the same batch;
@@ -101,7 +113,7 @@ TRAIN_FLASH_VS_EINSUM = 1.25
 TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 4, 2048
 TRAIN_TIMED_STEPS = 5
 # Extra T2M prefills timed after the main call.
-PREFILL_REPEATS = 5
+PREFILL_REPEATS = 3
 # Grouped GEMMs (K4, K4t, K5) vs their plain versions in bf16: both multiply
 # bf16 values exactly and sum in f32 in other orders, and K4t and K5 round
 # their sums to bf16.  The limits of K2 / K3, set before the first reading.
@@ -117,6 +129,37 @@ TRAIN_GMM_LOSS_REL = 1e-2
 GMM_SERVING_FRAMES = 100
 READS_FRAMES = 8
 TURN_FRAMES = 12
+
+# Quantized serving (int4 / int8 weights, a8 expert compute, the int8 KV
+# cache).  The int4 run is the north star's configuration: QUANT_CAPTIONS
+# captions of the T2M phase's lengths (prompt bucket 128), 64 CFG rows, so
+# that decode takes packed_a8 at capacity 48 and the prefill packed_a8 at
+# capacity 4,736; 10.24 s (512 frames), the shortest that text_to_music
+# decodes through generate_chunked, so the int8 cache grows with its scales
+# past the first 256-frame chunk.  The int8 run: the T2M phase's 4 captions,
+# QUANT_INT8_SECONDS.
+QUANT_CAPTIONS = 32
+QUANT_INT4_SECONDS = 10.24
+QUANT_INT8_SECONDS = 1.2
+# The quantized reference check, card vs CPU: a 2-layer model at flagship
+# width in f32 with int8 weights.  Through packed dispatch and an f32 cache
+# only the summation order differs: relative L2 of the codec logits under
+# QUANT_REF_EXACT_REL_L2.  With a8 and the int8 cache a value within an ulp
+# of a half step of its int8 grid rounds either way, and each such flip
+# moves a product or a cached key by a whole step, so last-bit differences
+# grow to about 1e-2 of the logits.  The card must stay within
+# QUANT_REF_VS_NOISE x the CPU's own move when its input embeddings change
+# by a relative QUANT_REF_NOISE, measured in the same run, and under
+# QUANT_REF_REL_L2.
+QUANT_REF_EXACT_REL_L2 = 1e-4
+QUANT_REF_NOISE = 1e-7
+QUANT_REF_VS_NOISE = 5.0
+QUANT_REF_REL_L2 = 1e-1
+# int4-gptq at full width, cut to this many layers.
+GPTQ_LAYERS = 4
+# Greedy frames generated before and after the snapshot round trip (more
+# than the flagship's largest delay, 18, so every stream has frames).
+SNAPSHOT_FRAMES = 24
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
@@ -138,6 +181,14 @@ def check(cond: bool, msg: str) -> None:
 
 def caption(n_words: int) -> str:
     return " ".join(WORDS[i % len(WORDS)] for i in range(n_words))
+
+
+def _t2m_prompts(captions) -> list:
+    """The CFG-paired prompt rows text_to_music makes of these captions."""
+    from unimoe_audio_torch.api import T2M_NEGATIVE_CAPTION, t2m_prompt
+
+    neg = t2m_prompt(T2M_NEGATIVE_CAPTION)
+    return [x for c in captions for x in (neg, t2m_prompt(c))]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -294,6 +345,8 @@ def _to(tree, **kw):
         return {k: _to(v, **kw) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, **kw) for v in tree]
+    if isinstance(tree, tuple):                   # a QTensor: q and s
+        return type(tree)(*(_to(v, **kw) for v in tree))
     return tree.detach().to(**kw)
 
 
@@ -613,7 +666,7 @@ def run_slice(card: str, out_dir: str):
     """The flagship text-to-music path, wavs into out_dir; returns
     (model, prompts, launch counts)."""
     import torch
-    from unimoe_audio_torch.api import T2M_NEGATIVE_CAPTION, UniMoEAudio, t2m_prompt
+    from unimoe_audio_torch.api import UniMoEAudio
     from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
     from unimoe_audio_torch.ops.flash_attention import flash_attention
 
@@ -670,8 +723,7 @@ def run_slice(card: str, out_dir: str):
           f"ms/frame; aggregate realtime factor {audio_s / gen_s:.3f} "
           f"({audio_s:.2f} s of audio in {gen_s:.2f} s, prefill + decode); "
           f"DAC {t['dac_s'] * 1e3:.1f} ms  [{card}]", flush=True)
-    neg = t2m_prompt(T2M_NEGATIVE_CAPTION)
-    prompts = [x for c in captions for x in (neg, t2m_prompt(c))]
+    prompts = _t2m_prompts(captions)
 
     # The same prefill PREFILL_REPEATS more times, in short calls after the
     # launch counts were read: the spread around the one reading above.
@@ -685,43 +737,6 @@ def run_slice(card: str, out_dir: str):
           f"{', '.join(f'{x:.2f}' for x in reps)}; median {float(np.median(reps)):.2f}  "
           f"[{card}]", flush=True)
     return model, prompts, launches
-
-
-def profile_short_call(model, prompts, card) -> None:
-    """One short text-to-music call (30 frames) under torch.profiler:
-    device kernel time against the host's wall time, kernel launches per
-    decode step, the host's time blocked in device-to-host reads (the
-    decode loop's per-step stop test), and the kernels that take the most
-    device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with tempfile.TemporaryDirectory() as out_dir:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model._generate_core(*model._tokenize(prompts), "profile", out_dir,
-                                 cfg_scale=10.0, seed=2, max_tokens=30, min_tokens=15)
-    t = model.last_timings
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    wall_s = t["prefill_s"] + t["decode_s"] + t["dac_s"]
-    if dev_us == 0:
-        print("profile: torch.profiler recorded no device time: not measured", flush=True)
-        return
-    reads = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
-    read_ms = sum(e.cpu_time_total for e in reads) / 1e3
-    n_reads = sum(e.count for e in reads)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile [{card}]: {len(prompts) // 2} requests, {t['steps']} decode steps, "
-          f"prefill + decode + DAC {wall_s * 1e3:.1f} ms wall (profiled), device kernel time "
-          f"{dev_us / 1e3:.1f} ms = {100 * dev_us / 1e3 / (wall_s * 1e3):.1f} % busy; "
-          f"{launches} kernel launches, {launches / max(t['steps'], 1):.0f} per decode step; "
-          f"host blocked in {n_reads} device-to-host reads for {read_ms:.2f} ms "
-          f"({read_ms / max(t['steps'], 1):.3f} ms per decode step)", flush=True)
-    for e in top:
-        print(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}",
-              flush=True)
 
 
 def _leaves(tree):
@@ -1120,10 +1135,11 @@ def check_grouped_all() -> dict:
 
 
 def generate_dispatch(model, prompts, dispatch_mode: str, max_tokens: int, min_tokens: int,
-                      seed: int):
+                      seed: int, **kw):
     """`generate_chunked` on the model's parameters and the CFG-paired
-    prompts, with the knobs `text_to_music` uses; returns the result and
-    the device-synchronised timings."""
+    prompts, with the knobs `text_to_music` uses (and `kw`, such as the
+    serving dispatch); returns the result and the device-synchronised
+    timings."""
     import torch
     from unimoe_audio_torch.codec import delay as dl
     from unimoe_audio_torch.generate.loop import generate_chunked, pad_buffer
@@ -1142,30 +1158,49 @@ def generate_dispatch(model, prompts, dispatch_mode: str, max_tokens: int, min_t
             torch.as_tensor(mask, device="cuda"), None, buf, steps, gen,
             max_tokens=max_tokens, min_tokens=min_tokens, cfg_scale=10.0, temperature=1.0,
             top_p=1.0, cfg_filter_top_k=45, eos_prob_mul_factor=0.6, timings=timings,
-            dispatch_mode=dispatch_mode)
+            dispatch_mode=dispatch_mode, **kw)
     return res, timings
 
 
-def profile_decode(model, prompts, dispatch_mode: str) -> dict:
-    """A short run (READS_FRAMES frames) under torch.profiler: device-to-host
-    reads (`aten::_local_scalar_dense`, the host blocking on a device value)
-    per decode step, the decode's ms per step, the device kernel time of the
-    run per decode step, and the kernels and host operators that take the
+def profile_decode(model, prompts, dispatch_mode: str, **kw) -> dict:
+    """READS_FRAMES decode steps under torch.profiler, after the prefill and
+    a first step run outside it (`generate` paused and resumed): per decode
+    step the device-to-host reads (`aten::_local_scalar_dense`, the host
+    blocking on a device value), the decode's ms, the device kernel time
+    and the launches; and the kernels and host operators that take the
     most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.generate.loop import generate, pad_buffer
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res, t = generate_dispatch(model, prompts, dispatch_mode, READS_FRAMES, READS_FRAMES,
-                                   seed=4)
+    cfg = model.config
+    ids, mask = model._tokenize(prompts)
+    prefill, steps = dl.prepare_audio_prompt(
+        [None] * (len(prompts) // 2), num_channels=cfg.codec_channels,
+        bos_value=cfg.codec_bos_value, delay_pattern=cfg.codec_delay_pattern)
+    n = READS_FRAMES + 1
+    args = (model.params, cfg, torch.as_tensor(ids, device="cuda"),
+            torch.as_tensor(mask, device="cuda"), None,
+            pad_buffer(torch.as_tensor(prefill, device="cuda"), n), steps,
+            torch.Generator(device="cuda").manual_seed(4))
+    knobs = dict(max_tokens=n, min_tokens=n, cfg_scale=10.0, temperature=1.0, top_p=1.0,
+                 cfg_filter_top_k=45, eos_prob_mul_factor=0.6, dispatch_mode=dispatch_mode,
+                 return_state=True, **kw)
+    t: dict = {}
+    with torch.inference_mode():
+        _, state = generate(*args, stop_at=int(np.min(steps)), **knobs)   # prefill, 1 step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, _ = generate(*args, resume_state=state, timings=t, **knobs)
+    n_steps = res.steps - 1
     ev = prof.key_averages()
     kernels = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
     host = [e for e in ev if e.device_type != torch.autograd.DeviceType.CUDA]
     return {
-        "reads": sum(e.count for e in ev if e.key == "aten::_local_scalar_dense") / res.steps,
-        "decode_ms": t["decode_s"] * 1e3 / res.steps,
-        "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / res.steps,
-        "launches": sum(e.count for e in kernels) / res.steps,
+        "reads": sum(e.count for e in ev if e.key == "aten::_local_scalar_dense") / n_steps,
+        "decode_ms": t["decode_s"] * 1e3 / n_steps,
+        "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps,
+        "launches": sum(e.count for e in kernels) / n_steps,
         "top_kernels": [(e.key[:50], round(e.self_device_time_total / 1e3, 2), e.count)
                         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]],
         "top_host": [(e.key[:50], round(e.self_cpu_time_total / 1e3, 2), e.count)
@@ -1235,7 +1270,8 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
     print(f"gmm serving [{card}]: decode ms/frame in turns ({TURN_FRAMES}-frame runs, "
           f"{' / '.join(turns)}): {' / '.join(f'{x:.2f}' for x in per_frame)}", flush=True)
     for m, p in profiled.items():
-        print(f"gmm serving [{card}]: profiled {READS_FRAMES}-frame run, {m}: decode "
+        print(f"gmm serving [{card}]: {READS_FRAMES} decode steps under the profiler (the "
+              f"prefill outside it), {m}: decode "
               f"{p['decode_ms']:.2f} ms/step, device kernel time {p['device_ms']:.2f} ms and "
               f"{p['launches']:.0f} launches per step, {p['reads']:.3f} device-to-host reads "
               f"per step; top kernels (ms, count) {p['top_kernels']}; top host operators "
@@ -1247,6 +1283,468 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
           f"{got}; device-to-host reads "
           f"per decode step ({READS_FRAMES}-frame profiled runs): gmm {reads['gmm']:.3f}, dense "
           f"{reads['dense']:.3f}", flush=True)
+    return launches
+
+
+def _serving_kw(model, prompts) -> dict:
+    """The dispatch and cache keywords `text_to_music` gives these prompts:
+    `model.serving_dispatch` and the model's KV cache type."""
+    ids, _ = model._tokenize(prompts)
+    kw = model.serving_dispatch(*ids.shape)
+    if model.kv_cache_dtype:
+        kw["kv_dtype"] = model.kv_cache_dtype
+    return kw
+
+
+def _weight_gb(params) -> dict:
+    """Resident bytes of the weights by storage dtype, in GB (packed int4 as
+    uint8; the scales under their own dtype)."""
+    from unimoe_audio_torch.ops.quant import QTensor
+
+    out: dict = {}
+    for leaf in _leaves(params):
+        for t in (leaf if isinstance(leaf, QTensor) else (leaf,)):
+            k = str(t.dtype).replace("torch.", "")
+            out[k] = out.get(k, 0.0) + t.numel() * t.element_size() / 1e9
+    return {k: round(v, 3) for k, v in sorted(out.items())}
+
+
+def run_quantized_t2m(model, captions, seconds: float, min_seconds: float, out_dir: str,
+                      label: str, card: str, build_s: float):
+    """One text_to_music call of a quantized model with every counter zeroed
+    just before it and read just after.  Checks the wavs and codes, one K1
+    launch per layer (one prefill), the a8 branch in both DCMoE expert
+    groups of every layer of every forward, and (E_dyn + E_fixed) x 3 x L
+    int8 expert products per forward.  Returns (launch counts, timings)."""
+    import torch
+    from unimoe_audio_torch.moe import dispatch as D
+
+    cfg = model.config
+    tc = cfg.text_config
+    L = tc.num_hidden_layers
+    kw = _serving_kw(model, _t2m_prompts(captions))
+    _zero_launch_counts()
+    D.swiglu_expert_ffn.a8_calls = D.int8_expert_matmul.calls = 0
+    paths = model.text_to_music(captions, output_dir=out_dir, save_name=label, seed=0,
+                                max_audio_seconds=seconds, min_audio_seconds=min_seconds)
+    launches = _launch_counts()
+    a8, int_mm = D.swiglu_expert_ffn.a8_calls, D.int8_expert_matmul.calls
+    t = model.last_timings
+    forwards = 1 + t["steps"]
+    check(launches["flash_attention_fwd"] == L,
+          f"{label}: {launches['flash_attention_fwd']} K1 launches, want {L} (one prefill)")
+    want_a8 = 2 * L * forwards if model.a8_compute else 0
+    check(a8 == want_a8, f"{label}: the a8 branch ran {a8} times, want 2 x {L} x {forwards}")
+    n_mm = (tc.mlp_dynamic_expert_num + tc.mlp_fixed_expert_num) * 3 * L
+    check(int_mm == n_mm * forwards if model.a8_compute else int_mm == 0,
+          f"{label}: {int_mm} int8 expert products, want {n_mm} x {forwards}")
+    hop, sr = model.dac.config.hop_length, model.dac.config.sample_rate
+    check(len(paths) == len(captions), f"{label}: one wav per caption")
+    for p, n, c in zip(paths, t["lengths"], model.last_codes):
+        check(c.shape == (n, cfg.codec_channels), f"{label}: codes shape {c.shape}")
+        check(bool((c >= 0).all() and (c < model.dac.config.codebook_size).all()),
+              f"{label}: codes out of range")
+        with wave.open(p) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        check(pcm.size == max(n * hop, sr) and int(np.abs(pcm[:n * hop]).max()) > 0,
+              f"{p}: {pcm.size} samples for {n} frames, or silent")
+    audio_s = sum(t["lengths"]) / 50.0
+    gen_s = t["prefill_s"] + t["decode_s"]
+    print(f"{label} [{card}]: serving_mode={model.serving_mode!r}, kv_cache_dtype="
+          f"{model.kv_cache_dtype!r}, a8_compute={model.a8_compute}; {len(captions)} requests "
+          f"({2 * len(captions)} CFG rows), dispatch {kw}; built and quantized in "
+          f"{build_s:.1f} s ({', '.join(f'{k} {v:.2f} s' for k, v in model.load_timings.items())}"
+          f"); "
+          f"weights resident by dtype (GB) {_weight_gb(model.params)}", flush=True)
+    print(f"{label} [{card}]: {t['steps']} decode steps, frames {t['lengths']}; prefill "
+          f"{t['prefill_s'] * 1e3:.2f} ms; decode {t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame; "
+          f"aggregate realtime factor {audio_s / gen_s:.3f} ({audio_s:.2f} s of audio in "
+          f"{gen_s:.2f} s); DAC {t['dac_s'] * 1e3:.1f} ms; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; K1 launches "
+          f"{launches['flash_attention_fwd']}; a8 branch {a8} = 2 x {L} x {forwards}; int8 "
+          f"expert products {int_mm} = {n_mm} per forward", flush=True)
+    return launches, t
+
+
+def check_gmm_quantized(params, card: str) -> None:
+    """moe_ffn_gmm on the card over per-channel int8 QTensor experts (K4
+    reads q as bf16; each row takes its expert's scales after it), with a
+    row for every slot and with an assignment budget of 128 rows below the
+    256 selected of S x E = 512 slots, against the same call on CPU tensors
+    (the plain grouped product).  Not a main path: the counters are
+    restored."""
+    import torch
+    from unimoe_audio_torch.moe import dispatch as D
+    from unimoe_audio_torch.ops.quant import QTensor, wshape
+
+    S = 64
+    E, D_ = wshape(params["gate"])[:2]
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    x = torch.randn(S, D_, generator=gen, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(S, E, generator=gen, device="cuda")
+    mask = torch.zeros(S, E, dtype=torch.int32, device="cuda").scatter_(
+        1, logits.topk(4, dim=-1).indices, 1)
+    weight = torch.rand(S, E, generator=gen, device="cuda").to(torch.bfloat16)
+    cpu = {k: QTensor(q=v.q.cpu(), s=v.s.cpu()) for k, v in params.items()}
+    counts = _launch_counts()
+    msgs = []
+    for budget in (None, 128):
+        before = _launch_counts()["grouped_gemm_gmm"]
+        got = D.moe_ffn_gmm(x, mask, weight, params, assignment_budget=budget)
+        torch.cuda.synchronize()
+        n = _launch_counts()["grouped_gemm_gmm"] - before
+        want = D.moe_ffn_gmm(x.cpu(), mask.cpu(), weight.cpu(), cpu,
+                             assignment_budget=budget).float()
+        o = got.float().cpu()
+        err = (o - want).abs()
+        rel = ((o - want).norm() / want.norm()).item()
+        what = f"gmm over int8 QTensor experts, budget {budget}"
+        check(n == 3, f"{what}: {n} K4 launches, want 3")
+        ok = bool((err <= GMM_ATOL + GMM_RTOL * want.abs()).all()) and rel <= GMM_REL_L2
+        check(bool(torch.isfinite(o).all()) and ok,
+              f"{what}: max err {err.max().item()}, relative L2 {rel}")
+        msgs.append(f"budget {budget or 'none (' + str(-(-S * E // 128) * 128) + ' rows)'}: "
+                    f"max|err| {err.max().item():.3e}, rel L2 {rel:.2e}")
+    _set_launch_counts(counts)
+    print(f"kernel check [{card}]: moe_ffn_gmm on the card over int8 QTensor experts "
+          f"(S {S}, E {E}, top-4) vs the same on the CPU: " + "; ".join(msgs)
+          + f" (rtol {GMM_RTOL}, atol {GMM_ATOL}, rel L2 {GMM_REL_L2})", flush=True)
+
+
+def time_int8_layouts(card: str) -> None:
+    """`torch._int_mm` with the weight column-major (K-major, as the port
+    stores expert weights) against row-major, at the int4 cell's decode and
+    prefill shapes of one expert projection: CUDA-event means, equal int32
+    results; and whether a row-major weight runs at all at K 64, N 128."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+
+    def rint(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    parts = []
+    for m, k, n in ((48, 2048, 2816), (4736, 2048, 2816)):
+        a, b = rint(m, k), rint(k, n)
+        b_col = b.t().contiguous().t()
+        check(torch.equal(torch._int_mm(a, b), torch._int_mm(a, b_col)),
+              f"_int_mm {m}x{k}x{n}: the two weight layouts differ")
+        ms = {lay: cuda_ms(lambda w=w: torch._int_mm(a, w), iters=100 if m < 100 else 20)
+              for lay, w in (("row-major", b), ("K-major", b_col))}
+        parts.append(f"[{m}, {k}] x [{k}, {n}]: K-major {ms['K-major']:.4f} ms, row-major "
+                     f"{ms['row-major']:.4f} ms")
+    try:
+        torch._int_mm(rint(24, 64), rint(64, 128))
+        torch.cuda.synchronize()
+        small = "runs"
+    except RuntimeError as e:
+        small = f"raises ({str(e).split(' when ')[0][:60]})"
+    print(f"int8 products [{card}]: torch._int_mm, equal results in both layouts; "
+          + "; ".join(parts) + f"; a row-major [64, 128] weight {small}", flush=True)
+
+
+def check_quantized_reference(card: str) -> None:
+    """A 2-layer model at flagship width in f32 with int8 weights (quantized
+    once on the CPU and copied to the card), card vs CPU:
+
+      * packed dispatch and an f32 cache: the prefill's codec logits over
+        live rows within QUANT_REF_EXACT_REL_L2 (summation order only);
+      * packed_a8 and the int8 KV cache: the prefill's logits and one decode
+        step's within QUANT_REF_REL_L2 and within QUANT_REF_VS_NOISE x the
+        CPU's own change when its input embeddings move by a relative 1e-7
+        (QUANT_REF_NOISE), measured here: the int8 roundings of activations
+        and cache entries turn last-bit differences into whole steps;
+      * one a8 expert block's int32 products (layer 0's dynamic gate on the
+        prefill's quantized block input) equal."""
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models import model as M
+    from unimoe_audio_torch.models.layers import KVCache
+    from unimoe_audio_torch.moe import dispatch as D
+    from unimoe_audio_torch.ops import quant as Q
+
+    cfg = UniMoEAudioConfig(text_config=TextMoEConfig(num_hidden_layers=2), vision_config=None)
+    tc = cfg.text_config
+    cpu = M.init_model_params(cfg, seed=2, dtype=torch.float32, device="cpu")
+    Q.pad_expert_ffn(Q.quantize_model_params_inplace(cpu))
+    gpu = Q.kmajor_experts(_to(cpu, device="cuda"))
+    B, T, T_max = 2, 128, 136
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, tc.vocab_size - 8, size=(B, T))
+    mask = np.ones((B, T), np.int64)
+    mask[0, :40] = 0
+    pos = np.where(mask == 0, 1, np.cumsum(mask, -1) - 1)
+    kv_valid = np.concatenate([mask, np.zeros((B, T_max - T), np.int64)], -1)
+    codes = rng.integers(0, cfg.codec_embed_size, size=(B, 1, cfg.codec_channels))
+    live = torch.as_tensor(mask, dtype=torch.bool)
+
+    def run(device, dispatch_mode, kv_dtype, noise: float = 0.0):
+        params = cpu if device == "cpu" else gpu
+        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
+        cache = KVCache.create(tc.num_hidden_layers, B, T_max, tc.num_key_value_heads,
+                               tc.head_dim, dtype=kv_dtype, device=device)
+        emb = M.calculate_input_embedding(params, t(ids), None, cfg.codec_placeholder_value)
+        if noise:
+            gen = torch.Generator().manual_seed(9)
+            emb = emb * (1 + noise * torch.randn(emb.shape, generator=gen)).to(device)
+        out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
+                                   kv_cache=cache, cache_position=0,
+                                   kv_valid_mask=t(kv_valid, torch.int32),
+                                   padding_token_mask=t(mask, torch.int32),
+                                   dispatch_mode=dispatch_mode, capacity=B * T,
+                                   output_moe_inputs=True)
+        pre = M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+        step_valid = kv_valid.copy()
+        step_valid[:, T] = 1
+        step = M.text_model_forward(
+            params, M.codec_embedding(params, t(codes)),
+            t(mask.sum(-1))[None, :, None].expand(3, B, 1), tc, kv_cache=cache,
+            cache_position=T, kv_valid_mask=t(step_valid, torch.int32),
+            dispatch_mode=dispatch_mode, capacity=B)
+        dec = M.codec_logits_from_hidden(params, step.last_hidden_state, cfg).cpu()
+        return pre, dec, out.moe_inputs[0].reshape(B * T, -1).cpu(), cache
+
+    with torch.inference_mode():
+        exact = _rel(run("cuda", "packed", torch.float32)[0],
+                     run("cpu", "packed", torch.float32)[0])
+        pre_c, dec_c, moe_in, _ = run("cpu", "packed_a8", "int8")
+        pre_n, dec_n, _, _ = run("cpu", "packed_a8", "int8", QUANT_REF_NOISE)
+        pre_g, dec_g, _, cache = run("cuda", "packed_a8", "int8")
+        check(cache.quantized and bool(cache.k_scale[:, T].gt(0).all()),
+              "reference check: the decode step did not commit a quantized slot")
+        w = cpu["layers"][0]["moe"]["dynamic"]["gate"]
+        q, _ = Q.act_quant_int8(moe_in[None].expand(Q.wshape(w)[0], -1, -1))
+        prod_c = D.int8_expert_matmul(q, w)
+        prod_g = D.int8_expert_matmul(q.cuda(), Q.QTensor(q=Q.kmajor(w.q.cuda()),
+                                                         s=w.s.cuda())).cpu()
+    errs = {"prefill": (_rel(pre_g, pre_c), _rel(pre_n, pre_c)),
+            "decode step": (_rel(dec_g, dec_c), _rel(dec_n, dec_c))}
+    check(torch.equal(prod_c, prod_g), "reference check: int32 expert products differ between "
+          "the card and the CPU")
+    check(exact < QUANT_REF_EXACT_REL_L2,
+          f"reference check: int8 weights through packed dispatch, card vs CPU: {exact}")
+    for what, (card_err, noise_err) in errs.items():
+        check(card_err < QUANT_REF_REL_L2 and card_err <= QUANT_REF_VS_NOISE * max(noise_err, 1e-6),
+              f"reference check: packed_a8 / int8 cache {what} logits, card vs CPU {card_err}, "
+              f"CPU vs CPU with its input moved by {QUANT_REF_NOISE}: {noise_err}")
+    print(f"reference check [{card}]: 2-layer flagship-width model, f32, int8 weights, card vs "
+          f"CPU, codec logits relative L2: packed dispatch, f32 cache {exact:.3e} (limit "
+          f"{QUANT_REF_EXACT_REL_L2}); packed_a8 and the int8 cache " + ", ".join(
+              f"{k} {c:.3e} (the CPU moved by its input x (1 + {QUANT_REF_NOISE} N(0, 1)): "
+              f"{n:.3e})" for k, (c, n) in errs.items())
+          + f" (limits {QUANT_REF_REL_L2}, and {QUANT_REF_VS_NOISE} x the CPU's own move); "
+          f"int32 products of layer 0's dynamic gate ({tuple(prod_c.shape)}) equal", flush=True)
+
+
+def run_gptq_slice(card: str) -> None:
+    """serving_mode="int4-gptq" through the constructor at full width, cut
+    to GPTQ_LAYERS layers: the self-calibration and GPTQ times, and per
+    layer the output error of the GPTQ experts on the calibration
+    activations against per-channel round-to-nearest int4 of the same
+    weights (gate and up on the DCMoE block input X, down on
+    silu(X·gate)·(X·up) through the original weights); a short call through
+    text_to_music."""
+    import torch
+    import torch.nn.functional as F
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.ops import quant as Q
+    from unimoe_audio_torch.ops.gptq import collect_moe_calibration
+
+    cfg = UniMoEAudioConfig(text_config=TextMoEConfig(num_hidden_layers=GPTQ_LAYERS),
+                            vision_config=None)
+    base = UniMoEAudio(allow_random=True, config=cfg, device="cuda")       # the same weights
+    ids, codec, mask = base._calibration_batch(base.GPTQ_CALIB_CAPTIONS, 64)
+    X = collect_moe_calibration(base.params, cfg, ids, codec_input_ids=codec,
+                                attention_mask=mask)
+    t0 = time.perf_counter()
+    model = UniMoEAudio(allow_random=True, config=cfg, device="cuda", serving_mode="int4-gptq",
+                        kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ratios = []
+    with torch.inference_mode():
+        for l, (lb, lq) in enumerate(zip(base.params["layers"], model.params["layers"])):
+            Xl = X[l]
+            e_g = e_r = 0.0
+            for g in ("dynamic", "fixed"):
+                W = {k: lb["moe"][g][k].float() for k in ("gate", "up", "down")}
+                Fn = W["gate"].shape[-1]
+                act = F.silu(Xl @ W["gate"]) * (Xl @ W["up"])
+                for k, inp in (("gate", Xl), ("up", Xl), ("down", act)):
+                    ref = inp @ W[k]
+                    Wg = Q.dequantize(lq["moe"][g][k])
+                    Wg = Wg[..., :Fn] if k != "down" else Wg[..., :Fn, :]
+                    eg = (inp @ Wg - ref).square().sum().item()
+                    Wr = Q.dequantize(Q.quantize_tensor_int4(W[k]))
+                    er = (inp @ Wr - ref).square().sum().item()
+                    ratios.append(f"L{l} {g} {k} {eg / er:.3f}")
+                    e_g, e_r = e_g + eg, e_r + er
+                del act
+            check(e_g < e_r, f"int4-gptq layer {l}: GPTQ output error {e_g} not below RTN's {e_r}")
+    t = model.load_timings
+    with tempfile.TemporaryDirectory() as out_dir:
+        paths = model.text_to_music([caption(n) for n in (58, 74)], output_dir=out_dir, seed=0,
+                                    max_audio_seconds=1, min_audio_seconds=0.5)
+        check(len(paths) == 2 and all(os.path.getsize(p) > 44 for p in paths),
+              "int4-gptq: no wavs")
+    print(f"int4-gptq [{card}]: full width, {GPTQ_LAYERS} layers: built in {build_s:.1f} s: "
+          f"calibration generation {t['calibration_s']:.2f} s ({len(base.GPTQ_CALIB_CAPTIONS)} "
+          f"captions x 64 frames, {int(mask.sum())} calibration tokens, {X.shape[1]} kept), "
+          f"GPTQ {t['gptq_s']:.2f} s, int8 pass and padding {t['quantize_s']:.2f} s; output "
+          f"error GPTQ / RTN int4 on the calibration activations, by layer, group and "
+          f"projection: {', '.join(ratios)}", flush=True)
+    del base, model, X
+
+
+def check_snapshot(model, captions, card: str) -> None:
+    """save_serving_snapshot of the model, a new UniMoEAudio loaded from it,
+    and greedy codes of both on the same prompts: bit-identical."""
+    import torch
+    from unimoe_audio_torch.api import UniMoEAudio
+
+    ids, mask = model._tokenize(_t2m_prompts(captions))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = model.save_serving_snapshot(d)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = UniMoEAudio(d, allow_random=True, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check((loaded.serving_mode, loaded.kv_cache_dtype) == (model.serving_mode,
+                                                                model.kv_cache_dtype),
+              "snapshot: modes not kept")
+        codes = []
+        for m in (model, loaded):
+            m._generate_core(ids, mask, "snapshot", d, cfg_scale=10.0, do_sample=False, seed=0,
+                             max_tokens=SNAPSHOT_FRAMES, min_tokens=SNAPSHOT_FRAMES // 2)
+            codes.append(m.last_codes)
+        size_gb = os.path.getsize(path) / 1e9
+    check(len(codes[0]) == len(codes[1]) and all(np.array_equal(a, b)
+                                                 for a, b in zip(*codes)),
+          "snapshot: greedy codes differ after the reload")
+    print(f"snapshot [{card}]: {os.path.basename(path)} {size_gb:.2f} GB, saved in {save_s:.1f} s, "
+          f"loaded in {load_s:.1f} s; greedy codes of {len(captions)} requests x "
+          f"{SNAPSHOT_FRAMES} frames "
+          f"bit-identical before and after", flush=True)
+    del loaded
+
+
+def run_serving_modes(card: str) -> None:
+    """Every serving_mode x kv_cache_dtype x a8_compute constructs and
+    generates through text_to_music on the card, at the tiny test config (2
+    layers, hidden 64; prompts of 64 tokens, so the prefill stays off K1,
+    whose head dims are 64 and 128): 32 captions, 64 CFG rows, so packed
+    dispatch serves the prefill and the decode, with the a8 branch taken
+    exactly when a8_compute is on; then `dense_a8` through
+    `generate_chunked` once."""
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.config import tiny_test_config
+    from unimoe_audio_torch.moe import dispatch as D
+
+    cfg = tiny_test_config()
+    captions = [caption(8)] * 32
+    runs = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        for mode in (True, "int8", "int4", "int4-gptq"):
+            for kv in (None, "int8"):
+                for a8 in (True, False):
+                    model = UniMoEAudio(allow_random=True, config=cfg, device="cuda",
+                                        serving_mode=mode, kv_cache_dtype=kv, a8_compute=a8,
+                                        gptq_calibration={"frames": 8})
+                    D.swiglu_expert_ffn.a8_calls = 0
+                    paths = model.text_to_music(captions, output_dir=out_dir, seed=0,
+                                                max_audio_seconds=0.4, min_audio_seconds=0.2)
+                    what = f"serving_mode={mode!r}, kv_cache_dtype={kv!r}, a8_compute={a8}"
+                    check(len(paths) == len(captions) and all(os.path.isfile(p) for p in paths),
+                          f"{what}: no wavs")
+                    check((D.swiglu_expert_ffn.a8_calls > 0) == a8,
+                          f"{what}: {D.swiglu_expert_ffn.a8_calls} a8 branches")
+                    runs += 1
+        before = D.swiglu_expert_ffn.a8_calls
+        res, _ = generate_dispatch(model, _t2m_prompts(captions[:4]), "dense_a8", 8, 8, seed=1)
+        check(res.steps > 0 and D.swiglu_expert_ffn.a8_calls > before,
+              "dense_a8 through generate_chunked did not take the a8 branch")
+    print(f"serving modes [{card}]: {runs} serving_mode x kv_cache_dtype x a8_compute settings "
+          f"constructed and generated 32 requests each at the tiny config; dense_a8 through "
+          f"generate_chunked", flush=True)
+
+
+def run_quantized_serving(card: str, stamp=lambda phase: None) -> dict:
+    """The quantized serving phase: the flagship in int4 (the north star:
+    int4 experts, packed_a8, the int8 KV cache) on QUANT_CAPTIONS captions
+    through text_to_music and its snapshot round trip; the flagship in int8
+    on the T2M phase's captions; both in turns on those captions; gmm over
+    int8 QTensors with and without a budget; the reference check; int4-gptq
+    at GPTQ_LAYERS layers.  Returns the launch counts of the int4 and int8
+    text_to_music runs."""
+    import torch
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+
+    cfg = UniMoEAudioConfig(text_config=TextMoEConfig(), vision_config=None)
+    lengths = (58, 74, 90, 106)
+    captions = [caption(lengths[i % 4]) for i in range(QUANT_CAPTIONS)]
+    small = [caption(n) for n in lengths]
+    models, launches = {}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for mode, kv, caps, seconds in (("int4", "int8", captions, QUANT_INT4_SECONDS),
+                                        ("int8", None, small, QUANT_INT8_SECONDS)):
+            label = f"t2m_{mode}"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = UniMoEAudio(allow_random=True, config=cfg, device="cuda", serving_mode=mode,
+                                kv_cache_dtype=kv)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            model.text_to_music(caps, output_dir=out_dir, save_name="warmup", seed=1,
+                                max_audio_seconds=0.6, min_audio_seconds=0.4)
+            launches[label], t = run_quantized_t2m(model, caps, seconds, seconds / 2, out_dir,
+                                                   label, card, build_s)
+            if mode == "int4":
+                check(t["steps"] > 256, f"{label}: {t['steps']} decode steps: no chunk crossed")
+                prompts = _t2m_prompts(caps)
+                kw = _serving_kw(model, prompts)
+                p = profile_decode(model, prompts, kw.pop("dispatch_mode", "dense"), **kw)
+                print(f"{label} [{card}]: {READS_FRAMES} decode steps under the profiler "
+                      f"(the prefill outside it): decode {p['decode_ms']:.2f} ms/step, device "
+                      f"kernel time {p['device_ms']:.2f} ms ({100 * p['device_ms'] / p['decode_ms']:.1f} "
+                      f"% busy) and {p['launches']:.0f} launches per step; top kernels (ms, count) "
+                      f"{p['top_kernels']}; top host operators (self ms, count) "
+                      f"{p['top_host']}", flush=True)
+                stamp("int4 serving and its profile")
+                check_snapshot(model, small, card)
+                stamp("int4 snapshot round trip")
+            else:
+                stamp("int8 serving")
+            models[mode] = model
+    # int8 and int4 decode on the same 4 captions, in turns (int8, int4, int4, int8).
+    prompts = _t2m_prompts(small)
+    per_frame = []
+    for mode in ("int8", "int4", "int4", "int8"):
+        kw = _serving_kw(models[mode], prompts)
+        res, tm = generate_dispatch(models[mode], prompts, kw.pop("dispatch_mode", "dense"),
+                                    TURN_FRAMES, TURN_FRAMES, seed=5, **kw)
+        per_frame.append(tm["decode_s"] * 1e3 / res.steps)
+    print(f"quantized serving [{card}]: decode ms/frame in turns on {len(small)} requests "
+          f"({TURN_FRAMES}-frame runs, int8 / int4 / int4 / int8, packed_a8 at capacity S): "
+          f"{' / '.join(f'{x:.2f}' for x in per_frame)}", flush=True)
+    check_gmm_quantized(models["int8"].params["layers"][0]["moe"]["dynamic"], card)
+    time_int8_layouts(card)
+    stamp("int8 / int4 turns, gmm over int8 QTensors, _int_mm layouts")
+    del models, model
+    torch.cuda.empty_cache()
+    check_quantized_reference(card)
+    stamp("quantized reference check")
+    torch.cuda.empty_cache()
+    run_gptq_slice(card)
+    stamp("int4-gptq")
+    torch.cuda.empty_cache()
+    run_serving_modes(card)
     return launches
 
 
@@ -1544,13 +2042,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         model, prompts, t2m_launches = run_slice(card, out_dir)
+        stamp("dense text_to_music and its repeated prefills")
         fwd_rec = time_flash(model, prompts, t2m_launches, card)
-        profile_short_call(model, prompts, card)
-        stamp("dense serving")
+        stamp("K1 timing at the T2M prefill shape")
         gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
         stamp("gmm serving")
     del model
     torch.cuda.empty_cache()
+    quant_launches = run_quantized_serving(card, stamp)
+    stamp("serving modes at the tiny config")
 
     # K1 at the training shape, then K2 and K3 there and at ragged T, dead
     # rows, S > T, non-causal and Dh 64.
@@ -1589,8 +2089,8 @@ def main() -> None:
     stamp("grouped GEMM timing")
     # Launches by path (each run counted from 0) and summed over the paths;
     # K1's error is the larger of the checks at the two paths' shapes.
-    paths = {"t2m": t2m_launches, "t2m_gmm": gmm_t2m_launches, "train": train_launches,
-             "train_gmm": gmm_train_launches}
+    paths = {"t2m": t2m_launches, "t2m_gmm": gmm_t2m_launches, **quant_launches,
+             "train": train_launches, "train_gmm": gmm_train_launches}
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -334,12 +334,12 @@ def test_token_drop_matches_jax(jx, policy):
 
 
 def test_unported_dispatch_raises():
-    """ep (the parallel slice), a8 (the quantization slice) and quantized
-    weights raise with a message; gmm_a8, a8 in training and unknown modes
-    are errors, as in the JAX package."""
+    """ep (the parallel slice) raises with a message; gmm_a8, a8 in training
+    and unknown modes are errors, as in the JAX package.  (QTensor weights
+    through gmm: tests/test_torch_quant.py.)"""
     cfg = tiny_test_config().text_config
     x = torch.zeros(1, 2, cfg.hidden_size)
-    for mode in ("ep", "packed_a8", "dense_a8"):
+    for mode in ("ep", "ep_a8"):
         with pytest.raises(NotImplementedError):
             TB.dcmoe_block({}, x, cfg, dispatch_mode=mode)
     for kw in ({"dispatch_mode": "gmm_a8"}, {"dispatch_mode": "packed_a8", "training": True},
@@ -350,11 +350,6 @@ def test_unported_dispatch_raises():
         TDsp.moe_ffn_ep()
     with pytest.raises(NotImplementedError, match="parallel"):
         TDsp.ep_capacity(torch.ones(2, 2), axis_name="expert")
-    S, E = 4, 2
-    params = {"gate": object(), "up": object(), "down": object()}
-    with pytest.raises(NotImplementedError, match="quantization"):
-        TDsp.moe_ffn_gmm(torch.zeros(S, 8), torch.ones(S, E, dtype=torch.int32),
-                         torch.ones(S, E), params)
 
 
 @pytest.fixture

@@ -144,6 +144,6 @@ def test_unported_modes_raise(setup):
     cfg, _, tp = setup
     x = torch.zeros(1, 1, cfg.hidden_size)
     cos = sin = torch.zeros(1, 1, cfg.head_dim)
-    for kw in ({"cache_scales": (1, 1)}, {"prefix_kv": (1, 1)}, {"ring": (1, 1)}):
+    for kw in ({"prefix_kv": (1, 1)}, {"ring": (1, 1)}):
         with pytest.raises(NotImplementedError):
             TL.attention(tp, x, cos, sin, cfg, **kw)

@@ -41,10 +41,18 @@ def test_bridge_unstacks_layers(setup):
 
 
 def test_bridge_rejects_quantized_leaves(setup):
+    """A JAX QTensor leaf bridges to the port's QTensor (q and s equal), and
+    a malformed one, whose scales do not fit q, is rejected by name."""
     cfg, _, tree, _ = setup
+    ok = jax.tree.map(lambda x: x, tree)
+    qt = jax.tree.map(np.asarray, quantize_tensor(jnp.asarray(tree["lm_head"])))
+    ok["lm_head"] = qt
+    got = params_from_jax(ok, cfg, "cpu")["lm_head"]
+    np.testing.assert_array_equal(got.q.numpy(), qt.q)
+    np.testing.assert_array_equal(got.s.numpy(), qt.s)
     bad = jax.tree.map(lambda x: x, tree)
-    bad["lm_head"] = jax.tree.map(np.asarray, quantize_tensor(jnp.asarray(tree["lm_head"])))
-    with pytest.raises(NotImplementedError, match="QTensor"):
+    bad["lm_head"] = type(qt)(q=qt.q, s=qt.s[..., :3])
+    with pytest.raises(ValueError, match="QTensor"):
         params_from_jax(bad, cfg, "cpu")
 
 

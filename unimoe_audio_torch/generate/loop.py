@@ -82,6 +82,7 @@ def generate(
     decode_dispatch_mode: Optional[str] = None,
     decode_capacity: Optional[int] = None,
     prefill_capacity: Optional[int] = None,
+    kv_dtype: Optional[str] = None,
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
@@ -90,7 +91,8 @@ def generate(
     their seconds are added to "prefill_s" / "decode_s".  `dispatch_mode`
     runs the DCMoE blocks of the prefill, and of the decode steps unless
     `decode_dispatch_mode` is given; the capacities go to the packed path of
-    each phase."""
+    each phase.  kv_dtype="int8" keeps the KV cache in int8 with
+    per-(position, head) scales (`models/layers.KVCache`)."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -122,7 +124,8 @@ def generate(
         pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
         position_ids = pos[None].expand(3, B2, T_text)
         cache = KVCache.create(tc.num_hidden_layers, B2, T_total, tc.num_key_value_heads,
-                               tc.head_dim, dtype=inputs_embeds.dtype, device=dev)
+                               tc.head_dim, device=dev,
+                               dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
         kv_valid = torch.cat(
             [attention_mask, torch.zeros(B2, T_total - T_text, dtype=torch.int32, device=dev)],
             dim=-1)

@@ -60,35 +60,73 @@ def apply_rope(q, k, cos, sin):
 
 
 class KVCache:
-    """Preallocated bf16 KV cache, time-major [L, T_max, B, KV, Dh], as in
-    the JAX package: the decode window [0, w) is a contiguous leading
-    slice of each layer.  Written in place.  (The int8 cache comes with the
-    quantization slice.)"""
+    """Preallocated KV cache, time-major [L, T_max, B, KV, Dh], as in the JAX
+    package (`layers.py:70-111`): the decode window [0, w) is a contiguous
+    leading slice of each layer.  Written in place.
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor):
+    int8 storage (dtype "int8"): k and v int8 with per-(position, head)
+    symmetric scales k_scale / v_scale [L, T_max, B, KV] f32 (`quantize_kv`);
+    attention applies them outside its products, on the scores (K) and on
+    the probabilities (V).  The scales are None for a bf16 / f32 cache."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None):
         self.k = k
         self.v = v
+        self.k_scale = k_scale
+        self.v_scale = v_scale
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @classmethod
     def create(cls, num_layers, batch, max_len, kv_heads, head_dim, *,
                dtype=torch.bfloat16, device="cuda"):
         shape = (num_layers, max_len, batch, kv_heads, head_dim)
+        if dtype in (torch.int8, "int8"):
+            return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                       torch.zeros(shape[:-1], dtype=torch.float32, device=device))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
     def grow(self, max_len: int) -> "KVCache":
-        """A cache of max_len slots holding this one's contents."""
+        """A cache of max_len slots holding this one's contents, scales
+        included."""
         L, T, B, KV, Dh = self.k.shape
         out = KVCache.create(L, B, max_len, KV, Dh, dtype=self.k.dtype, device=self.k.device)
         out.k[:, :T] = self.k
         out.v[:, :T] = self.v
+        if self.quantized:
+            out.k_scale[:, :T] = self.k_scale
+            out.v_scale[:, :T] = self.v_scale
         return out
 
 
-def update_cache_slice(cache_k, cache_v, k_new, v_new, start: int):
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 over the trailing Dh (`layers.py:114-121`): [..., Dh] →
+    (q int8, s f32 [...]), s = max(amax, 1e-6) / 127."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.round(x32 / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def update_cache_slice(cache_k, cache_v, k_new, v_new, start: int, cache_ks=None, cache_vs=None):
     """Write [B, T_new, KV, Dh] into per-layer [T_max, B, KV, Dh] slices at
-    time offset `start`, in place."""
+    time offset `start`, in place; with an int8 cache (cache_ks / cache_vs
+    [T_max, B, KV]) k and v quantize on write and their scales land beside
+    them."""
     T_new = k_new.shape[1]
+    if cache_ks is not None:
+        (qk, sk), (qv, sv) = quantize_kv(k_new), quantize_kv(v_new)
+        cache_k[start:start + T_new] = qk.transpose(0, 1)
+        cache_v[start:start + T_new] = qv.transpose(0, 1)
+        cache_ks[start:start + T_new] = sk.transpose(0, 1)
+        cache_vs[start:start + T_new] = sv.transpose(0, 1)
+        return cache_k, cache_v
     cache_k[start:start + T_new] = k_new.transpose(0, 1).to(cache_k.dtype)
     cache_v[start:start + T_new] = v_new.transpose(0, 1).to(cache_v.dtype)
     return cache_k, cache_v
@@ -107,7 +145,7 @@ def attention(
     causal: bool = True,
     use_flash: Optional[bool] = None,
     decode_emit: bool = False,
-    cache_scales=None,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # per-layer [T_max, B, KV]
     prefix_kv=None,
     ring=None,
 ):
@@ -123,10 +161,11 @@ def attention(
         exclude the current slot) plus an explicit self-term, and returns
         the fresh (k, v) for the caller to commit.
 
+    cache_scales: the int8 cache's per-layer (k_scale, v_scale); they scale
+    the f32 scores and the probabilities (`layers.py:236-258, 360-388`).
+
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
-    if cache_scales is not None:
-        raise NotImplementedError("the int8 KV cache comes with the quantization slice")
     if prefix_kv is not None:
         raise NotImplementedError("prefix-tuning KV comes with the PEFT slice")
     if ring is not None:
@@ -149,18 +188,24 @@ def attention(
         self_score = torch.einsum(
             "bkgd,bkd->bkg", qg, k.reshape(B, KV, Dh).to(qg.dtype)).float() * scale
         s = torch.einsum("sbkd,bkgd->sbkg", k_all.to(qg.dtype), qg).float() * scale
+        if cache_scales is not None:
+            s = s * cache_scales[0][..., None]
         valid = kv_valid_mask > 0                             # [B, T_kv]
         s = torch.where(valid.t()[:, :, None, None], s, torch.full_like(s, NEG_INF))
         all_s = torch.cat([s, self_score[None]], dim=0)
         probs = torch.softmax(all_s, dim=0).to(x.dtype)
         T_kv = k_all.shape[0]
-        o = torch.einsum("sbkg,sbkd->bkgd", probs[:T_kv], v_all.to(x.dtype))
+        pv = probs[:T_kv]
+        if cache_scales is not None:
+            pv = pv * cache_scales[1][..., None].to(pv.dtype)
+        o = torch.einsum("sbkg,sbkd->bkgd", pv, v_all.to(x.dtype))
         o = o + probs[T_kv][..., None] * v.reshape(B, KV, 1, Dh).to(x.dtype)
         out = proj_matmul(o.reshape(B, 1, H * Dh), params["o_proj"])
         return out, (k, v)
 
     if cache_kv is not None:
-        k_all, v_all = update_cache_slice(cache_kv[0], cache_kv[1], k, v, cache_position)
+        k_all, v_all = update_cache_slice(cache_kv[0], cache_kv[1], k, v, cache_position,
+                                          *(cache_scales or (None, None)))
         cache_kv = (k_all, v_all)
     else:
         k_all, v_all = k, v
@@ -186,6 +231,8 @@ def attention(
     T_kv = k_all.shape[1] if cache_kv is None else k_all.shape[0]
     qg = q.reshape(B, T, KV, groups, Dh)
     scores = torch.einsum(f"btkgd,{kv_spec}->bkgts", qg, k_all.to(qg.dtype)).float() * scale
+    if cache_kv is not None and cache_scales is not None:
+        scores = scores * cache_scales[0].permute(1, 2, 0)[:, :, None, None, :]
     neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
     if kv_valid_mask is not None:
         scores = torch.where(kv_valid_mask[:, None, None, None, :] > 0, scores, neg)
@@ -197,6 +244,8 @@ def attention(
     if causal and (cache_kv is None or T > 1):
         scores = torch.where(key_pos <= q_pos, scores, neg)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    if cache_kv is not None and cache_scales is not None:
+        probs = probs * cache_scales[1].permute(1, 2, 0)[:, :, None, None, :].to(probs.dtype)
     out = torch.einsum(f"bkgts,{kv_spec}->btkgd", probs, v_all.to(x.dtype)).reshape(B, T, H * Dh)
     return proj_matmul(out, params["o_proj"]), cache_kv
 

@@ -29,7 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TextMoEConfig, UniMoEAudioConfig
 from ..moe.block import dcmoe_block, init_dcmoe_params
 from ..ops.quant import matmul
-from .layers import KVCache, attention, compute_mrope, init_attention_params, rms_norm
+from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
+                     rms_norm)
 
 
 class TextModelOutput(NamedTuple):
@@ -37,6 +38,7 @@ class TextModelOutput(NamedTuple):
     kv_cache: Optional[KVCache]
     aux_loss: torch.Tensor                    # [L]
     router_top_k: torch.Tensor                # [L, S]
+    moe_inputs: Optional[torch.Tensor] = None  # [L, B, T, D] f32 (output_moe_inputs)
 
 
 def fold_seed(seed: int, n: int) -> int:
@@ -64,6 +66,7 @@ def text_model_forward(
     use_flash: Optional[bool] = None,
     dispatch_mode: str = "dense",
     capacity: Optional[int] = None,
+    output_moe_inputs: bool = False,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
     the final RMSNorm (`model.py:55-266`).
@@ -79,6 +82,11 @@ def text_model_forward(
     (`torch.utils.checkpoint`, non-reentrant), as `jax.checkpoint(layer_fn)`
     does, and the recompute draws the same jitter from the same seed.
     `dispatch_mode` and `capacity` go to every layer's DCMoE block.
+
+    An int8 cache (`kv_cache.quantized`) quantizes on write, the decode
+    commit included (`model.py:225-241`).  `output_moe_inputs` returns each
+    layer's DCMoE block input (the post-attention RMSNorm output) in f32,
+    the calibration statistic of GPTQ (`model.py:193-197`).
     """
     if cfg.has_sliding_layers:
         raise NotImplementedError("sliding-window layers are not ported yet")
@@ -89,6 +97,7 @@ def text_model_forward(
         raise NotImplementedError("remat is for the no-cache (training) path")
     decode_emit = (use_cache and T == 1 and cache_position is not None
                    and kv_valid_mask is not None)
+    quantized = use_cache and kv_cache.quantized
     layer_mask = kv_valid_mask
     if decode_emit:
         slots = torch.arange(kv_cache.k.shape[1], device=kv_valid_mask.device)
@@ -100,6 +109,7 @@ def text_model_forward(
         attn_out, new_kv = attention(
             lp["attn"], hn, cos, sin, cfg,
             cache_kv=(kv_cache.k[i], kv_cache.v[i]) if use_cache else None,
+            cache_scales=(kv_cache.k_scale[i], kv_cache.v_scale[i]) if quantized else None,
             cache_position=cache_position,
             kv_valid_mask=layer_mask,
             use_flash=use_flash,
@@ -107,8 +117,13 @@ def text_model_forward(
         )
         if decode_emit:
             # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot).
-            kv_cache.k[i, cache_position] = new_kv[0][:, 0].to(kv_cache.k.dtype)
-            kv_cache.v[i, cache_position] = new_kv[1][:, 0].to(kv_cache.v.dtype)
+            k_new, v_new = new_kv[0][:, 0], new_kv[1][:, 0]
+            if quantized:
+                (k_new, k_s), (v_new, v_s) = quantize_kv(k_new), quantize_kv(v_new)
+                kv_cache.k_scale[i, cache_position] = k_s
+                kv_cache.v_scale[i, cache_position] = v_s
+            kv_cache.k[i, cache_position] = k_new.to(kv_cache.k.dtype)
+            kv_cache.v[i, cache_position] = v_new.to(kv_cache.v.dtype)
         h = residual + attn_out
         residual = h
         hn = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
@@ -117,21 +132,24 @@ def text_model_forward(
             aux_balance_weight=aux_balance_weight, training=training,
             seed=fold_seed(seed, i) if training and seed is not None else None,
             dispatch_mode=dispatch_mode, capacity=capacity)
-        return residual + moe_out.hidden_states, moe_out.aux_loss, moe_out.router_top_k
+        moe_in = hn.float() if output_moe_inputs else None
+        return residual + moe_out.hidden_states, moe_out.aux_loss, moe_out.router_top_k, moe_in
 
     h = inputs_embeds
-    aux, top_k = [], []
+    aux, top_k, moe_inputs = [], [], []
     for i, lp in enumerate(params["layers"]):
         if remat and torch.is_grad_enabled():
-            h, aux_i, top_k_i = checkpoint(layer, i, lp, h, use_reentrant=False)
+            h, aux_i, top_k_i, moe_in = checkpoint(layer, i, lp, h, use_reentrant=False)
         else:
-            h, aux_i, top_k_i = layer(i, lp, h)
+            h, aux_i, top_k_i, moe_in = layer(i, lp, h)
         aux.append(aux_i)
         top_k.append(top_k_i)
+        moe_inputs.append(moe_in)
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     return TextModelOutput(
         last_hidden_state=h, kv_cache=kv_cache,
-        aux_loss=torch.stack(aux), router_top_k=torch.stack(top_k))
+        aux_loss=torch.stack(aux), router_top_k=torch.stack(top_k),
+        moe_inputs=torch.stack(moe_inputs) if output_moe_inputs else None)
 
 
 def codec_embedding(params: Dict, codec_input_ids: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@ un-jittered hidden states) and the `aux_balance_weight` emphasis of the
 load-balancing loss; the mixer stays the closed-form eval mixer, as in the
 JAX package with `ignore_differentiable_router=True`.  `token_drop` caps
 each expert at `expert_capacity` tokens by router logit or by position.
-The Gumbel mixer, a8 expert compute (the quantization slice) and the ep
-dispatch mode (the parallel slice) raise here.
+An `_a8` suffix on the dispatch mode (`dense_a8`, `packed_a8`) runs the
+dynamic and the fixed experts in int8 (serving only).  The Gumbel mixer and
+the ep dispatch mode (the parallel slice) raise here.
 """
 
 from __future__ import annotations
@@ -62,18 +63,19 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     """Forward of the DCMoE block (`block.py:42-236`).  `seed` (training
     with input jitter) takes the place of the JAX package's rng key;
     aux_balance_weight [B, T] weights tokens in the load-balancing loss.
-    dispatch_mode: 'dense' | 'packed' | 'gmm'; capacity is the packed
-    path's per-expert slot count (None = S), assignment_budget the gmm
-    path's total row count (None = every slot)."""
-    if dispatch_mode.endswith("_a8"):
+    dispatch_mode: 'dense' | 'packed' | 'gmm', or 'dense_a8' | 'packed_a8'
+    (`block.py:64-80`: int8 expert products, with per-channel QTensor
+    weights; serving only); capacity is the packed path's per-expert slot
+    count (None = S), assignment_budget the gmm path's total row count
+    (None = every slot)."""
+    a8 = dispatch_mode.endswith("_a8")
+    if a8:
+        dispatch_mode = dispatch_mode[:-len("_a8")]
         if training:
             raise ValueError("a8 expert compute is serving-only (round() is not "
                              "differentiable); drop the _a8 suffix for training")
-        if dispatch_mode == "gmm_a8":
+        if dispatch_mode == "gmm":
             raise ValueError("gmm dispatch has no a8 variant (the grouped kernels are bf16)")
-        raise NotImplementedError(
-            f"dispatch_mode={dispatch_mode!r}: a8 expert compute comes with the quantization "
-            "slice")
     if dispatch_mode == "ep":
         raise NotImplementedError("dispatch_mode='ep' comes with the parallel slice")
     if dispatch_mode not in ("dense", "packed", "gmm"):
@@ -161,10 +163,10 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     gw = global_weight.to(x_orig.dtype)
     real_mask, real_w = expert_mask[:, :E_real], gw[:, :E_real]
     if dispatch_mode == "dense":
-        out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"])
+        out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"], a8=a8)
     elif dispatch_mode == "packed":
         out = D.moe_ffn_packed(x_orig, real_mask, real_w, params["dynamic"],
-                               capacity if capacity is not None else S)
+                               capacity if capacity is not None else S, a8=a8)
     else:
         # The budget counts (token, expert) assignments in all, a different
         # unit from the per-expert `capacity`.
@@ -173,7 +175,7 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
 
     if cfg.mlp_fixed_expert_num > 0:
         x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)
-        y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"])      # [nF, S, D]
+        y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"], a8=a8)   # [nF, S, D]
         w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
         out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
 

@@ -1,5 +1,5 @@
 """Expert dispatch and compute for DCMoE — counterpart of
-`unimoe_audio_tpu/moe/dispatch.py` (plain-weight branches):
+`unimoe_audio_tpu/moe/dispatch.py`:
 
   * dense  — every expert on every token, combined by the routing weight;
   * packed — each expert's selected tokens packed into an [E, cap, D] block
@@ -10,8 +10,10 @@
              one grouped matrix product per projection, the hand-written
              CUDA kernels of `ops/grouped_gemm.py` on the card.
 
-Expert parallelism (`moe_ffn_ep`) comes with the parallel slice, a8 and
-quantized weights with the quantization slice; both raise here.
+Weights are plain tensors or `QTensor`s (`ops/quant.py`).  With `a8=True`
+and per-channel QTensor weights the dense and packed paths run the expert
+products in int8 (`swiglu_expert_ffn`).  Expert parallelism (`moe_ffn_ep`)
+comes with the parallel slice and raises here.
 
 Stacked expert layout as in the JAX package:
   params = {"gate": [E, D, F], "up": [E, D, F], "down": [E, F, D]}
@@ -25,23 +27,81 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.grouped_gemm import grouped_matmul
-from ..ops.quant import _plain, expert_einsum, wshape
+from ..ops.quant import (QTensor, act_quant_int8, dequantize, expert_einsum, is_kmajor, qvalues,
+                         wshape)
 
 
-def swiglu_expert_ffn(x_ecd: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Batched per-expert SwiGLU FFN: [E, C, D] → [E, C, D]."""
+def _a8_eligible(params: Dict) -> bool:
+    """a8 needs per-channel QTensor weights on all three projections
+    (`dispatch.py:35-43`)."""
+    return all(isinstance(params[k], QTensor) and params[k].s.shape[-2] == 1
+               for k in ("gate", "up", "down"))
+
+
+def int8_expert_matmul(qx: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Exact int32 products qx[e] @ q[e]: qx int8 [E, C, K], w a QTensor
+    [E, K, N] → int32 [E, C, N] — the JAX package's
+    `einsum(..., preferred_element_type=int32)`.  One `torch._int_mm` per
+    expert (it has no batched form).  On CUDA it takes more than 16 rows and
+    K, N multiples of 8: the rows are padded with zero rows (q = 0, so the
+    padding is exact) to at least 24 and a multiple of 8; a K or N it does
+    not take raises there, and so does a weight that is not K-major
+    (`ops/quant.kmajor`: a row-major one ran 3-6 x slower on an H100 80GB
+    HBM3 at 700 W, or not at all).
+    Counts its `_int_mm` calls in `int8_expert_matmul.calls`."""
+    wq = qvalues(w)
+    if qx.is_cuda and not is_kmajor(wq):
+        raise ValueError("int8 expert weights must be K-major on CUDA "
+                         "(ops.quant.kmajor_experts); got strides " + str(wq.stride()))
+    E, C, _ = qx.shape
+    rows = C if C > 16 and C % 8 == 0 else max(24, -(-C // 8) * 8)
+    if rows != C:
+        qx = F.pad(qx, (0, 0, 0, rows - C))
+    out = torch.empty(E, rows, wq.shape[-1], dtype=torch.int32, device=qx.device)
+    for e in range(E):
+        torch._int_mm(qx[e], wq[e], out=out[e])
+    int8_expert_matmul.calls += E
+    return out[:, :C]
+
+
+int8_expert_matmul.calls = 0
+
+
+def swiglu_expert_ffn(x_ecd: torch.Tensor, params: Dict, *, a8: bool = False) -> torch.Tensor:
+    """Batched per-expert SwiGLU FFN: [E, C, D] → [E, C, D].
+
+    a8 with per-channel QTensor weights (`dispatch.py:70-84`): activations
+    quantized per row to int8, int8 x int8 → int32 products, the rank-1
+    rescale (row scale x channel scale, that product formed first), g and u
+    cast to x's dtype before silu(g)·u, h quantized again for the down
+    projection.  Any other weights take the plain expression, as in the JAX
+    package.  `swiglu_expert_ffn.a8_calls` counts the a8 branch."""
+    if a8 and _a8_eligible(params):
+        swiglu_expert_ffn.a8_calls += 1
+        q, s = act_quant_int8(x_ecd)
+
+        def proj(qx, sx, w):
+            return int8_expert_matmul(qx, w).float() * (sx * w.s.float())
+
+        g = proj(q, s, params["gate"]).to(x_ecd.dtype)
+        u = proj(q, s, params["up"]).to(x_ecd.dtype)
+        hq, hs = act_quant_int8(F.silu(g) * u)
+        return proj(hq, hs, params["down"]).to(x_ecd.dtype)
     g = expert_einsum("ecd,edf->ecf", x_ecd, params["gate"])
     u = expert_einsum("ecd,edf->ecf", x_ecd, params["up"])
     return expert_einsum("ecf,efd->ecd", F.silu(g) * u, params["down"])
 
 
+swiglu_expert_ffn.a8_calls = 0
+
+
 def moe_ffn_dense(hidden: torch.Tensor, expert_mask: torch.Tensor,
-                  router_weight: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  router_weight: torch.Tensor, params: Dict, *, a8: bool = False) -> torch.Tensor:
     """Every expert on every token, combined by weight:
     out[s] = Σ_e (w[s, e]·mask[s, e]) · FFN_e(hidden[s])."""
     w = router_weight * expert_mask.to(router_weight.dtype)       # [S, E]
     x = hidden[None].expand(wshape(params["gate"])[0], *hidden.shape)
-    y = swiglu_expert_ffn(x, params)                              # [E, S, D]
+    y = swiglu_expert_ffn(x, params, a8=a8)                       # [E, S, D]
     return (y * w.t()[:, :, None].to(y.dtype)).sum(dim=0)
 
 
@@ -94,8 +154,8 @@ def _dispatch_onehot(expert_mask: torch.Tensor, capacity: int
 
 
 def moe_ffn_packed(hidden: torch.Tensor, expert_mask: torch.Tensor,
-                   router_weight: torch.Tensor, params: Dict[str, torch.Tensor],
-                   capacity: int) -> torch.Tensor:
+                   router_weight: torch.Tensor, params: Dict,
+                   capacity: int, *, a8: bool = False) -> torch.Tensor:
     """Pack → batched expert FFN → weighted combine (`dispatch.py:197-222`).
     One-hot matmuls when S·E·cap fits `_ONEHOT_BUDGET` (decode shapes), the
     argsort pack and gather otherwise; the same slots either way.  Tokens
@@ -104,12 +164,12 @@ def moe_ffn_packed(hidden: torch.Tensor, expert_mask: torch.Tensor,
     if S * E * capacity <= _ONEHOT_BUDGET:
         oh, _ = _dispatch_onehot(expert_mask, capacity)
         packed = torch.einsum("sec,sd->ecd", oh.to(hidden.dtype), hidden)
-        y = swiglu_expert_ffn(packed, params)                      # [E, cap, D]
+        y = swiglu_expert_ffn(packed, params, a8=a8)               # [E, cap, D]
         w = router_weight * expert_mask.to(router_weight.dtype)
         cw = oh.to(y.dtype) * w[:, :, None].to(y.dtype)
         return torch.einsum("sec,ecd->sd", cw, y)
     packed, _, pos = pack_by_expert(hidden, expert_mask, capacity)
-    y = swiglu_expert_ffn(packed.to(hidden.dtype), params)
+    y = swiglu_expert_ffn(packed.to(hidden.dtype), params, a8=a8)
     return combine_from_packed(y, pos, expert_mask, router_weight)
 
 
@@ -130,7 +190,7 @@ def gmm_group_sizes(expert_mask: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def moe_ffn_gmm(hidden: torch.Tensor, expert_mask: torch.Tensor, router_weight: torch.Tensor,
-                params: Dict[str, torch.Tensor], *,
+                params: Dict, *,
                 assignment_budget: Optional[int] = None) -> torch.Tensor:
     """Grouped-GEMM path (`dispatch.py:274-371`): the (token, expert) slots
     flattened expert-major and stably sorted selected-first, so each
@@ -142,6 +202,11 @@ def moe_ffn_gmm(hidden: torch.Tensor, expert_mask: torch.Tensor, router_weight: 
     below the selected count drops the highest experts' last assignments.
     Rows of unselected slots and padding are zero and belong to the last
     group, so every row is computed (zero in, zero out).
+
+    QTensor weights (`dispatch.py:330-344`): per-channel, the grouped
+    product reads q in x's dtype and each row takes its expert's scales
+    after it (through `slot_expert`); group-wise, the weights are
+    dequantized first.
 
     On the card the whole path stays there: group sizes are computed and
     read on the device, never on the host.  The combine is a sum over the
@@ -169,12 +234,23 @@ def moe_ffn_gmm(hidden: torch.Tensor, expert_mask: torch.Tensor, router_weight: 
     group_sizes = gmm_group_sizes(expert_mask, A)
 
     def w(name):
-        return _plain(params[name]).to(hidden.dtype)
+        p = params[name]
+        if isinstance(p, QTensor):
+            if p.s.shape[-2] > 1:
+                return dequantize(p, hidden.dtype).contiguous()
+            return qvalues(p).to(hidden.dtype).contiguous()     # K4 reads row-major weights
+        return p.to(hidden.dtype)
 
-    g = grouped_matmul(x_rows, w("gate"), group_sizes)             # [A, F] f32
-    u = grouped_matmul(x_rows, w("up"), group_sizes)
+    def scale(name, y):
+        p = params[name]
+        if isinstance(p, QTensor) and p.s.shape[-2] == 1:
+            return y * p.s[slot_expert, 0].to(y.dtype)
+        return y
+
+    g = scale("gate", grouped_matmul(x_rows, w("gate"), group_sizes))     # [A, F] f32
+    u = scale("up", grouped_matmul(x_rows, w("up"), group_sizes))
     h = (F.silu(g) * u).to(hidden.dtype)
-    y = grouped_matmul(h, w("down"), group_sizes)                  # [A, D] f32
+    y = scale("down", grouped_matmul(h, w("down"), group_sizes))          # [A, D] f32
 
     w_rows = router_weight[slot_token, slot_expert] * \
         expert_mask[slot_token, slot_expert].to(router_weight.dtype)
