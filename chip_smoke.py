@@ -31,6 +31,17 @@ failure:
      that the prompt buckets to 128 tokens (so the prefill takes the flash
      kernel), through `generate_chunked`; then repeated short calls for the
      prefill's spread;
+   - voice-clone text to speech: `UniMoEAudio.text_to_speech` on the same
+     model, four sentences in the voice of a 3 s two-tone wav at 22,050 Hz
+     (read, resampled, encoded by the DAC; its codes fill the prompt's
+     placeholder slots, so the prompt buckets to 256 tokens and the prefill
+     takes K1 at a new shape); then K1 at that prefill's shape against its
+     plain version, and two reference checks, card vs CPU: the DAC encode
+     of the prompt (share of equal codes) and a 2-layer flagship-width f32
+     voice-clone prefill (codec logits);
+   - streaming: `UniMoEAudio.text_to_music_stream` on the same model, 2 s
+     in chunks of 25 frames (time to the first chunk's audio), and greedy
+     `generate_stream` against one `generate` call (equal frames);
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
@@ -53,7 +64,11 @@ failure:
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take (K1 also
    at the training shape, against SDPA with a boolean mask and with
-   is_causal=True; K4t with the step's bf16 dy and with an f32 dy).
+   is_causal=True; K4t with the step's bf16 dy and with an f32 dy): CUDA
+   events over back-to-back calls, and for the kernels and the library
+   calls also the replay of a CUDA graph of the calls, each after a write
+   that flushes the L2 (`graph_ms`).  A reading that implies more than
+   105 % of the card's peak bf16 FLOP rate or memory rate fails the run.
 
 The serving path runs after the small-shape checks and before any
 training-shape work; the training-shape checks follow it.
@@ -81,6 +96,13 @@ import numpy as np
 # its bytes over the first and its operations over the second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# A kernel or library reading implying more than this share of either peak
+# is a fault of the measurement, and fails the run.
+RATE_LIMIT = 1.05
+# Graph timing: a write of twice the H100's 50 MB L2 before each call, and
+# the best of this many replays.
+L2_FLUSH_BYTES = 2 * 50 * 2 ** 20
+GRAPH_REPLAYS = 3
 
 # Flash kernel vs plain version in bf16: both round P to bf16 at different
 # points and accumulate in different orders.
@@ -161,6 +183,30 @@ GPTQ_LAYERS = 4
 # than the flagship's largest delay, 18, so every stream has frames).
 SNAPSHOT_FRAMES = 24
 
+# Voice-clone TTS on the flagship: a TTS_PROMPT_SECONDS two-tone reference
+# wav at TTS_PROMPT_SR (150 codec frames, so the prompt buckets to 256
+# tokens), four target sentences, cfg_scale 1.0 (the TTS default),
+# TTS_SECONDS of audio at most.
+TTS_PROMPT_SECONDS = 3.0
+TTS_PROMPT_SR = 22050
+TTS_SECONDS = 5
+TTS_PROMPT_TEXT = "The quick brown fox jumps over the lazy dog near the river bank."
+TTS_SENTENCES = [
+    "Good morning.",
+    "The weather today is calm and clear across the whole valley.",
+    "Please remember to bring the blue folder to the meeting this afternoon.",
+    "She walked slowly along the quiet beach while the sun set behind the hills and gulls "
+    "circled overhead.",
+]
+# The DAC encode of the prompt, card vs CPU: the least share of equal codes.
+DAC_ENCODE_EQUAL_SHARE = 0.99
+# The 2-layer f32 voice-clone prefill, card vs CPU: the exact f32 path's
+# limit of the quantized reference check (summation order only).
+VOICE_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
+# Streaming T2M: 2 s at most, in chunks of 25 frames.
+STREAM_FRAMES = 100
+STREAM_CHUNK = 25
+
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
 
@@ -208,23 +254,67 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_device_ms(fn, iters: int):
-    """Device time per call of fn under torch.profiler: the sum of the
-    kernels it launches, without the gaps between launches that a CUDA-event
-    mean includes when the host enqueues slower than the card runs.  None
-    when the profiler records no device time."""
+def graph_ms(fn, iters: int):
+    """Device time per call of fn, from CUDA events around the replay of a
+    CUDA graph that holds `iters` calls, each after a write of
+    L2_FLUSH_BYTES (so every call finds the L2 cold, as its caller would
+    in a forward pass); the replay time of a graph of the writes alone is
+    subtracted.  A replay has no host gaps between the launches and no
+    profiler windows.  The best of GRAPH_REPLAYS replays of each graph.
+    None, with the reason printed, when fn cannot be captured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):                  # warm-up outside the capture
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3 if us else None
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs = []
+        for with_fn in (True, False):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(iters):
+                    flush.zero_()
+                    if with_fn:
+                        fn()
+            graphs.append(g)
+    except Exception as e:                              # noqa: BLE001 — reported, not hidden
+        print(f"graph timing: capture failed ({type(e).__name__}: {e}); not measured",
+              flush=True)
+        return None
+    best = []
+    for g in graphs:
+        g.replay()
+        times = []
+        for _ in range(GRAPH_REPLAYS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        best.append(min(times))
+    del graphs
+    return (best[0] - best[1]) / iters
+
+
+def check_rate(label: str, ms, nbytes: float, flops: float) -> None:
+    """Fail when a reading of ms for a call that must move nbytes and do
+    flops (bf16) implies more than RATE_LIMIT x the card's peak rate of
+    either: such a reading is a fault of the measurement."""
+    if ms is None:
+        return
+    check(ms > 0, f"{label}: reading {ms} ms is not positive")
+    check(flops / (ms * 1e-3) <= RATE_LIMIT * PEAK_BF16_FLOPS
+          and nbytes / (ms * 1e-3) <= RATE_LIMIT * PEAK_BYTES_PER_S,
+          f"{label}: {ms:.4f} ms for {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.2f} MB is "
+          f"{flops / ms / 1e9:.1f} TFLOP/s and {nbytes / ms / 1e9:.3f} TB/s, above "
+          f"{RATE_LIMIT:.0%} of the peak ({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
 
 
 def flash_inputs(B, H, KV, T, S, Dh, valid, seed):
@@ -730,13 +820,239 @@ def run_slice(card: str, out_dir: str):
     ids, mask = model._tokenize(prompts)
     reps = []
     for i in range(PREFILL_REPEATS):
-        model._generate_core(ids, mask, "prefill", out_dir, cfg_scale=10.0, seed=3 + i,
-                             max_tokens=30, min_tokens=15)
+        model._generate_core(ids, mask, None, "prefill", output_dir=out_dir, cfg_scale=10.0,
+                             seed=3 + i, max_tokens=30, min_tokens=15)
         reps.append(model.last_timings["prefill_s"] * 1e3)
     print(f"slice: prefill repeated {PREFILL_REPEATS} x (ms): "
           f"{', '.join(f'{x:.2f}' for x in reps)}; median {float(np.median(reps)):.2f}  "
           f"[{card}]", flush=True)
     return model, prompts, launches
+
+
+def _two_tone_wav(path: str, seconds: float, sr: int) -> None:
+    """A voice-prompt stand-in: two tones, written as 16-bit PCM."""
+    from unimoe_audio_torch.codec import audio_io
+
+    t = np.arange(int(seconds * sr)) / sr
+    audio_io.write_wav(path, 0.3 * np.sin(2 * np.pi * 220 * t)
+                       + 0.2 * np.sin(2 * np.pi * 331 * t), sr)
+
+
+def run_tts(model, card: str, out_dir: str):
+    """Voice-clone TTS through `UniMoEAudio.text_to_speech` on the flagship
+    model of the T2M phase: a TTS_PROMPT_SECONDS reference wav at
+    TTS_PROMPT_SR (read, resampled to 16 kHz, encoded by the DAC), its
+    codes scattered into the prompt's placeholder slots, the CFG-paired
+    prefill through K1, the decode and the wavs.  Checks 36 K1 launches in
+    the one prefill, the prompt bucket, every wav (its length and finite
+    audio); then K1 at this prefill's shape and the two reference checks
+    against the CPU.  Returns (launch counts, K1's record at this shape)."""
+    import torch
+
+    tc = model.config.text_config
+    wav = os.path.join(out_dir, "voice_prompt.wav")
+    _two_tone_wav(wav, TTS_PROMPT_SECONDS, TTS_PROMPT_SR)
+    kw = dict(prompt_text=TTS_PROMPT_TEXT, prompt_wav=wav, output_dir=out_dir, cfg_scale=1.0)
+    model.text_to_speech(TTS_SENTENCES, save_name="tts_warmup", seed=1, max_audio_seconds=0.5,
+                         **kw)
+    captured = {}
+    core = model._generate_core
+
+    def capture(ids, mask, codec, *a, **k):
+        captured.update(ids=ids, mask=mask, codec=codec)
+        return core(ids, mask, codec, *a, **k)
+
+    model._generate_core = capture
+    _zero_launch_counts()
+    try:
+        paths = model.text_to_speech(TTS_SENTENCES, seed=0, max_audio_seconds=TTS_SECONDS, **kw)
+    finally:
+        del model._generate_core
+    launches = _launch_counts()
+    t = model.last_timings
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers,
+          f"TTS: flash launches {launches['flash_attention_fwd']} != {tc.num_hidden_layers} "
+          "(one per layer in the one prefill)")
+    check(launches["flash_attention_bwd_dq"] == launches["flash_attention_bwd_dkv"] == 0,
+          f"TTS launched a backward kernel: {launches}")
+    ids, mask = captured["ids"], captured["mask"]
+    n_ph = int((ids == model.config.codec_placeholder_value).sum())
+    check(ids.shape == (2 * len(TTS_SENTENCES), t["T_text"]) and 128 < t["T_text"] <= 256,
+          f"TTS prompt shape {ids.shape}: not 8 rows in the 192-256 buckets")
+    check(n_ph == captured["codec"].shape[0] and n_ph > 0, "TTS: placeholder count")
+    check(len(paths) == len(TTS_SENTENCES), "TTS: one wav per sentence")
+    hop, sr = model.dac.config.hop_length, model.dac.config.sample_rate
+    max_frames = int(TTS_SECONDS * 50)
+    for p, n, c in zip(paths, t["lengths"], model.last_codes):
+        check(os.path.isfile(p), f"missing wav {p}")
+        check(0 < n <= max_frames and c.shape == (n, model.config.codec_channels),
+              f"TTS: {n} frames, codes {c.shape}")
+        with wave.open(p) as f:
+            check(f.getnframes() == max(n * hop, sr),
+                  f"{p}: {f.getnframes()} samples for {n} frames")
+        audio = model.dac.decode_array(np.clip(c, 0, model.dac.config.codebook_size - 1).T[None])
+        check(bool(np.isfinite(audio).all()), f"{p}: the waveform is not finite")
+    audio_s = sum(t["lengths"]) / 50.0
+    gen_s = t["dac_encode_s"] + t["prefill_s"] + t["decode_s"] + t["dac_s"]
+    print(f"tts [{card}]: {len(TTS_SENTENCES)} sentences (8 CFG rows), prompt "
+          f"{TTS_PROMPT_SECONDS} s at {TTS_PROMPT_SR} Hz -> {n_ph // len(ids)} placeholder rows a "
+          f"CFG row, T_text {t['T_text']}, left pads {[int((m == 0).sum()) for m in mask]}; "
+          f"{t['steps']} decode steps, frames {t['lengths']}; flash launches "
+          f"{launches['flash_attention_fwd']}", flush=True)
+    print(f"tts [{card}]: DAC encode {t['dac_encode_s'] * 1e3:.2f} ms; prefill "
+          f"{t['prefill_s'] * 1e3:.2f} ms; decode {t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame; "
+          f"DAC decode {t['dac_s'] * 1e3:.1f} ms; realtime factor {audio_s / gen_s:.3f} "
+          f"({audio_s:.2f} s of audio in {gen_s:.2f} s, encode + prefill + decode + DAC decode)",
+          flush=True)
+    rec = time_flash(tc, mask, launches, card, "TTS")
+    check_dac_encode_reference(model, wav, card)
+    check_voice_clone_reference(model.config, ids, mask, captured["codec"], card)
+    return launches, rec
+
+
+def check_dac_encode_reference(model, wav: str, card: str) -> None:
+    """The 16 kHz DAC's encode of the voice prompt on the card vs on the
+    CPU with the same (card-made) weights: the share of equal codes.  A
+    near tie of the codebook search can be decided otherwise, and changes
+    every later codebook of that frame."""
+    import torch
+    from unimoe_audio_torch.codec.dac_wrapper import Dac
+
+    cpu = Dac(allow_random=True, config=model.dac.config, device="cpu")
+    cpu.params = _to(model.dac.params, device="cpu")
+    got = np.asarray(model.dac.encode(wav))
+    want = np.asarray(cpu.encode(wav))
+    check(got.shape == want.shape, f"DAC encode shapes {got.shape} vs {want.shape}")
+    share = float((got == want).mean())
+    frames = np.flatnonzero((got != want).any(-1))
+    print(f"reference check [{card}]: DAC encode of the {TTS_PROMPT_SECONDS} s prompt "
+          f"({got.shape[0]} frames x {got.shape[1]} codebooks), card vs CPU: {share:.5f} of the "
+          f"codes equal, {len(frames)} frames differ {frames[:8].tolist()} (floor "
+          f"{DAC_ENCODE_EQUAL_SHARE})", flush=True)
+    check(share >= DAC_ENCODE_EQUAL_SHARE, f"DAC encode: only {share} of the codes equal the CPU's")
+    del cpu
+    torch.cuda.empty_cache()
+
+
+def check_voice_clone_reference(flag_cfg, ids, mask, flat_codec, card: str) -> None:
+    """A 2-layer model at flagship width in f32 (weights made on the card,
+    copied to the CPU), the TTS prefill of one CFG pair (the negative row
+    and the first sentence's) with the voice prompt's codes scattered into
+    the placeholder slots, card vs CPU: the codec logits over live rows
+    within VOICE_REF_REL_L2."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import UniMoEAudioConfig
+    from unimoe_audio_torch.models import model as M
+    from unimoe_audio_torch.models.layers import KVCache
+
+    cfg = dataclasses.replace(flag_cfg, text_config=dataclasses.replace(
+        flag_cfg.text_config, num_hidden_layers=2))
+    assert isinstance(cfg, UniMoEAudioConfig)
+    tc = cfg.text_config
+    gpu = M.init_model_params(cfg, seed=3, dtype=torch.float32, device="cuda")
+    cpu = _to(gpu, device="cpu")
+    rows = slice(0, 2)
+    ids, mask = ids[rows], mask[rows]
+    P = flat_codec.shape[0] // (2 * len(TTS_SENTENCES))
+    aligned = M.align_codec_ids(ids, flat_codec[: 2 * P], cfg.codec_placeholder_value)
+    B, T = ids.shape
+    pos = np.where(mask == 0, 1, np.cumsum(mask, -1) - 1)
+    live = torch.as_tensor(mask, dtype=torch.bool)
+
+    def run(device):
+        params = cpu if device == "cpu" else gpu
+        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
+        cache = KVCache.create(tc.num_hidden_layers, B, T + 2, tc.num_key_value_heads,
+                               tc.head_dim, dtype=torch.float32, device=device)
+        emb = M.calculate_input_embedding(params, t(ids), t(aligned), cfg.codec_placeholder_value)
+        kv_valid = np.concatenate([mask, np.zeros((B, 2), mask.dtype)], -1)
+        out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
+                                   kv_cache=cache, cache_position=0,
+                                   kv_valid_mask=t(kv_valid, torch.int32),
+                                   padding_token_mask=t(mask, torch.int32))
+        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+
+    with torch.inference_mode():
+        err = _rel(run("cuda"), run("cpu"))
+    print(f"reference check [{card}]: 2-layer flagship-width voice-clone prefill, f32, one CFG "
+          f"pair of the TTS batch (T {T}, {int((ids == cfg.codec_placeholder_value).sum())} "
+          f"placeholder slots filled with the prompt's codes), card vs CPU, codec logits "
+          f"relative L2 {err:.3e} (limit {VOICE_REF_REL_L2})", flush=True)
+    check(err < VOICE_REF_REL_L2, f"voice-clone prefill, card vs CPU: relative L2 {err}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def run_stream(model, card: str) -> dict:
+    """Streaming T2M through `UniMoEAudio.text_to_music_stream` on the
+    flagship: STREAM_FRAMES frames in chunks of STREAM_CHUNK, the time to
+    the first chunk's audio and the launches (36 K1, one prefill); then
+    `generate_stream` with greedy decoding against one `generate` call at
+    the same cache length: the concatenated frames equal."""
+    import torch
+    from unimoe_audio_torch.api import T2M_NEGATIVE_CAPTION, t2m_prompt
+    from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.generate.loop import generate, pad_buffer
+    from unimoe_audio_torch.generate.streaming import generate_stream
+
+    tc, cfg = model.config.text_config, model.config
+    limits = model.MAX_TOKENS, model.MIN_TOKENS
+    model.MAX_TOKENS = model.MIN_TOKENS = STREAM_FRAMES
+    text = caption(58)
+    try:
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, stamps = [], []
+        for chunk in model.text_to_music_stream(text, chunk_frames=STREAM_CHUNK, seed=0):
+            stamps.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+        launches = _launch_counts()
+    finally:
+        model.MAX_TOKENS, model.MIN_TOKENS = limits
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers,
+          f"stream: flash launches {launches['flash_attention_fwd']} != {tc.num_hidden_layers}")
+    check(chunks[-1]["done"] and len(chunks) >= 3, f"stream: {len(chunks)} chunks")
+    hop = model.dac.config.hop_length
+    for c in chunks:
+        if c["frames"].shape[1]:                   # a closing chunk may carry no frames
+            check(c["audio"].shape == (1, c["frames"].shape[1] * hop)
+                  and bool(np.isfinite(c["audio"]).all()), "stream: chunk audio shape or values")
+    n = sum(c["frames"].shape[1] for c in chunks)
+    print(f"stream [{card}]: text_to_music_stream, {STREAM_FRAMES} frames max in chunks of "
+          f"{STREAM_CHUNK}: {len(chunks)} chunks, {n} frames; time to the first chunk's audio "
+          f"{stamps[0] * 1e3:.1f} ms ({chunks[0]['frames'].shape[1]} frames); chunk times (s) "
+          f"{[round(x, 3) for x in stamps]}; flash launches {launches['flash_attention_fwd']}",
+          flush=True)
+
+    ids, mask = model._tokenize([t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(text)])
+    knobs = dict(max_tokens=STREAM_FRAMES, min_tokens=STREAM_FRAMES, cfg_scale=10.0,
+                 temperature=1.0, top_p=1.0, cfg_filter_top_k=45, eos_prob_mul_factor=0.6,
+                 do_sample=False)
+    counts = _launch_counts()
+    with torch.inference_mode():
+        streamed = np.concatenate([c["frames"] for c in generate_stream(
+            model.params, cfg, ids, mask, None, torch.Generator(device="cuda"),
+            chunk_frames=STREAM_CHUNK, **knobs)], axis=1)
+        prefill, steps = dl.prepare_audio_prompt(
+            [None], num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
+            delay_pattern=cfg.codec_delay_pattern)
+        res = generate(model.params, cfg, torch.as_tensor(ids, device="cuda"),
+                       torch.as_tensor(mask, device="cuda"), None,
+                       pad_buffer(torch.as_tensor(prefill, device="cuda"), STREAM_FRAMES), steps,
+                       torch.Generator(device="cuda"), **knobs)
+    _set_launch_counts(counts)
+    (one,) = dl.generate_output(res.codes.cpu().numpy(), res.lengths.cpu().numpy(),
+                                pad_value=cfg.codec_pad_value,
+                                delay_pattern=cfg.codec_delay_pattern)
+    check(streamed.shape[1] == one.shape[0] > STREAM_CHUNK and np.array_equal(streamed[0], one),
+          f"greedy stream {streamed.shape} differs from one generate call {one.shape}")
+    print(f"stream [{card}]: greedy generate_stream ({STREAM_CHUNK}-frame chunks) equals one "
+          f"generate call at the same cache length: {one.shape[0]} frames x "
+          f"{one.shape[1]} codebooks", flush=True)
+    return launches
 
 
 def _leaves(tree):
@@ -750,15 +1066,16 @@ def _leaves(tree):
         yield tree
 
 
-def time_flash(model, prompts, launches, card):
-    """Kernel, plain version and SDPA at the main path's prefill shape."""
+def time_flash(tc, mask, launches, card, path: str):
+    """K1 checked and timed at a path's prefill shape (its left-padded
+    attention mask [B, T]): kernel, plain version and SDPA, each by CUDA
+    events over back-to-back calls, and kernel and SDPA also by graph replay
+    (`graph_ms`), with the bound."""
     import torch
     import torch.nn.functional as F
     from unimoe_audio_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
 
-    tc = model.config.text_config
-    _, mask = model._tokenize(prompts)                      # the main path's mask
     B, T = mask.shape
     H, KV, Dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     q, k, v, vt = flash_inputs(B, H, KV, T, T, Dh, mask, seed=5)
@@ -769,28 +1086,21 @@ def time_flash(model, prompts, launches, card):
     allowed = allowed_mask(vt, T, T)[:, None]                # [B, 1, T, S]
     count = flash_attention.launches
     ms = cuda_ms(lambda: flash_attention(q, k, v, vt), iters=200)
+    graph = graph_ms(lambda: flash_attention(q, k, v, vt), 50)
     flash_attention.launches = count                          # timing launches are not the path's
-    # The kernel's own device time, from torch.profiler: the CUDA-event mean
-    # above includes the host's path to each launch, longer than this kernel.
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            flash_attention(q, k, v, vt)
-        torch.cuda.synchronize()
-    flash_attention.launches = count
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-          and "flash_fwd_kernel" in e.key]
-    device_ms = (sum(e.self_device_time_total for e in ev) / sum(e.count for e in ev) / 1e3
-                 if ev else None)
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, vt, True), iters=50)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=allowed),
-                         iters=200)
+    sdpa = lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=allowed)   # noqa: E731
+    library_ms = cuda_ms(sdpa, iters=200)
+    library_graph = graph_ms(sdpa, 50)
     pairs = int(allowed_mask(vt, T, T).sum())                 # attended (query, key) pairs
     flops = 4 * Dh * H * pairs                                # QK^T and PV, 2 FLOP per MAC
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 + vt.numel() * 4 \
         + 2 * B * H * T * 4                                   # q k v o bf16, mask, m l f32
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    for label, x in (("kernel", ms), ("kernel, graph", graph), ("sdpa", library_ms),
+                     ("sdpa, graph", library_graph)):
+        check_rate(f"flash_attention_fwd at the {path} prefill shape, {label}", x, nbytes, flops)
     rec = {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -803,13 +1113,18 @@ def time_flash(model, prompts, launches, card):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
-        "device_ms_profiler": device_ms,
+        "device_ms_graph": graph,
+        "library_device_ms_graph": library_graph,
     }
-    print(f"kernel timing [{card}]: flash_attention_fwd B={B} H={H} KV={KV} T=S={T} Dh={Dh}: "
-          f"kernel {ms:.4f} ms (its device time under torch.profiler: "
-          f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}), "
-          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.2f} MB, "
+
+    def g(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    print(f"kernel timing [{card}]: flash_attention_fwd at the {path} prefill shape B={B} H={H} "
+          f"KV={KV} T=S={T} Dh={Dh}, left pads {[int((mask[b] == 0).sum()) for b in range(B)]}: "
+          f"kernel {ms:.4f} ms (graph replay, L2 cold: {g(graph)}), plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms (graph replay: {g(library_graph)}), bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP)", flush=True)
     print(json.dumps({"kernel": rec}), flush=True)
     return rec
@@ -833,6 +1148,9 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
     counts = _launch_counts()
     dq_ms = cuda_ms(lambda: FA.flash_attention_bwd_dq(*args, True), iters=20)
     dkv_ms = cuda_ms(lambda: FA.flash_attention_bwd_dkv(*args, True), iters=20)
+    graph = {"flash_attention_bwd_dq": graph_ms(lambda: FA.flash_attention_bwd_dq(*args, True), 10),
+             "flash_attention_bwd_dkv": graph_ms(
+                 lambda: FA.flash_attention_bwd_dkv(*args, True), 10)}
     _set_launch_counts(counts)
     dq_plain = cuda_ms(lambda: FA.flash_attention_bwd_dq_reference(*args, True), iters=3, warmup=1)
     dkv_plain = cuda_ms(lambda: FA.flash_attention_bwd_dkv_reference(*args, True), iters=3,
@@ -850,6 +1168,11 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
             lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True), iters=10)
         del out
     lib_ms = min(lib_by_form.values())
+    # The SDPA backward computes dq, dk and dv: five products over the pairs.
+    lib_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 * 2
+    for form, x in lib_by_form.items():
+        check_rate(f"sdpa backward ({form}) at the training shape", x, lib_bytes,
+                   2 * Dh * int(allowed_mask(vt, T, T).sum()) * H * 5)
 
     pairs = int(allowed_mask(vt, T, T).sum()) * H           # attended (query, key) pairs
 
@@ -860,7 +1183,7 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
     count = FA.flash_attention.launches
     fwd_ms = cuda_ms(lambda: FA.flash_attention(q, k, v, vt), iters=20)
     FA.flash_attention.launches = count
-    fwd_dev = profiled_device_ms(lambda: FA.flash_attention(q, k, v, vt), 10)
+    fwd_dev = graph_ms(lambda: FA.flash_attention(q, k, v, vt), 10)
     FA.flash_attention.launches = count
     fwd_plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v, vt, True), iters=3, warmup=1)
     with torch.no_grad():
@@ -873,7 +1196,7 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
     fwd_train = {
         "shape": f"B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal",
         "ms": fwd_ms,
-        "device_ms_profiler": fwd_dev,
+        "device_ms_graph": fwd_dev,
         "plain_ms": fwd_plain,
         "bound_ms": max(fwd_t),
         "bound_by": "bytes" if fwd_t[0] >= fwd_t[1] else "operations",
@@ -881,10 +1204,14 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
         "library_ms_attn_mask": sdpa_mask_ms,
         "library_ms_is_causal": sdpa_causal_ms,
     }
+    for label, x in (("kernel", fwd_ms), ("kernel, graph", fwd_dev),
+                     ("sdpa attn_mask", sdpa_mask_ms), ("sdpa is_causal", sdpa_causal_ms)):
+        check_rate(f"flash_attention_fwd at the training shape, {label}", x, fwd_bytes,
+                   4 * Dh * pairs)
     print(f"kernel timing [{card}]: flash_attention_fwd at the training shape B={B} H={H} "
           f"KV={KV} T=S={T} Dh={Dh} causal: kernel {fwd_ms:.4f} ms "
           f"({100 * max(fwd_t) / fwd_ms:.1f} % of the bound, "
-          f"{4 * Dh * pairs / fwd_ms / 1e9:.1f} TFLOP/s; device time under torch.profiler "
+          f"{4 * Dh * pairs / fwd_ms / 1e9:.1f} TFLOP/s; graph replay, L2 cold "
           f"{'not measured' if fwd_dev is None else f'{fwd_dev:.4f} ms'}), plain {fwd_plain:.4f} ms, "
           f"sdpa with attn_mask {sdpa_mask_ms:.4f} ms, sdpa is_causal {sdpa_causal_ms:.4f} ms, "
           f"bound {max(fwd_t):.4f} ms by {fwd_train['bound_by']} ({fwd_bytes / 1e6:.2f} MB, "
@@ -901,6 +1228,8 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
              max(errs["dk"], errs["dv"]))):
         flops = 2 * Dh * pairs * n_products
         nbytes = in_bytes + out_bytes
+        check_rate(f"{name} at the training shape, kernel", ms, nbytes, flops)
+        check_rate(f"{name} at the training shape, kernel, graph", graph[name], nbytes, flops)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         rec = {
@@ -918,9 +1247,13 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
             "library_ms": lib_ms,
             "library_ms_attn_mask": lib_by_form["attn_mask"],
             "library_ms_is_causal": lib_by_form["is_causal"],
+            "device_ms_graph": graph[name],
         }
+        g = graph[name]
         print(f"kernel timing [{card}]: {name} B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa backward (dq, dk, dv) with "
+              f"kernel {ms:.4f} ms (graph replay, L2 cold: "
+              f"{'not measured' if g is None else f'{g:.4f} ms'}), plain {plain:.4f} ms, "
+              f"sdpa backward (dq, dk, dv) with "
               f"attn_mask {lib_by_form['attn_mask']:.4f} ms, is_causal "
               f"{lib_by_form['is_causal']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
               f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, "
@@ -1618,8 +1951,9 @@ def check_snapshot(model, captions, card: str) -> None:
               "snapshot: modes not kept")
         codes = []
         for m in (model, loaded):
-            m._generate_core(ids, mask, "snapshot", d, cfg_scale=10.0, do_sample=False, seed=0,
-                             max_tokens=SNAPSHOT_FRAMES, min_tokens=SNAPSHOT_FRAMES // 2)
+            m._generate_core(ids, mask, None, "snapshot", output_dir=d, cfg_scale=10.0,
+                             do_sample=False, seed=0, max_tokens=SNAPSHOT_FRAMES,
+                             min_tokens=SNAPSHOT_FRAMES // 2)
             codes.append(m.last_codes)
         size_gb = os.path.getsize(path) / 1e9
     check(len(codes[0]) == len(codes[1]) and all(np.array_equal(a, b)
@@ -1841,8 +2175,12 @@ def time_grouped(errs: dict, card: str) -> list:
         lib_fn, lib_label = _grouped_library("gmm", x, w, dy, gs)
         lib_by[key] = cuda_ms(lib_fn, iters=iters)
         bound_by[key] = b[0]
-        dev_by[key] = profiled_device_ms(lambda: GG.gmm(x, w, gs), iters)
-        lib_dev_by[key] = profiled_device_ms(lib_fn, iters)
+        g_iters = 10 if A > 128 else 50
+        dev_by[key] = graph_ms(lambda: GG.gmm(x, w, gs), g_iters)
+        lib_dev_by[key] = graph_ms(lib_fn, g_iters)
+        for label, t in (("kernel", ms_by[key]), ("kernel, graph", dev_by[key]),
+                         (lib_label, lib_by[key]), (f"{lib_label}, graph", lib_dev_by[key])):
+            check_rate(f"grouped_gemm_gmm {key}, {label}", t, b[2], b[3])
         enqueue = {}                        # host time to enqueue one call (no synchronise)
         for label, fn in (("kernel", lambda: GG.gmm(x, w, gs)), ("library", lib_fn)):
             torch.cuda.synchronize()
@@ -1857,8 +2195,8 @@ def time_grouped(errs: dict, card: str) -> list:
 
         print(f"kernel timing [{card}]: grouped_gemm_gmm {key} A={A} K={K} N={N} groups "
               f"{gs.tolist()}, {GG.gmm_config(A)} configuration: kernel {ms_by[key]:.4f} ms "
-              f"({rate(b, ms_by[key])}; device time under torch.profiler {dev(dev_by[key])}), "
-              f"{lib_label} {lib_by[key]:.4f} ms (device time {dev(lib_dev_by[key])}), bound "
+              f"({rate(b, ms_by[key])}; graph replay, L2 cold {dev(dev_by[key])}), "
+              f"{lib_label} {lib_by[key]:.4f} ms (graph replay {dev(lib_dev_by[key])}), bound "
               f"{b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, {b[3] / 1e9:.1f} GFLOP); host "
               f"enqueue per call: kernel {enqueue['kernel']:.4f} ms, library "
               f"{enqueue['library']:.4f} ms", flush=True)
@@ -1890,8 +2228,8 @@ def time_grouped(errs: dict, card: str) -> list:
     # K4t with the bf16 dy the training step gives it, and with an f32 dy
     # (its rounding included), its device time under the profiler.
     k4t_f32_ms = cuda_ms(lambda: GG.gmm(dy, w, gs, transpose_rhs=True), iters=20)
-    k4t_dev = profiled_device_ms(lambda: GG.gmm(dyb, w, gs, transpose_rhs=True), 10)
-    k4t_lib_dev = profiled_device_ms(_grouped_library("gmm_transposed", x, w, dy, gs)[0], 10)
+    k4t_dev = graph_ms(lambda: GG.gmm(dyb, w, gs, transpose_rhs=True), 10)
+    k4t_lib_dev = graph_ms(_grouped_library("gmm_transposed", x, w, dy, gs)[0], 10)
 
     recs = []
     for name, kind, fn, plain, b in (
@@ -1907,6 +2245,8 @@ def time_grouped(errs: dict, card: str) -> list:
         plain_ms = cuda_ms(plain, iters=2, warmup=1)
         lib_fn, lib_label = _grouped_library(kind, x, w, dy, gs)
         lib_ms = cuda_ms(lib_fn, iters=20)
+        check_rate(f"{name} at the training shape, kernel", ms, b[2], b[3])
+        check_rate(f"{name} at the training shape, {lib_label}", lib_ms, b[2], b[3])
         if lib_label.startswith("torch._grouped_mm"):      # the yardstick computes the same
             lib_err = (lib_fn().float() - plain().float()).abs().max().item()
             lib_label += f", max |diff| vs plain {lib_err:.3e}"
@@ -1926,20 +2266,32 @@ def time_grouped(errs: dict, card: str) -> list:
         }
         if kind == "gmm":
             rec.update(ms_by_shape=ms_by, library_ms_by_shape=lib_by, bound_ms_by_shape=bound_by,
-                       device_ms_profiler_by_shape=dev_by,
-                       library_device_ms_profiler_by_shape=lib_dev_by)
+                       device_ms_graph_by_shape=dev_by,
+                       library_device_ms_graph_by_shape=lib_dev_by)
         if kind == "gmm_transposed":
-            rec.update(dy_dtype="bfloat16", ms_f32_dy=k4t_f32_ms, device_ms_profiler=k4t_dev,
-                       library_device_ms_profiler=k4t_lib_dev)
+            rec.update(dy_dtype="bfloat16", ms_f32_dy=k4t_f32_ms, device_ms_graph=k4t_dev,
+                       library_device_ms_graph=k4t_lib_dev)
+            for label, t in (("f32 dy", k4t_f32_ms), ("graph", k4t_dev),
+                             ("library, graph", k4t_lib_dev)):
+                check_rate(f"{name}, {label}", t, b[2], b[3])
             print(f"kernel timing [{card}]: {name}: with an f32 dy (rounded to bf16 before the "
-                  f"launch) {k4t_f32_ms:.4f} ms; device time under torch.profiler, bf16 dy: kernel "
+                  f"launch) {k4t_f32_ms:.4f} ms; graph replay (L2 cold), bf16 dy: kernel "
                   f"{'not measured' if k4t_dev is None else f'{k4t_dev:.4f} ms'}, library "
                   f"{'not measured' if k4t_lib_dev is None else f'{k4t_lib_dev:.4f} ms'}",
                   flush=True)
         if kind == "tgmm":
+            t5 = graph_ms(fn, 10)
+            t5_lib = graph_ms(lib_fn, 10)
+            for label, t in (("graph", t5), ("library, graph", t5_lib)):
+                check_rate(f"{name}, {label}", t, b[2], b[3])
             rec.update(ms_parts={"dy_to_bf16": conv_ms, "main": main_reduce_ms - reduce_ms,
                                  "reduction": reduce_ms},
-                       workspace_bytes=slots * K * N * 4, workspace_bytes_written=used * K * N * 4)
+                       workspace_bytes=slots * K * N * 4, workspace_bytes_written=used * K * N * 4,
+                       device_ms_graph=t5, library_device_ms_graph=t5_lib)
+            print(f"kernel timing [{card}]: {name}: graph replay (L2 cold), f32 dy, its rounding "
+                  f"and the reduction included: kernel "
+                  f"{'not measured' if t5 is None else f'{t5:.4f} ms'}, library "
+                  f"{'not measured' if t5_lib is None else f'{t5_lib:.4f} ms'}", flush=True)
         print(f"kernel timing [{card}]: {name} at the training shape A={A} K={K} N={N}: kernel "
               f"{ms:.4f} ms ({rate(b, ms)}), plain {plain_ms:.4f} ms, library ({lib_label}) "
               f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms by {b[1]} ({b[2] / 1e6:.1f} MB, "
@@ -1960,10 +2312,13 @@ def time_grouped(errs: dict, card: str) -> list:
                    .all()) for (g, _, _), r in zip(split, want)),
           f"tgmm reduction differs from the plain sum of its partials: max err {err}")
     red_plain_ms = cuda_ms(reduce_plain, iters=5, warmup=1)
+    red_bytes = used * K * N * 4 + len(split) * K * N * 2
+    check_rate("grouped_gemm_tgmm_reduce, kernel", reduce_ms, red_bytes, 0)
     red_lib_ms = None
     if len(split) == 1:                       # one torch.sum computes the same sums
         _, f, c = split[0]
         red_lib_ms = cuda_ms(lambda: torch.sum(ws[f:f + c], 0), iters=20)
+        check_rate("grouped_gemm_tgmm_reduce, torch.sum", red_lib_ms, red_bytes, 0)
     b = bound(used * K * N * 4 + len(split) * K * N * 2 + E * 4, 0)    # f32 adds: bytes bound it
     rec = {
         "name": "grouped_gemm_tgmm_reduce",
@@ -2043,8 +2398,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         model, prompts, t2m_launches = run_slice(card, out_dir)
         stamp("dense text_to_music and its repeated prefills")
-        fwd_rec = time_flash(model, prompts, t2m_launches, card)
+        fwd_rec = time_flash(model.config.text_config, model._tokenize(prompts)[1],
+                             t2m_launches, card, "T2M")
         stamp("K1 timing at the T2M prefill shape")
+        tts_launches, tts_rec = run_tts(model, card, out_dir)
+        stamp("TTS, K1 at its prefill shape and the reference checks")
+        stream_launches = run_stream(model, card)
+        stamp("streaming T2M")
         gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
         stamp("gmm serving")
     del model
@@ -2089,7 +2449,8 @@ def main() -> None:
     stamp("grouped GEMM timing")
     # Launches by path (each run counted from 0) and summed over the paths;
     # K1's error is the larger of the checks at the two paths' shapes.
-    paths = {"t2m": t2m_launches, "t2m_gmm": gmm_t2m_launches, **quant_launches,
+    paths = {"t2m": t2m_launches, "tts": tts_launches, "t2m_stream": stream_launches,
+             "t2m_gmm": gmm_t2m_launches, **quant_launches,
              "train": train_launches, "train_gmm": gmm_train_launches}
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
@@ -2103,8 +2464,12 @@ def main() -> None:
                 for c in ("small", "large")}
     check(all(r["launches"] > 0 for r in grouped_recs),
           f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
-    fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"], "train": fwd_train_err}
-    fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err"], fwd_train_err)
+    fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"],
+                                      "tts": tts_rec["max_abs_err"], "train": fwd_train_err}
+    fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err_by_path"].values())
+    fwd_rec["tts_shape"] = {k: tts_rec[k] for k in (
+        "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library_device_ms_graph", "max_abs_err")}
     fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
                                      for p in ("train", "train_gmm")}
     fwd_rec["train_shape"] = fwd_train

@@ -28,6 +28,7 @@ from unimoe_audio_tpu.generate.loop import generate_jit, pad_buffer as j_pad_buf
 from unimoe_audio_tpu.models import model as JM
 from unimoe_audio_tpu.ops import quant as JQ
 from unimoe_audio_torch.api import UniMoEAudio, _bucket, t2m_prompt
+from unimoe_audio_torch.codec.dac_wrapper import Dac
 from unimoe_audio_torch.config import tiny_test_config
 from unimoe_audio_torch.core.bridge import params_from_jax
 from unimoe_audio_torch.generate.loop import generate, pad_buffer
@@ -67,20 +68,35 @@ def test_prompt_bucketing_pads_left():
     assert mask[0, 0] == 0 and mask[0, -1] == 1 and mask[1, -1] == 1
 
 
-def test_default_device_is_cuda():
+def test_default_device_is_cuda(tmp_path, capsys):
+    """UniMoEAudio, Dac and the CLI default to CUDA (`cuda:{device_id}`)
+    and raise without a GPU; text_to_speech and text_to_music_stream run on
+    the instance's device."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the CUDA default does not raise")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         UniMoEAudio(allow_random=True)
     with pytest.raises(RuntimeError):
         UniMoEAudio(allow_random=True, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UniMoEAudio(allow_random=True, device_id=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Dac(allow_random=True)
+    from unimoe_audio_torch.apps import inference as app
+
+    app.clear_model()
+    argv = ["--task", "text_to_music", "--input", "calm piano", "--allow-random",
+            "--output", str(tmp_path)]
+    assert app.main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().out
 
 
 def test_unported_options_raise():
-    """Checkpoint loading comes with a later slice (a directory without a
-    serving snapshot raises); without random weights there is nothing to
-    serve yet; unknown serving modes and cache types are errors."""
-    with pytest.raises(NotImplementedError):
+    """A directory without weights raises FileNotFoundError, as in the JAX
+    package; without a model_path random weights must be asked for;
+    unknown serving modes and cache types are errors; VT2M comes with a
+    later slice."""
+    with pytest.raises(FileNotFoundError):
         UniMoEAudio("/nonexistent", allow_random=True, device="cpu")
     with pytest.raises(ValueError):
         UniMoEAudio(device="cpu")
@@ -88,6 +104,13 @@ def test_unported_options_raise():
         UniMoEAudio(allow_random=True, device="cpu", serving_mode="int3")
     with pytest.raises(ValueError):
         UniMoEAudio(allow_random=True, device="cpu", kv_cache_dtype="fp8")
+    with pytest.raises(NotImplementedError, match="VT2M"):
+        UniMoEAudio(allow_random=True, device="cpu").video_text_to_music("v.mp4", "c")
+    from unimoe_audio_torch.apps import inference as app
+
+    with pytest.raises(NotImplementedError, match="VT2M"):
+        app.inference("video_text_to_music", "c", video_path="v.mp4", allow_random=True,
+                      device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -99,6 +122,8 @@ def test_port_imports_no_jax():
         "import unimoe_audio_torch, unimoe_audio_torch.api\n"
         "import unimoe_audio_torch.core.bridge, unimoe_audio_torch.ops.flash_attention\n"
         "import unimoe_audio_torch.core.export, unimoe_audio_torch.ops.gptq\n"
+        "import unimoe_audio_torch.codec.native, unimoe_audio_torch.core.convert\n"
+        "import unimoe_audio_torch.generate.streaming, unimoe_audio_torch.apps.inference\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'unimoe_audio_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"
@@ -264,7 +289,8 @@ def test_port_snapshot_loads_without_ml_dtypes(tmp_path):
     ids, mask = m._tokenize([t2m_prompt("a"), t2m_prompt("b c d")])
     np.save(tmp_path / "ids.npy", ids)
     np.save(tmp_path / "mask.npy", mask)
-    m._generate_core(ids, mask, "orig", str(tmp_path), cfg_scale=3.0, do_sample=False, seed=0)
+    m._generate_core(ids, mask, None, "orig", output_dir=str(tmp_path), cfg_scale=3.0,
+                     do_sample=False, seed=0)
     want = m.last_codes
     code = (
         "import sys\n"
@@ -276,7 +302,8 @@ def test_port_snapshot_loads_without_ml_dtypes(tmp_path):
         "m = UniMoEAudio(d + '/snap', allow_random=True, device='cpu')\n"
         "assert (m.serving_mode, m.kv_cache_dtype) == ('int4', 'int8')\n"
         "assert m.params['embed_tokens'].dtype == torch.bfloat16\n"
-        "m._generate_core(np.load(d + '/ids.npy'), np.load(d + '/mask.npy'), 'snap', d,\n"
+        "m._generate_core(np.load(d + '/ids.npy'), np.load(d + '/mask.npy'), None, 'snap',\n"
+        "                 output_dir=d,\n"
         "                 cfg_scale=3.0, do_sample=False, seed=0, max_tokens=12, min_tokens=4)\n"
         "np.savez(d + '/codes.npz', *m.last_codes)\n"
     )

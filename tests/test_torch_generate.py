@@ -113,6 +113,61 @@ def test_greedy_codes_equal_jax_dispatch_modes(setup, chunk_frames, kw):
     assert got.steps == int(want.steps)
 
 
+def _guidance_labels(cfg, prefill, seed):
+    """Delayed-domain labels [B, buf_len, C]: codes below EOS, about a
+    tenth of them -1 (no label), and EOS on a later channel (not a valid
+    target there) and on channel 0 (a valid one) at a few steps."""
+    B, P, C = prefill.shape
+    rng = np.random.default_rng(seed)
+    eos = cfg.codec_eos_value
+    lab = rng.integers(0, eos, size=(B, P + MAX_TOKENS, C)).astype(np.int32)
+    lab[rng.random(lab.shape) < 0.1] = -1
+    lab[0, 9, 2] = eos
+    lab[1, 14, 0] = eos
+    return lab
+
+
+@pytest.mark.parametrize("debug_step,chunk_frames", [(-1, None), (-1, 8), (0, None), (7, None)])
+def test_guidance_loss_equal_jax(setup, debug_step, chunk_frames):
+    """The guidance branch: the teacher-forced CE of every step's gated
+    CFG logits against the labels (channel 0 weighted 3x and allowed EOS),
+    with the labels forced in as predictions for every step (-1), for the
+    steps before 7, or for none (0): equal codes and lengths, the same
+    count of valid labels, the loss within rtol 1e-5 of JAX
+    `generate_jit(guidance_labels, debug_guidance_step)`'s, across chunk
+    boundaries too."""
+    cfg, tp, ids, mask, prefill, steps, _ = setup
+    lab = _guidance_labels(cfg, prefill, seed=debug_step + 2)
+    want = _jax_generate(setup, guidance_labels=jnp.asarray(lab),
+                         debug_guidance_step=debug_step)
+    buf = pad_buffer(torch.tensor(prefill), MAX_TOKENS)
+    args = (tp, cfg, torch.tensor(ids), torch.tensor(mask), None, buf, steps,
+            torch.Generator().manual_seed(0))
+    kw = dict(max_tokens=MAX_TOKENS, do_sample=False, guidance_labels=torch.tensor(lab),
+              debug_guidance_step=debug_step, **KNOBS)
+    got = (generate(*args, **kw) if chunk_frames is None
+           else generate_chunked(*args, chunk_frames=chunk_frames, **kw))
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    assert int(got.guidance_count) > 0
+    assert np.isfinite(float(got.guidance_loss))
+    np.testing.assert_allclose(float(got.guidance_loss), float(want.guidance_loss), rtol=1e-5)
+    no_labels = generate(*args, max_tokens=MAX_TOKENS, do_sample=False, **KNOBS)
+    assert float(no_labels.guidance_loss) == 0.0 and int(no_labels.guidance_count) == 0
+
+
+def test_decode_emit_false_equal_jax(setup):
+    """decode_emit=False (the general cache arithmetic in every decode
+    step) gives JAX's codes with the same switch, and the default path's."""
+    cfg, tp, ids, mask, prefill, steps, default = setup
+    want = _jax_generate(setup, decode_emit=False)
+    got = generate(tp, cfg, torch.tensor(ids), torch.tensor(mask), None,
+                   pad_buffer(torch.tensor(prefill), MAX_TOKENS), steps, torch.Generator(),
+                   max_tokens=MAX_TOKENS, do_sample=False, decode_emit=False, **KNOBS)
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
+    np.testing.assert_array_equal(got.codes.numpy(), np.asarray(default.codes))
+
+
 def _tied_logits(seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((12, 97)).astype(np.float32)

@@ -1,12 +1,16 @@
-"""UniMoEAudio — the user-facing text-to-music API of the port.
+"""UniMoEAudio — the user-facing task API of the port: text-to-music
+(batched and streaming) and voice-clone text-to-speech.
 
-Counterpart of `unimoe_audio_tpu/api.py`: the same prompt template,
+Counterpart of `unimoe_audio_tpu/api.py`: the same prompt templates,
 64-token left-padded buckets, CFG pairs and generation defaults, bf16 with
 dense dispatch (`serving_mode=False`) or the quantized serving modes
 (int8 / int4 / int4-gptq weights, a8 expert compute, the int8 KV cache,
-capacity-packed dispatch) and their snapshots.  Runs on CUDA unless the
-caller passes `device="cpu"`; without a GPU it raises rather than running
-on the CPU.  TTS and VT2M come with later slices.
+capacity-packed dispatch) and their snapshots.  Weights load from a
+directory (a serving snapshot, `model.jax.pkl`, or `config.json` with HF
+safetensors shards) or are random from a seed (`allow_random=True`); the
+DAC's from `dac_weights=` / DAC_WEIGHTS.  Runs on CUDA unless the caller
+passes `device="cpu"`; without a GPU it raises rather than running on the
+CPU.  VT2M comes with a later slice.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from .codec.dac import tiny_dac_config
 from .codec.dac_wrapper import Dac
 from .config import UniMoEAudioConfig, tiny_test_config
 from .generate.loop import _sync, generate, generate_chunked, pad_buffer
-from .models.model import init_model_params
+from .models.model import align_codec_ids, init_model_params
 from .tokenizer import SimpleTokenizer
 
 SERVING_MODES = (False, True, "int8", "int4", "int4-gptq")
@@ -82,7 +86,7 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 class UniMoEAudio:
-    """Text-to-music generation."""
+    """Text-to-music and voice-clone text-to-speech."""
 
     MAX_TOKENS = 1000   # ≤ 20 s of audio at 50 frames/s
     MIN_TOKENS = 100
@@ -90,10 +94,13 @@ class UniMoEAudio:
     def __init__(
         self,
         model_path: Optional[str] = None,
+        device_id: int = 0,
         *,
+        dtype: torch.dtype = torch.bfloat16,
+        tokenizer=None,
         allow_random: bool = False,
         config: Optional[UniMoEAudioConfig] = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dac_weights: Optional[str] = None,
         device=None,
         max_tokens: Optional[int] = None,
         min_tokens: Optional[int] = None,
@@ -102,14 +109,26 @@ class UniMoEAudio:
         kv_cache_dtype: Optional[str] = None,
         a8_compute: bool = True,
     ):
-        """allow_random: random weights from a fixed seed for `config`
-        (default the tiny test config), a random 16 kHz DAC (the tiny DAC
-        for configs with other than 12 codec channels) and the development
-        tokenizer; it is required, as the DAC's weights are always random
-        until checkpoints can be loaded.  model_path: a directory holding a
-        serving snapshot (`save_serving_snapshot`, or the JAX package's
-        `serving.jax.pkl`), whose params load already quantized; loading
-        checkpoints comes with a later slice.
+        """model_path: a directory holding a serving snapshot
+        (`save_serving_snapshot`, or the JAX package's `serving.jax.pkl`),
+        whose params load already quantized; else `model.jax.pkl` (a
+        converted checkpoint: the port's numpy-only file, or the JAX
+        package's, whose bf16 leaves need ml_dtypes to unpickle); else
+        `config.json` with `*.safetensors` shards (converted on load by
+        `core/convert.py`), or with allow_random random weights of that
+        config; else FileNotFoundError.  Without model_path, allow_random
+        gives random weights from a fixed seed for `config` (default the
+        tiny test config).  Floating weights are cast to dtype.
+
+        device_id selects `cuda:{device_id}`; device (for example "cpu")
+        overrides it.  tokenizer: any callable with the HF tokenizer's
+        `__call__` surface; else the model directory's HF tokenizer where
+        `transformers` imports, else with allow_random the development
+        `SimpleTokenizer`.  dac_weights: a converted DAC weights file (else
+        DAC_WEIGHTS, else `dac_model/weights_16khz.jax.pkl`); without one
+        the DAC is random (16 kHz; the tiny DAC for configs with other than
+        12 codec channels) under allow_random, and absent otherwise, when
+        generation writes each stream's codes as `.wav.codes.npy`.
 
         serving_mode (`api.py:94-191`): True or "int8" quantizes the
         attention projections, expert FFNs and output heads to per-channel
@@ -126,19 +145,13 @@ class UniMoEAudio:
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r}")
         from .core.export import find_serving_snapshot, load_serving_snapshot
 
-        snapshot = model_path is not None and find_serving_snapshot(model_path) is not None
-        if model_path is not None and not snapshot:
-            raise NotImplementedError(
-                f"{model_path} holds no serving snapshot; loading checkpoints comes with the "
-                "checkpoint-conversion slice (pass allow_random=True without a model_path)")
-        if not allow_random:
-            raise ValueError("allow_random=True is required until checkpoints can be loaded")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None else f"cuda:{device_id}")
         set_matmul_precision()
         self.MAX_TOKENS = max_tokens if max_tokens is not None else UniMoEAudio.MAX_TOKENS
         self.MIN_TOKENS = min_tokens if min_tokens is not None else UniMoEAudio.MIN_TOKENS
         self.load_timings: dict = {}
         t0 = time.perf_counter()
+        snapshot = model_path is not None and find_serving_snapshot(model_path) is not None
         if snapshot:
             self.config, self.params, snap_mode, snap_kv = load_serving_snapshot(
                 model_path, self.device)
@@ -148,29 +161,87 @@ class UniMoEAudio:
             serving_mode = snap_mode
             kv_cache_dtype = kv_cache_dtype or snap_kv
         else:
-            self.config = config or tiny_test_config()
-            self.params = init_model_params(self.config, seed=0, dtype=dtype, device=self.device)
+            self.config, self.params = self._load_model(
+                model_path, dtype=dtype, allow_random=allow_random, config=config)
         _sync(self.device)
         self.load_timings["load_s"] = time.perf_counter() - t0
         self.serving_mode = serving_mode
         self.kv_cache_dtype = kv_cache_dtype
         self.a8_compute = a8_compute
-        special = {t: 100 + i for i, t in enumerate(SPECIAL_TOKENS)}
-        special["<|AUDIO_PLACEHOLDER|>"] = self.config.codec_placeholder_value
-        special["<|vision_start|>"] = self.config.vision_start_token_id
-        special["<|vision_end|>"] = self.config.vision_end_token_id
-        special["<|video_pad|>"] = self.config.video_token_id
-        self.tokenizer = SimpleTokenizer(
-            vocab_size=min(self.config.text_config.vocab_size, 10000), special=special)
-        dac_cfg = None
-        if self.config.codec_channels != 12:
-            dac_cfg = dataclasses.replace(tiny_dac_config(),
-                                          n_codebooks=self.config.codec_channels)
-        self.dac = Dac(allow_random=True, config=dac_cfg, device=self.device)
+        self.tokenizer = tokenizer or self._load_tokenizer(model_path)
+        if self.tokenizer is None and allow_random:
+            special = {t: 100 + i for i, t in enumerate(SPECIAL_TOKENS)}
+            special["<|AUDIO_PLACEHOLDER|>"] = self.config.codec_placeholder_value
+            special["<|vision_start|>"] = self.config.vision_start_token_id
+            special["<|vision_end|>"] = self.config.vision_end_token_id
+            special["<|video_pad|>"] = self.config.video_token_id
+            self.tokenizer = SimpleTokenizer(
+                vocab_size=min(self.config.text_config.vocab_size, 10000), special=special)
+        self.dac = self._load_dac(dac_weights, allow_random)
         self.last_timings: dict = {}
         self.last_codes: List[np.ndarray] = []
         if serving_mode and not snapshot:
             self._quantize(serving_mode, gptq_calibration or {})
+
+    # ------------------------------------------------------------------
+    # Loading (`api.py:215-290`)
+    # ------------------------------------------------------------------
+    def _load_model(self, model_path, *, dtype, allow_random, config):
+        from .core.bridge import params_from_jax
+
+        if model_path is not None:
+            blob_path = os.path.join(model_path, "model.jax.pkl")
+            if os.path.isfile(blob_path):
+                import pickle
+
+                from .core.export import _decode
+
+                with open(blob_path, "rb") as f:
+                    blob = pickle.load(f)
+                cfg = UniMoEAudioConfig.from_dict(blob["config"])
+                return cfg, params_from_jax(_decode(blob["params"]), cfg, self.device, dtype)
+            cfg_json = os.path.join(model_path, "config.json")
+            if os.path.isfile(cfg_json):
+                cfg = UniMoEAudioConfig.from_json(cfg_json)
+                if any(f.endswith(".safetensors") for f in os.listdir(model_path)):
+                    from .core.convert import convert_model_state_dict, load_hf_safetensors
+
+                    tree = convert_model_state_dict(load_hf_safetensors(model_path), cfg)
+                    return cfg, params_from_jax(tree, cfg, self.device, dtype)
+                if allow_random:
+                    return cfg, init_model_params(cfg, seed=0, dtype=dtype, device=self.device)
+            raise FileNotFoundError(f"No model weights found under {model_path} (looked for "
+                                    "model.jax.pkl / *.safetensors).")
+        if not allow_random:
+            raise ValueError("model_path is required unless allow_random=True")
+        cfg = config or tiny_test_config()
+        return cfg, init_model_params(cfg, seed=0, dtype=dtype, device=self.device)
+
+    @staticmethod
+    def _load_tokenizer(model_path):
+        """The model directory's HF tokenizer (left padding, every special
+        token one id), or None without a directory or `transformers`."""
+        if model_path is None:
+            return None
+        try:
+            from transformers import AutoTokenizer
+
+            tok = AutoTokenizer.from_pretrained(model_path, padding_side="left")
+            assert all(len(tok([t]).input_ids[0]) == 1 for t in SPECIAL_TOKENS), \
+                "special tokens must each map to a single id"
+            return tok
+        except Exception:
+            return None
+
+    def _load_dac(self, dac_weights, allow_random):
+        """The Dac, or None when no weights are found and allow_random is off."""
+        cfg = None
+        if allow_random and self.config.codec_channels != 12:
+            cfg = dataclasses.replace(tiny_dac_config(), n_codebooks=self.config.codec_channels)
+        try:
+            return Dac(dac_weights, allow_random=allow_random, config=cfg, device=self.device)
+        except FileNotFoundError:
+            return None
 
     def _quantize(self, serving_mode, gptq_calibration: dict) -> None:
         """The JAX constructor's pipeline (`api.py:172-191`): GPTQ experts
@@ -261,24 +332,37 @@ class UniMoEAudio:
         self.load_timings.update(calibration_s=t1 - t0, gptq_s=time.perf_counter() - t1)
 
     def _tokenize(self, texts: List[str]):
+        if self.tokenizer is None:
+            raise RuntimeError("No tokenizer available: pass tokenizer= or a model_path with "
+                               "tokenizer files.")
         out = self.tokenizer(texts, add_special_tokens=False, padding=True, return_tensors="np")
         ids = np.asarray(out["input_ids"], dtype=np.int32)
         mask = np.asarray(out["attention_mask"], dtype=np.int32)
         # Bucket the text length, padding on the LEFT.
         T = _bucket(ids.shape[1])
         if T > ids.shape[1]:
-            pad = np.full((ids.shape[0], T - ids.shape[1]), self.tokenizer.pad_token_id,
-                          dtype=np.int32)
+            pad_id = getattr(self.tokenizer, "pad_token_id", 0) or 0
+            pad = np.full((ids.shape[0], T - ids.shape[1]), pad_id, dtype=np.int32)
             ids = np.concatenate([pad, ids], axis=1)
             mask = np.concatenate([np.zeros_like(pad), mask], axis=1)
         return ids, mask
+
+    def _preprocess_codec(self, codec) -> np.ndarray:
+        """Voice-prompt codes [T, C] → [T + max_delay + 1, C] with each
+        channel's BOS run-in, one EOS, then PAD."""
+        return dl.preprocess_codec(
+            np.asarray(codec), delay_pattern=self.config.codec_delay_pattern,
+            num_channels=self.config.codec_channels, bos_value=self.config.codec_bos_value,
+            eos_value=self.config.codec_eos_value, pad_value=self.config.codec_pad_value)
 
     @torch.inference_mode()
     def _generate_core(
         self,
         input_ids: np.ndarray,
         attention_mask: np.ndarray,
+        codec_input_ids: Optional[np.ndarray],
         save_name: str,
+        rebuild_codec=None,
         output_dir: str = "./",
         cfg_scale: float = 0.0,
         temperature: float = 1.0,
@@ -289,10 +373,15 @@ class UniMoEAudio:
         seed: Optional[int] = None,
         max_tokens: Optional[int] = None,
         min_tokens=None,
+        decode_emit: Optional[bool] = None,
     ) -> List[str]:
         """Generate codes for CFG-interleaved rows, decode them to wavs
-        (`api.py:398-569`).  Keeps the per-stream codes [T_i, C] in
-        `self.last_codes` and fills `self.last_timings` with the device-
+        (`api.py:398-569`).  codec_input_ids: the flat [N, C] codec rows of
+        the prompts' placeholders, in reading order (`align_codec_ids`).
+        Without a DAC each stream's codes go to `.wav.codes.npy` files;
+        with rebuild_codec [T, C] its decode is written once per stream as
+        `rebuild_{save_name}_{i}.wav`.  Keeps the per-stream codes [T_i, C]
+        in `self.last_codes` and fills `self.last_timings` with the device-
         synchronised seconds of the prefill, the decode and the DAC."""
         cfg = self.config
         max_tokens = max_tokens if max_tokens is not None else self.MAX_TOKENS
@@ -302,6 +391,11 @@ class UniMoEAudio:
             [None] * batch_size, num_channels=cfg.codec_channels,
             bos_value=cfg.codec_bos_value, delay_pattern=cfg.codec_delay_pattern)
         buf = pad_buffer(torch.as_tensor(prefill, device=self.device), max_tokens)
+        aligned = None
+        if codec_input_ids is not None:
+            aligned = torch.as_tensor(
+                align_codec_ids(input_ids, codec_input_ids, cfg.codec_placeholder_value),
+                device=self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed if seed is not None else int(time.time() * 1e3) % (2 ** 31))
         # Long generations grow the KV cache chunk by chunk.
@@ -314,23 +408,36 @@ class UniMoEAudio:
             self.params, cfg,
             torch.as_tensor(input_ids, device=self.device),
             torch.as_tensor(attention_mask, device=self.device),
-            None, buf, prefill_steps, gen,
+            aligned, buf, prefill_steps, gen,
             max_tokens=max_tokens, min_tokens=min_tokens, cfg_scale=cfg_scale,
             temperature=temperature, top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
             eos_prob_mul_factor=eos_prob_mul_factor, do_sample=do_sample, timings=timings,
-            **kw,
+            decode_emit=decode_emit, **kw,
         )
         codes = res.codes.cpu().numpy()
         lengths = res.lengths.cpu().numpy()
-        timings.update(steps=res.steps, lengths=lengths.tolist())
+        timings.update(steps=res.steps, lengths=lengths.tolist(), T_text=input_ids.shape[1])
         audios = dl.generate_output(codes, lengths, pad_value=cfg.codec_pad_value,
                                     delay_pattern=cfg.codec_delay_pattern)
 
         os.makedirs(output_dir, exist_ok=True)
-        output_paths = [os.path.join(output_dir, f"generated_{save_name}_{i}.wav")
-                        for i in range(len(audios))]
         t0 = time.perf_counter()
-        self.dac.decode_batch([frames.T for frames in audios], output_paths, min_duration=1)
+        if self.dac is not None:
+            output_paths = [os.path.join(output_dir, f"generated_{save_name}_{i}.wav")
+                            for i in range(len(audios))]
+            self.dac.decode_batch([frames.T for frames in audios], output_paths,
+                                  min_duration=1)
+        else:
+            output_paths = []
+            for i, frames in enumerate(audios):
+                p = os.path.join(output_dir, f"generated_{save_name}_{i}.wav.codes.npy")
+                np.save(p, frames)
+                output_paths.append(p)
+        if rebuild_codec is not None and self.dac is not None:
+            rebuild = np.asarray(rebuild_codec).T[None]
+            for i in range(len(audios)):
+                self.dac.decode(rebuild, save_path=os.path.join(
+                    output_dir, f"rebuild_{save_name}_{i}.wav"))
         timings["dac_s"] = time.perf_counter() - t0
         self.last_timings = timings
         self.last_codes = audios
@@ -357,6 +464,7 @@ class UniMoEAudio:
         self,
         caption: Union[str, List[str]],
         save_name: str = "music",
+        rebuild_codec=None,
         output_dir: str = "./",
         cfg_scale: float = 10.0,
         temperature: float = 1.0,
@@ -367,25 +475,136 @@ class UniMoEAudio:
         seed: Optional[int] = None,
         max_audio_seconds: Optional[float] = None,
         min_audio_seconds: Optional[float] = None,
+        decode_emit: Optional[bool] = None,
+        **_ignored,
     ) -> List[str]:
         """Text-to-music (`api.py:574-617`): one wav per caption.
-        max/min_audio_seconds count 50 frames per second."""
+        max/min_audio_seconds count 50 frames per second; other keywords
+        are ignored, as the JAX package ignores them."""
         mt = int(max_audio_seconds * 50) if max_audio_seconds is not None else None
         mn = int(min_audio_seconds * 50) if min_audio_seconds is not None else None
         caption = [caption] if isinstance(caption, str) else [c for c in caption if c.strip()]
         if not caption or not all(c.strip() for c in caption):
             print("Please enter a music description.")
             return []
-        neg = t2m_prompt(T2M_NEGATIVE_CAPTION)
-        text_input = []
-        for c in caption:
-            text_input.append(neg)
-            text_input.append(t2m_prompt(c))
-        ids, mask = self._tokenize(text_input)
+        ids, mask = self._tokenize(
+            [x for c in caption for x in (t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(c))])
         t0 = time.time()
         paths = self._generate_core(
-            ids, mask, save_name, output_dir, cfg_scale, temperature, top_p,
+            ids, mask, None, save_name, rebuild_codec, output_dir, cfg_scale, temperature, top_p,
             cfg_filter_top_k, eos_prob_mul_factor, do_sample, seed,
-            max_tokens=mt, min_tokens=mn)
+            max_tokens=mt, min_tokens=mn, decode_emit=decode_emit)
         print(f"Music generation completed! Time: {time.time() - t0:.2f}s")
         return paths
+
+    def text_to_music_stream(
+        self,
+        caption: str,
+        *,
+        chunk_frames: int = 25,
+        cfg_scale: float = 10.0,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        cfg_filter_top_k: int = 45,
+        eos_prob_mul_factor: float = 0.6,
+        seed: Optional[int] = None,
+    ):
+        """Streaming T2M (`api.py:619-648`): yields {"frames", "audio",
+        "lengths", "done"} chunks of `chunk_frames` frames while decoding
+        continues, up to the instance's MAX_TOKENS frames."""
+        from .generate.streaming import generate_stream
+
+        ids, mask = self._tokenize([t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(caption)])
+        gen = torch.Generator(device=self.device).manual_seed(seed if seed is not None else 0)
+        with torch.inference_mode():
+            yield from generate_stream(
+                self.params, self.config, ids, mask, None, gen,
+                max_tokens=self.MAX_TOKENS, min_tokens=self.MIN_TOKENS,
+                chunk_frames=chunk_frames, cfg_scale=cfg_scale, temperature=temperature,
+                top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
+                eos_prob_mul_factor=eos_prob_mul_factor, dac=self.dac,
+                kv_dtype=self.kv_cache_dtype)
+
+    def text_to_speech(
+        self,
+        caption: Union[str, List[str]] = None,
+        prompt_text: str = None,
+        prompt_wav: Optional[str] = None,
+        save_name: str = "speech",
+        prompt_codec=None,
+        rebuild_codec=None,
+        output_dir: str = "./",
+        cfg_scale: float = 1.0,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        cfg_filter_top_k: int = 45,
+        eos_prob_mul_factor: float = 1.0,
+        do_sample: bool = True,
+        seed: Optional[int] = None,
+        transcription: Union[str, List[str], None] = None,
+        prompt_transcription: Optional[str] = None,
+        max_audio_seconds: Optional[float] = None,
+        min_audio_seconds: Optional[float] = None,
+        **_ignored,
+    ) -> List[str]:
+        """Voice-clone TTS (`api.py:650-724`): one wav per target text in
+        the voice of prompt_wav (encoded by the DAC) or of prompt_codec
+        ([T, C] codes), whose transcript is prompt_text.  The prompt's
+        codes, laid out with their BOS run-in and EOS, fill the
+        `<|AUDIO_PLACEHOLDER|>` slots of every CFG row; the negative row has
+        no target text.  transcription / prompt_transcription are other
+        spellings of caption / prompt_text; max/min_audio_seconds count 50
+        frames per second.  `last_timings["dac_encode_s"]` holds the
+        prompt's encode seconds (0 with prompt_codec)."""
+        caption = caption if caption is not None else transcription
+        prompt_text = prompt_text if prompt_text is not None else prompt_transcription
+        mt = int(max_audio_seconds * 50) if max_audio_seconds is not None else None
+        mn = int(min_audio_seconds * 50) if min_audio_seconds is not None else None
+        caption = [caption] if isinstance(caption, str) else [c for c in caption if c.strip()]
+        if not caption or not all(c.strip() for c in caption):
+            print("Please enter the target text.")
+            return []
+        encode_s = 0.0
+        if prompt_codec is None:
+            if prompt_wav is None:
+                print("Please provide a reference audio file.")
+                return []
+            if self.dac is None:
+                raise RuntimeError("DAC weights unavailable: cannot encode prompt_wav")
+            t0 = time.perf_counter()
+            prompt_codec = self.dac.encode(prompt_wav)
+            encode_s = time.perf_counter() - t0
+        if not str(prompt_text).strip():
+            print("Please enter the reference audio transcript.")
+            return []
+
+        codec_ids = self._preprocess_codec(prompt_codec)                    # [P, C]
+        prompt_caption = ("<|SPEECH_PROMPT_START|>" + prompt_text + "<|SPEECH_PROMPT_END|>"
+                          + "<|VOICE_PROMPT_START|>"
+                          + "<|AUDIO_PLACEHOLDER|>" * codec_ids.shape[0]
+                          + "<|VOICE_PROMPT_END|>")
+
+        def prompt(target: str) -> str:
+            return (SYSTEM_MESSAGE + INPUT_FORMAT.format(
+                prompt_caption + "<|SPEECH_START|>" + target + "<|SPEECH_END|>") + AUDIO_START)
+
+        text_input = [x for c in caption for x in (prompt(""), prompt(c))]
+        ids, mask = self._tokenize(text_input)
+        # The flat codec rows, once per CFG row.
+        flat = np.tile(codec_ids, (len(text_input), 1))
+        t0 = time.time()
+        paths = self._generate_core(
+            ids, mask, flat, save_name, rebuild_codec, output_dir, cfg_scale, temperature, top_p,
+            cfg_filter_top_k, eos_prob_mul_factor, do_sample, seed,
+            max_tokens=mt, min_tokens=mn)
+        self.last_timings["dac_encode_s"] = encode_s
+        print(f"Speech generation completed! Time: {time.time() - t0:.2f}s")
+        return paths
+
+    def video_text_to_music(self, *args, **kwargs):
+        raise NotImplementedError("video-text-to-music comes with the VT2M slice of the port")
+
+
+def create_unimoe_audio(model_path: str, device_id: int = 0) -> UniMoEAudio:
+    """Convenience constructor (`api.py:1224`)."""
+    return UniMoEAudio(model_path, device_id)

@@ -1,6 +1,6 @@
-"""DAC neural codec decoder (descript-audio-codec, 16 kHz config) in
-PyTorch — counterpart of `unimoe_audio_tpu/codec/dac.py:62-301` minus the
-encoder, which comes with the TTS slice.
+"""DAC neural codec (descript-audio-codec, 16 kHz config) in PyTorch:
+encoder, residual vector quantizer and decoder — counterpart of
+`unimoe_audio_tpu/codec/dac.py`.
 
 Weight-norm convs are stored folded (one `w`) in torch layout
 [out, in, k] (transposed convs [in, out, k]), the JAX package's layout, so
@@ -74,6 +74,13 @@ def residual_unit(p: Dict, x, dilation: int):
     return x + y
 
 
+def encoder_block(p: Dict, x, stride: int):
+    for i, dil in enumerate((1, 3, 9)):
+        x = residual_unit(p["res"][i], x, dil)
+    x = snake(x, p["snake_alpha"])
+    return conv1d(x, p["conv_w"], p["conv_b"], stride=stride, padding=math.ceil(stride / 2))
+
+
 def decoder_block(p: Dict, x, stride: int):
     x = snake(x, p["snake_alpha"])
     x = conv_transpose1d(x, p["convt_w"], p["convt_b"], stride=stride,
@@ -81,6 +88,37 @@ def decoder_block(p: Dict, x, stride: int):
     for i, dil in enumerate((1, 3, 9)):
         x = residual_unit(p["res"][i], x, dil)
     return x
+
+
+def dac_encoder(params: Dict, audio: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
+    """audio [B, 1, T] → latents [B, latent_dim, T / hop]."""
+    x = conv1d(audio, params["conv_in_w"], params["conv_in_b"], padding=3)
+    for i, stride in enumerate(cfg.encoder_rates):
+        x = encoder_block(params["blocks"][i], x, stride)
+    x = snake(x, params["snake_out_alpha"])
+    return conv1d(x, params["conv_out_w"], params["conv_out_b"], padding=1)
+
+
+def rvq_encode(params: Dict, z: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
+    """Latents [B, D, T] → codes [B, n_codebooks, T] (DAC's VectorQuantize):
+    per codebook, project the residual to codebook_dim, take the entry of
+    largest cosine similarity (the nearest after L2-normalising both sides;
+    the first of equal maxima), and subtract its out-projection from the
+    residual.  In f32: a near tie decided otherwise changes every later
+    codebook of that frame."""
+    residual = z
+    codes = []
+    for i in range(cfg.n_codebooks):
+        q = params["quantizers"][i]
+        enc = conv1d(residual, q["in_proj_w"], q["in_proj_b"]).transpose(1, 2)   # [B, T, d_cb]
+        enc_n = enc / (torch.linalg.vector_norm(enc, dim=-1, keepdim=True) + 1e-12)
+        cb = q["codebook"]                                                       # [K, d_cb]
+        cb_n = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)
+        idx = torch.einsum("btd,kd->btk", enc_n, cb_n).argmax(dim=-1)            # [B, T]
+        codes.append(idx)
+        z_q = conv1d(cb[idx].transpose(1, 2), q["out_proj_w"], q["out_proj_b"])
+        residual = residual - z_q
+    return torch.stack(codes, dim=1)
 
 
 def rvq_decode(params: Dict, codes: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
@@ -107,15 +145,28 @@ def dac_decoder(params: Dict, z: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
     return torch.tanh(x)
 
 
+def dac_preprocess(audio: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
+    """Right-pad [B, 1, T] with zeros to a multiple of the hop."""
+    pad = (cfg.hop_length - audio.shape[-1] % cfg.hop_length) % cfg.hop_length
+    return F.pad(audio, (0, pad)) if pad else audio
+
+
+def dac_encode(params: Dict, audio: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
+    """[B, 1, T] waveform → [B, n_codebooks, ceil(T / hop)] codes."""
+    z = dac_encoder(params["encoder"], dac_preprocess(audio, cfg), cfg)
+    return rvq_encode(params["quantizer"], z, cfg)
+
+
 def dac_decode(params: Dict, codes: torch.Tensor, cfg: DACConfig) -> torch.Tensor:
     """[B, n_codebooks, T] codes → [B, 1, T·hop] waveform."""
     return dac_decoder(params["decoder"], rvq_decode(params["quantizer"], codes, cfg), cfg)
 
 
 def init_dac_params(cfg: DACConfig, *, seed: int = 0, device="cuda") -> Dict:
-    """Random f32 decoder + quantizer weights made on `device` (uniform
-    fan-in scaled convs, unit snake alphas, normal codebooks), laid out as
-    `init_dac_params` in the JAX package."""
+    """Random f32 encoder, quantizer and decoder weights made on `device`
+    (uniform fan-in scaled convs, unit snake alphas, normal codebooks), laid
+    out as `init_dac_params` in the JAX package.  The decoder side is drawn
+    first, then the encoder and the quantizers' in-projections."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -157,4 +208,18 @@ def init_dac_params(cfg: DACConfig, *, seed: int = 0, device="cuda") -> Dict:
     w_out, b_out = conv(1, d, 7)
     decoder = {"conv_in_w": w_in, "conv_in_b": b_in, "blocks": blocks,
                "snake_out_alpha": ones(d), "conv_out_w": w_out, "conv_out_b": b_out}
-    return {"quantizer": {"quantizers": quantizers}, "decoder": decoder}
+
+    d = cfg.encoder_dim
+    w_in, b_in = conv(d, 1, 7)
+    enc_blocks = []
+    for stride in cfg.encoder_rates:
+        res = [res_unit(d) for _ in range(3)]
+        w, b = conv(2 * d, d, 2 * stride)
+        enc_blocks.append({"res": res, "snake_alpha": ones(d), "conv_w": w, "conv_b": b})
+        d *= 2
+    w_out, b_out = conv(cfg.latent_dim, d, 3)
+    encoder = {"conv_in_w": w_in, "conv_in_b": b_in, "blocks": enc_blocks,
+               "snake_out_alpha": ones(d), "conv_out_w": w_out, "conv_out_b": b_out}
+    for q in quantizers:
+        q["in_proj_w"], q["in_proj_b"] = conv(cfg.codebook_dim, cfg.latent_dim, 1)
+    return {"encoder": encoder, "quantizer": {"quantizers": quantizers}, "decoder": decoder}

@@ -130,6 +130,6 @@ def params_to_numpy(params: Dict) -> Dict:
 
 
 def dac_params_from_jax(tree: Dict, device="cuda", dtype: Optional[torch.dtype] = None) -> Dict:
-    """JAX DAC params (numpy leaves) → the port's DAC param dict (decoder
-    and quantizer; the encoder is dropped until the TTS slice)."""
-    return to_torch({k: tree[k] for k in ("quantizer", "decoder")}, device, dtype)
+    """JAX DAC params (numpy leaves) → the port's DAC param dict: encoder,
+    quantizer (in- and out-projections, codebooks) and decoder."""
+    return to_torch({k: tree[k] for k in ("encoder", "quantizer", "decoder")}, device, dtype)

@@ -5,8 +5,9 @@
 Prefill, then a Python decode loop over a preallocated KV cache, with CFG
 pairs batched as interleaved rows [neg, cond] × B and the delay-pattern EOS
 countdown as loop state.  The loop's stop test reads the countdown on the
-host, one device sync per step.  The guidance-loss (teacher-forced) branch
-comes with a later slice.
+host, one device sync per step.  With guidance labels each step also adds
+the teacher-forced cross-entropy of its logits (the reference's "golden
+loss"), and `debug_guidance_step` can force the labels in as predictions.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ class GenerateResult(NamedTuple):
     codes: torch.Tensor     # [B, max_tokens, C] delayed-domain codes from each prefill step
     lengths: torch.Tensor   # [B] audio frame counts (pre-delay-revert)
     steps: int              # decode steps executed
+    guidance_loss: torch.Tensor   # mean teacher-forced CE over the valid labels; 0 without
+    guidance_count: torch.Tensor  # valid labels counted into it
 
 
 @dataclass
@@ -44,6 +47,8 @@ class LoopState:
     eos_detected: torch.Tensor   # [B] bool
     eos_countdown: torch.Tensor  # [B] int32
     finished_step: torch.Tensor  # [B] int32
+    guidance_loss: torch.Tensor  # f32 sum of the weighted NLL so far
+    guidance_count: torch.Tensor  # int32 valid labels so far
 
 
 def _sync(device: torch.device) -> None:
@@ -83,6 +88,9 @@ def generate(
     decode_capacity: Optional[int] = None,
     prefill_capacity: Optional[int] = None,
     kv_dtype: Optional[str] = None,
+    guidance_labels: Optional[torch.Tensor] = None,
+    debug_guidance_step: int = 0,
+    decode_emit: Optional[bool] = None,
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
@@ -92,7 +100,16 @@ def generate(
     runs the DCMoE blocks of the prefill, and of the decode steps unless
     `decode_dispatch_mode` is given; the capacities go to the packed path of
     each phase.  kv_dtype="int8" keeps the KV cache in int8 with
-    per-(position, head) scales (`models/layers.KVCache`)."""
+    per-(position, head) scales (`models/layers.KVCache`).
+
+    guidance_labels [B, buf_len, C] (delayed-domain labels, < 0 = none):
+    each step adds the cross-entropy of its gated CFG logits against the
+    labels at the step it writes, channel 0 weighted 3x and allowed EOS as a
+    target, the other channels not (`loop.py:353-371`); the result's
+    guidance_loss is the mean over the valid labels.  debug_guidance_step
+    forces the labels in as the predictions of the steps before it (-1: of
+    every step).  decode_emit=False runs the decode steps through the
+    general cache arithmetic (`models/model.text_model_forward`)."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -146,6 +163,8 @@ def generate(
             eos_detected=torch.zeros(B, dtype=torch.bool, device=dev),
             eos_countdown=torch.full((B,), -1, dtype=torch.int32, device=dev),
             finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
+            guidance_loss=torch.zeros((), dtype=torch.float32, device=dev),
+            guidance_count=torch.zeros((), dtype=torch.int32, device=dev),
         )
         if timings is not None:
             _sync(dev)
@@ -165,6 +184,7 @@ def generate(
     ch = torch.arange(C, device=dev)[None, :, None]
     eos_slot = (ch == 0) & (col == eos)
     neg_inf = torch.full((), float("-inf"), device=dev)
+    ch_weight = torch.where(torch.arange(C, device=dev) == 0, 3.0, 1.0)[None, :]   # [1, C]
 
     s = state
     while s.dec_step < stop_step and not bool((s.eos_countdown == 0).all()):
@@ -182,6 +202,7 @@ def generate(
             params, emb, position_ids, tc,
             kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
             dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
+            decode_emit=decode_emit,
         )
         logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]  # [2B, C, Vc]
 
@@ -204,6 +225,18 @@ def generate(
         else:
             pred = flat.argmax(dim=-1)
         pred = pred.reshape(B, C).to(torch.int32)
+
+        if guidance_labels is not None:
+            # Teacher-forced CE against the labels at current_step.
+            lab = guidance_labels[:, current_step].to(torch.int64)          # [B, C]
+            valid = (lab >= 0) & torch.where(ch[:, :, 0] == 0, lab <= eos, lab < eos)
+            logp = torch.log_softmax(logits_B, dim=-1)
+            nll = -logp.gather(-1, lab.clamp(0, Vc - 1)[..., None])[..., 0]
+            nll = torch.where(valid, nll * ch_weight, torch.zeros_like(nll))
+            s.guidance_loss = s.guidance_loss + nll.sum()
+            s.guidance_count = s.guidance_count + valid.sum(dtype=torch.int32)
+            if debug_guidance_step == -1 or dec_step < debug_guidance_step:
+                pred = torch.where(lab >= 0, lab.to(pred.dtype), pred)
 
         # Delay-pattern EOS countdown.
         active = s.eos_countdown != 0
@@ -242,7 +275,10 @@ def generate(
     keep = torch.arange(max_tokens, device=dev)[None, :] < span
     codes = torch.where(keep[..., None], codes, torch.full_like(codes, pad))
     codes = torch.where(codes == -1, torch.full_like(codes, pad), codes)
-    result = GenerateResult(codes=codes, lengths=lengths, steps=s.dec_step - start_step)
+    result = GenerateResult(
+        codes=codes, lengths=lengths, steps=s.dec_step - start_step,
+        guidance_loss=s.guidance_loss / s.guidance_count.clamp_min(1),
+        guidance_count=s.guidance_count)
     if timings is not None:
         _sync(dev)
         timings["decode_s"] = timings.get("decode_s", 0.0) + time.perf_counter() - t1

@@ -67,15 +67,20 @@ def text_model_forward(
     dispatch_mode: str = "dense",
     capacity: Optional[int] = None,
     output_moe_inputs: bool = False,
+    decode_emit: Optional[bool] = None,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
     the final RMSNorm (`model.py:55-266`).
 
-    With a cache and one query position (decode_emit) each layer attends
-    over the stale cache plus its own fresh k/v; the fresh k/v are committed
-    to the cache in place once that layer's attention is done, which is
-    what the JAX package's batched commit after the layer scan amounts to
-    (the mask keeps the current slot out of every layer's read).
+    With a cache and one query position (decode_emit, unless the caller
+    passes decode_emit=False) each layer attends over the stale cache plus
+    its own fresh k/v; the fresh k/v are committed to the cache in place
+    once that layer's attention is done, which is what the JAX package's
+    batched commit after the layer scan amounts to (the mask keeps the
+    current slot out of every layer's read).  decode_emit=False takes the
+    general cache arithmetic instead: the step's k/v are written first and
+    the layer attends over the whole cache, the current slot included, as a
+    multi-frame forward does (`model.py:130-136`).
 
     Training: `seed` (a host int, in place of the JAX rng key) gives each
     layer its jitter seed (`fold_seed`); `remat` checkpoints each layer
@@ -95,8 +100,8 @@ def text_model_forward(
     use_cache = kv_cache is not None
     if remat and use_cache:
         raise NotImplementedError("remat is for the no-cache (training) path")
-    decode_emit = (use_cache and T == 1 and cache_position is not None
-                   and kv_valid_mask is not None)
+    decode_emit = (decode_emit is not False and use_cache and T == 1
+                   and cache_position is not None and kv_valid_mask is not None)
     quantized = use_cache and kv_cache.quantized
     layer_mask = kv_valid_mask
     if decode_emit:
@@ -171,6 +176,22 @@ def calculate_input_embedding(params: Dict, input_ids: torch.Tensor,
         mask = (input_ids == placeholder_id)[..., None]
         emb = torch.where(mask, cemb, emb)
     return emb
+
+
+def align_codec_ids(input_ids, flat_codec_ids, placeholder_id) -> np.ndarray:
+    """Host numpy: the reference's flat [N, C] codec rows → an aligned
+    [B, T, C] array, row j at the j-th placeholder position in reading order
+    (what masked_scatter does); other positions 0.  The placeholder count
+    must equal N."""
+    input_ids = np.asarray(input_ids)
+    flat = np.asarray(flat_codec_ids)
+    B, T = input_ids.shape
+    out = np.zeros((B, T, flat.shape[-1]), dtype=flat.dtype)
+    pos = np.argwhere(input_ids == placeholder_id)
+    assert len(pos) == flat.shape[0], (
+        f"placeholder count {len(pos)} != codec rows {flat.shape[0]}")
+    out[pos[:, 0], pos[:, 1]] = flat
+    return out
 
 
 def codec_logits_from_hidden(params: Dict, hidden: torch.Tensor,
