@@ -27,7 +27,8 @@ failure:
    counters zeroed just before it and read just after:
    - text to music: `UniMoEAudio.text_to_music` at the full width and
      depth of the flagship model (36 layers, hidden 2048, bf16, random
-     weights from a seed) with the 16 kHz DAC, on four captions long enough
+     weights from a seed; with its 32-block Qwen2.5-VL vision tower, which
+     T2M does not run) with the 16 kHz DAC, on four captions long enough
      that the prompt buckets to 128 tokens (so the prefill takes the flash
      kernel), through `generate_chunked`; then repeated short calls for the
      prefill's spread;
@@ -42,6 +43,14 @@ failure:
    - streaming: `UniMoEAudio.text_to_music_stream` on the same model, 2 s
      in chunks of 25 frames (time to the first chunk's audio), and greedy
      `generate_stream` against one `generate` call (equal frames);
+   - video+text to music: `UniMoEAudio.video_text_to_music` on the same
+     model, four pre-extracted videos (16 to 144 video tokens each) with
+     their captions: the tower once per video, its features at the video
+     slots of each CFG pair, 3-D mRoPE positions, the prefill through K1,
+     decode from T_text + rope_deltas, 5 s at most; then the tower timed
+     per video, K1 at that prefill's shape against its plain version, and
+     two reference checks, card vs CPU in f32: the tower at full width cut
+     to 8 blocks, and a 2-layer flagship-width VT2M prefill fed by it;
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
@@ -52,7 +61,8 @@ failure:
      through `text_to_music` and `generate_chunked` (the a8 branch counted
      in every layer), profiled, then saved as a serving snapshot, reloaded,
      and its greedy codes compared; the flagship with `serving_mode="int8"`
-     on the four captions; both in turns; `moe_ffn_gmm` over int8 QTensor
+     (its vision tower int8 too) on the four captions and one short
+     `video_text_to_music` call; both in turns; `moe_ffn_gmm` over int8 QTensor
      experts with and without an assignment budget against the CPU; a
      2-layer flagship-width reference check, f32, card vs CPU; and
      `serving_mode="int4-gptq"` at 4 layers (GPTQ's output error against
@@ -80,6 +90,7 @@ the package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -206,6 +217,35 @@ VOICE_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
 # Streaming T2M: 2 s at most, in chunks of 25 frames.
 STREAM_FRAMES = 100
 STREAM_CHUNK = 25
+# Video+text-to-music on the flagship with its full vision tower: four
+# pre-extracted videos (float frames in [0, 255] from seed 0) [T, 3, H, W],
+# each with a caption of the T2M phase's lengths; cfg_scale 10 (the VT2M
+# default), VT2M_SECONDS of audio at most, VT2M_MIN_SECONDS at least.
+#   A: a square clip at the video pixel cap (64 x 28 x 28 = 224 x 224),
+#      grid (2, 16, 16), 128 video tokens, 8 windows;
+#   B: a 720p 16:9 frame after smart_resize at that cap, an odd frame count
+#      (the last frame repeated), grid (2, 12, 20), 120 tokens, ragged
+#      windows;
+#   C: one frame (the reference API's max_frames=1), grid (1, 8, 8), 16
+#      tokens;
+#   D: an array above the cap, which the API takes as it is, grid
+#      (1, 24, 24), 144 tokens.
+VT2M_VIDEOS = {"A": (4, 3, 224, 224), "B": (3, 3, 168, 280), "C": (1, 3, 112, 112),
+               "D": (2, 3, 336, 336)}
+VT2M_TOKENS = {"A": 128, "B": 120, "C": 16, "D": 144}
+VT2M_CAPTION_WORDS = (58, 74, 90, 106)
+VT2M_SECONDS = 5
+VT2M_MIN_SECONDS = 3
+# The reference checks, card vs CPU in f32 (TF32 off: summation order
+# only), relative L2: the tower at full width cut to VT2M_REF_DEPTH blocks
+# (so that it holds full-attention block 7) on video B, and a 2-layer
+# flagship-width VT2M prefill fed by that tower on videos B and C (codec
+# logits) — the exact f32 path's limit of the other reference checks.
+VT2M_REF_DEPTH = 8
+VT2M_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
+# The int8 serving phase's short VT2M call: videos A and C, 1 s.
+VT2M_INT8_VIDEOS = ("A", "C")
+VT2M_INT8_SECONDS = 1
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
@@ -760,15 +800,18 @@ def run_slice(card: str, out_dir: str):
     from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
     from unimoe_audio_torch.ops.flash_attention import flash_attention
 
-    cfg = UniMoEAudioConfig(text_config=TextMoEConfig(), vision_config=None)
-    tc = cfg.text_config
+    cfg = UniMoEAudioConfig(text_config=TextMoEConfig())
+    tc, vcfg = cfg.text_config, cfg.vision_config
     t0 = time.perf_counter()
     model = UniMoEAudio(allow_random=True, config=cfg, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(model.params))
+    n_vision = sum(t.numel() for t in _leaves(model.params["vision"]))
     print(f"slice: flagship UniMoEAudio ({tc.num_hidden_layers} layers, hidden "
-          f"{tc.hidden_size}, {n_params / 1e9:.2f} B params bf16) built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{tc.hidden_size}; vision tower {vcfg.depth} blocks, hidden {vcfg.hidden_size}; "
+          f"{n_params / 1e9:.2f} B params bf16, {n_vision / 1e9:.3f} B of them the tower) built "
+          f"in {time.perf_counter() - t0:.1f} s; weights resident by dtype (GB) "
+          f"{_weight_gb(model.params)}", flush=True)
 
     captions = [caption(n) for n in (58, 74, 90, 106)]
     # Warm-up: one short call (cuBLAS / cuDNN plans, allocator).
@@ -855,14 +898,8 @@ def run_tts(model, card: str, out_dir: str):
     kw = dict(prompt_text=TTS_PROMPT_TEXT, prompt_wav=wav, output_dir=out_dir, cfg_scale=1.0)
     model.text_to_speech(TTS_SENTENCES, save_name="tts_warmup", seed=1, max_audio_seconds=0.5,
                          **kw)
-    captured = {}
-    core = model._generate_core
-
-    def capture(ids, mask, codec, *a, **k):
-        captured.update(ids=ids, mask=mask, codec=codec)
-        return core(ids, mask, codec, *a, **k)
-
-    model._generate_core = capture
+    captured: dict = {}
+    _capture_core(model, captured)
     _zero_launch_counts()
     try:
         paths = model.text_to_speech(TTS_SENTENCES, seed=0, max_audio_seconds=TTS_SECONDS, **kw)
@@ -1541,6 +1578,266 @@ def profile_decode(model, prompts, dispatch_mode: str, **kw) -> dict:
     }
 
 
+def vt2m_videos(names=tuple(VT2M_VIDEOS)) -> list:
+    """The VT2M_VIDEOS frames, made from seed 0 in a fixed order (so a
+    subset holds the same arrays)."""
+    rng = np.random.default_rng(0)
+    made = {k: rng.uniform(0, 255, size=s).astype(np.float32) for k, s in VT2M_VIDEOS.items()}
+    return [made[n] for n in names]
+
+
+@contextlib.contextmanager
+def _tower_calls():
+    """Records (grid, feature shape) of every `vision_forward` call made
+    while the block runs (the API calls it through its module)."""
+    from unimoe_audio_torch.models import vision as V
+
+    calls = []
+    forward = V.vision_forward
+
+    def counted(params, patches, grid_thw, cfg):
+        out = forward(params, patches, grid_thw, cfg)
+        calls.append((tuple(int(x) for x in np.asarray(grid_thw).reshape(-1)), tuple(out.shape)))
+        return out
+
+    V.vision_forward = counted
+    try:
+        yield calls
+    finally:
+        V.vision_forward = forward
+
+
+def _capture_core(model, captured: dict) -> None:
+    """Wraps model._generate_core so that its token ids, mask, codec rows
+    and keyword arguments (the vision inputs) land in `captured`; `del
+    model._generate_core` undoes it."""
+    core = model._generate_core
+
+    def capture(ids, mask, codec, *a, **k):
+        captured.update(ids=ids, mask=mask, codec=codec, **k)
+        return core(ids, mask, codec, *a, **k)
+
+    model._generate_core = capture
+
+
+def _check_vt2m_run(model, names, paths, calls, captured, launches, label: str) -> None:
+    """The checks of one video_text_to_music call on the card: one K1 launch
+    per layer (one prefill) and no backward or grouped launch; one tower call
+    per video with features [tokens, out_hidden]; each CFG row's video slots
+    equal its video's tokens; rope_deltas < 0 in every row; the t, h and w
+    position rows differ; one wav per request of frames x hop samples, codes
+    in range, not silent."""
+    cfg = model.config
+    tc, vcfg = cfg.text_config, cfg.vision_config
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers,
+          f"{label}: {launches['flash_attention_fwd']} K1 launches, want "
+          f"{tc.num_hidden_layers} (one per layer in the one prefill)")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention_fwd"),
+          f"{label} launched a backward or grouped kernel: {launches}")
+    tokens = [VT2M_TOKENS[n] for n in names]
+    check([shape for _, shape in calls] == [(n, vcfg.out_hidden_size) for n in tokens],
+          f"{label}: tower calls (grid, features) {calls}, want one per video of {tokens} tokens")
+    vmask = np.asarray(captured["visual_mask"])
+    check(vmask.sum(-1).tolist() == [n for n in tokens for _ in range(2)],
+          f"{label}: video slots per row {vmask.sum(-1).tolist()}, want {tokens} per CFG pair")
+    deltas = np.asarray(captured["rope_deltas"]).reshape(-1)
+    check(bool((deltas < 0).all()), f"{label}: rope_deltas {deltas.tolist()} not all negative")
+    pos = np.asarray(captured["prefill_position_ids"])
+    check(not np.array_equal(pos[0], pos[1]) and not np.array_equal(pos[1], pos[2]),
+          f"{label}: the t, h and w position rows do not differ")
+    t = model.last_timings
+    hop, sr = model.dac.config.hop_length, model.dac.config.sample_rate
+    check(len(paths) == len(names), f"{label}: {len(paths)} wavs for {len(names)} requests")
+    for p, n, c in zip(paths, t["lengths"], model.last_codes):
+        check(os.path.isfile(p), f"missing wav {p}")
+        check(n > 0 and c.shape == (n, cfg.codec_channels), f"{label}: {n} frames, codes {c.shape}")
+        check(bool((c >= 0).all() and (c < model.dac.config.codebook_size).all()),
+              f"{label}: codes out of range")
+        with wave.open(p) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        check(pcm.size == max(n * hop, sr) and int(np.abs(pcm[:n * hop]).max()) > 0,
+              f"{p}: {pcm.size} samples for {n} frames, or silent")
+
+
+def run_vt2m(model, card: str, out_dir: str):
+    """Video+text-to-music through `UniMoEAudio.video_text_to_music` on the
+    flagship with its full vision tower: the four VT2M_VIDEOS with their
+    captions, the tower once per video, the features scattered at the
+    video slots of both rows of each CFG pair, 3-D mRoPE positions, the
+    prefill through K1, decode from T_text + rope_deltas, the wavs.  Then
+    the tower timed per video, K1 at this prefill's shape, and the two
+    reference checks against the CPU.  Returns (launch counts, K1's record
+    at this shape)."""
+    import torch
+    from unimoe_audio_torch.apps.video import video_to_patches
+    from unimoe_audio_torch.models import vision as V
+
+    cfg = model.config
+    tc, vcfg = cfg.text_config, cfg.vision_config
+    names = list(VT2M_VIDEOS)
+    videos = vt2m_videos(names)
+    captions = [caption(n) for n in VT2M_CAPTION_WORDS]
+    kw = dict(output_dir=out_dir, cfg_scale=10.0)
+    model.video_text_to_music(videos, captions, save_name="vt2m_warmup", seed=1,
+                              max_audio_seconds=1, min_audio_seconds=0.5, **kw)
+    captured: dict = {}
+    _capture_core(model, captured)
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _tower_calls() as calls:
+            paths = model.video_text_to_music(videos, captions, save_name="vt2m", seed=0,
+                                              max_audio_seconds=VT2M_SECONDS,
+                                              min_audio_seconds=VT2M_MIN_SECONDS, **kw)
+    finally:
+        del model._generate_core
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    _check_vt2m_run(model, names, paths, calls, captured, launches, "VT2M")
+    t = model.last_timings
+    ids, mask = captured["ids"], captured["mask"]
+    deltas = np.asarray(captured["rope_deltas"]).reshape(-1)
+    print(f"vt2m [{card}]: {len(names)} videos {', '.join(f'{n} {VT2M_VIDEOS[n]} grid {g}' for n, (g, _) in zip(names, calls))} "
+          f"-> video tokens {[s[0] for _, s in calls]}; 8 CFG rows, T_text {t['T_text']}, "
+          f"left pads {[int((m == 0).sum()) for m in mask]}, rope_deltas {deltas.tolist()}; "
+          f"{t['steps']} decode steps, frames {t['lengths']}; flash launches "
+          f"{launches['flash_attention_fwd']}", flush=True)
+
+    tower_ms = []
+    with torch.inference_mode():
+        for v in videos:
+            patches, grid = video_to_patches(v, patch_size=vcfg.patch_size,
+                                             temporal_patch_size=vcfg.temporal_patch_size,
+                                             merge_size=vcfg.spatial_merge_size)
+            pt = torch.as_tensor(patches, device="cuda")
+            tower_ms.append(cuda_ms(
+                lambda: V.vision_forward(model.params["vision"], pt, grid[None], vcfg),
+                iters=5, warmup=1))
+    audio_s = sum(t["lengths"]) / 50.0
+    gen_s = sum(t["vision_s"]) + t["prefill_s"] + t["decode_s"] + t["dac_s"]
+    print(f"vt2m [{card}]: tower ({vcfg.depth} blocks, hidden {vcfg.hidden_size}, bf16) ms per "
+          f"video by CUDA events {', '.join(f'{n} {x:.2f}' for n, x in zip(names, tower_ms))} "
+          f"(in the call, host-synchronised: "
+          f"{', '.join(f'{x * 1e3:.2f}' for x in t['vision_s'])}); prefill "
+          f"{t['prefill_s'] * 1e3:.2f} ms; decode {t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame; "
+          f"DAC {t['dac_s'] * 1e3:.1f} ms; realtime factor {audio_s / gen_s:.3f} ({audio_s:.2f} s "
+          f"of audio in {gen_s:.2f} s, first tower call to DAC decode; {wall_s:.2f} s wall for "
+          f"the whole call)", flush=True)
+    rec = time_flash(tc, mask, launches, card, "VT2M")
+    check_vt2m_reference(cfg, captured, card)
+    return launches, rec
+
+
+def check_vt2m_reference(flag_cfg, captured: dict, card: str) -> None:
+    """Card vs CPU in f32, with the same (card-made) weights: the tower at
+    full width cut to VT2M_REF_DEPTH blocks on video B (ragged windows;
+    block 7 takes full attention), and a 2-layer flagship-width VT2M
+    prefill fed by that tower on the CFG pairs of videos B and C from the
+    VT2M batch (their ids, mask, video slots and mRoPE positions): features
+    and codec logits over live rows within VT2M_REF_REL_L2."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.apps.video import video_to_patches
+    from unimoe_audio_torch.models import model as M
+    from unimoe_audio_torch.models.layers import KVCache
+    from unimoe_audio_torch.models.vision import init_vision_params, vision_forward
+
+    vcfg = dataclasses.replace(flag_cfg.vision_config, depth=VT2M_REF_DEPTH)
+    check(any(i < VT2M_REF_DEPTH for i in vcfg.fullatt_block_indexes),
+          "the reference tower holds no full-attention block")
+    tower = {"cuda": init_vision_params(vcfg, seed=5, dtype=torch.float32, device="cuda")}
+    tower["cpu"] = _to(tower["cuda"], device="cpu")
+    vids = dict(zip(VT2M_VIDEOS, vt2m_videos()))
+    feats = {}
+    with torch.inference_mode():
+        for name in ("B", "C"):
+            patches, grid = video_to_patches(vids[name])
+            feats[name] = {dev: vision_forward(p, torch.as_tensor(patches, device=dev), grid[None],
+                                               vcfg).float().cpu()
+                           for dev, p in tower.items()}
+    err = _rel(feats["B"]["cuda"], feats["B"]["cpu"])
+    print(f"reference check [{card}]: vision tower at full width, {VT2M_REF_DEPTH} blocks "
+          f"(full attention in {[i for i in vcfg.fullatt_block_indexes if i < VT2M_REF_DEPTH]}), "
+          f"f32, video B ({tuple(feats['B']['cpu'].shape)} features), card vs CPU: relative L2 "
+          f"{err:.3e} (limit {VT2M_REF_REL_L2})", flush=True)
+    check(err < VT2M_REF_REL_L2, f"vision tower, card vs CPU: relative L2 {err}")
+
+    cfg = dataclasses.replace(flag_cfg, text_config=dataclasses.replace(
+        flag_cfg.text_config, num_hidden_layers=2))
+    tc = cfg.text_config
+    gpu = M.init_model_params(cfg, seed=3, dtype=torch.float32, device="cuda")
+    cpu = _to(gpu, device="cpu")
+    rows = slice(2, 6)                                  # the CFG pairs of videos B and C
+    ids, mask = captured["ids"][rows], captured["mask"][rows]
+    vmask = np.asarray(captured["visual_mask"])[rows]
+    pos = np.asarray(captured["prefill_position_ids"])[:, rows]
+    B, T = ids.shape
+    live = torch.as_tensor(mask, dtype=torch.bool)
+
+    def run(device):
+        params = cpu if device == "cpu" else gpu
+        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
+        emb = M.calculate_input_embedding(params, t(ids), None, cfg.codec_placeholder_value)
+        visual = torch.zeros_like(emb)
+        for r, name in enumerate("BBCC"):
+            visual[r, t(np.flatnonzero(vmask[r]))] = feats[name][device].to(device)
+        emb = torch.where(t(vmask)[..., None] > 0, visual, emb)
+        cache = KVCache.create(tc.num_hidden_layers, B, T + 2, tc.num_key_value_heads,
+                               tc.head_dim, dtype=torch.float32, device=device)
+        kv_valid = np.concatenate([mask, np.zeros((B, 2), mask.dtype)], -1)
+        out = M.text_model_forward(params, emb, t(pos), tc, kv_cache=cache, cache_position=0,
+                                   kv_valid_mask=t(kv_valid, torch.int32),
+                                   padding_token_mask=t(mask, torch.int32))
+        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+
+    with torch.inference_mode():
+        err = _rel(run("cuda"), run("cpu"))
+    print(f"reference check [{card}]: 2-layer flagship-width VT2M prefill, f32, fed by the "
+          f"{VT2M_REF_DEPTH}-block tower, the CFG pairs of videos B and C (T {T}, "
+          f"{int(vmask.sum())} video slots, 3-D mRoPE positions), card vs CPU, codec logits "
+          f"relative L2 {err:.3e} (limit {VT2M_REF_REL_L2})", flush=True)
+    check(err < VT2M_REF_REL_L2, f"VT2M prefill, card vs CPU: relative L2 {err}")
+    del gpu, cpu, tower
+    torch.cuda.empty_cache()
+
+
+def run_vt2m_int8(model, card: str, out_dir: str) -> dict:
+    """One short video_text_to_music call of the int8 serving model, whose
+    tower `quantize_vision_params` made int8: videos VT2M_INT8_VIDEOS with
+    their captions, VT2M_INT8_SECONDS.  The checks of the bf16 VT2M run.
+    Returns its launch counts."""
+    import torch
+    from unimoe_audio_torch.ops.quant import QTensor
+
+    vis = model.params["vision"]
+    check(all(isinstance(w, QTensor) and w.q.dtype == torch.int8 for w in (
+        vis["patch_embed"], vis["blocks"][0]["qkv"]["w"], vis["blocks"][-1]["mlp"]["down"]["w"],
+        vis["merger"]["fc2"]["w"])), "int8 serving: the vision tower is not int8")
+    names = list(VT2M_INT8_VIDEOS)
+    captions = [caption(VT2M_CAPTION_WORDS[list(VT2M_VIDEOS).index(n)]) for n in names]
+    captured: dict = {}
+    _capture_core(model, captured)
+    _zero_launch_counts()
+    try:
+        with _tower_calls() as calls:
+            paths = model.video_text_to_music(
+                vt2m_videos(names), captions, save_name="vt2m_int8", seed=0, output_dir=out_dir,
+                max_audio_seconds=VT2M_INT8_SECONDS, min_audio_seconds=VT2M_INT8_SECONDS / 2)
+    finally:
+        del model._generate_core
+    launches = _launch_counts()
+    _check_vt2m_run(model, names, paths, calls, captured, launches, "VT2M int8")
+    t = model.last_timings
+    print(f"vt2m_int8 [{card}]: serving_mode={model.serving_mode!r}, int8 tower; videos "
+          f"{names}, T_text {t['T_text']}, frames {t['lengths']}; tower ms in the call "
+          f"{[round(x * 1e3, 2) for x in t['vision_s']]}; prefill {t['prefill_s'] * 1e3:.2f} ms; "
+          f"decode {t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame; flash launches "
+          f"{launches['flash_attention_fwd']}", flush=True)
+    return launches
+
+
 def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
     """The flagship model of the text-to-music slice through
     `generate_chunked(..., dispatch_mode="gmm")`: GMM_SERVING_FRAMES frames
@@ -2010,15 +2307,18 @@ def run_quantized_serving(card: str, stamp=lambda phase: None) -> dict:
     """The quantized serving phase: the flagship in int4 (the north star:
     int4 experts, packed_a8, the int8 KV cache) on QUANT_CAPTIONS captions
     through text_to_music and its snapshot round trip; the flagship in int8
-    on the T2M phase's captions; both in turns on those captions; gmm over
+    (its vision tower int8 too) on the T2M phase's captions, then one short
+    video_text_to_music call; both in turns on those captions; gmm over
     int8 QTensors with and without a budget; the reference check; int4-gptq
     at GPTQ_LAYERS layers.  Returns the launch counts of the int4 and int8
-    text_to_music runs."""
+    text_to_music runs and of the int8 VT2M call."""
     import torch
     from unimoe_audio_torch.api import UniMoEAudio
     from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
 
     cfg = UniMoEAudioConfig(text_config=TextMoEConfig(), vision_config=None)
+    # The int8 model also carries the vision tower (int8 too).
+    cfg_vision = UniMoEAudioConfig(text_config=TextMoEConfig())
     lengths = (58, 74, 90, 106)
     captions = [caption(lengths[i % 4]) for i in range(QUANT_CAPTIONS)]
     small = [caption(n) for n in lengths]
@@ -2031,8 +2331,8 @@ def run_quantized_serving(card: str, stamp=lambda phase: None) -> dict:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            model = UniMoEAudio(allow_random=True, config=cfg, device="cuda", serving_mode=mode,
-                                kv_cache_dtype=kv)
+            model = UniMoEAudio(allow_random=True, config=cfg_vision if mode == "int8" else cfg,
+                                device="cuda", serving_mode=mode, kv_cache_dtype=kv)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
             model.text_to_music(caps, output_dir=out_dir, save_name="warmup", seed=1,
@@ -2054,7 +2354,8 @@ def run_quantized_serving(card: str, stamp=lambda phase: None) -> dict:
                 check_snapshot(model, small, card)
                 stamp("int4 snapshot round trip")
             else:
-                stamp("int8 serving")
+                launches["vt2m_int8"] = run_vt2m_int8(model, card, out_dir)
+                stamp("int8 serving and its VT2M call")
             models[mode] = model
     # int8 and int4 decode on the same 4 captions, in turns (int8, int4, int4, int8).
     prompts = _t2m_prompts(small)
@@ -2405,6 +2706,8 @@ def main() -> None:
         stamp("TTS, K1 at its prefill shape and the reference checks")
         stream_launches = run_stream(model, card)
         stamp("streaming T2M")
+        vt2m_launches, vt2m_rec = run_vt2m(model, card, out_dir)
+        stamp("VT2M, K1 at its prefill shape and the reference checks")
         gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
         stamp("gmm serving")
     del model
@@ -2450,7 +2753,7 @@ def main() -> None:
     # Launches by path (each run counted from 0) and summed over the paths;
     # K1's error is the larger of the checks at the two paths' shapes.
     paths = {"t2m": t2m_launches, "tts": tts_launches, "t2m_stream": stream_launches,
-             "t2m_gmm": gmm_t2m_launches, **quant_launches,
+             "vt2m": vt2m_launches, "t2m_gmm": gmm_t2m_launches, **quant_launches,
              "train": train_launches, "train_gmm": gmm_train_launches}
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
@@ -2465,11 +2768,13 @@ def main() -> None:
     check(all(r["launches"] > 0 for r in grouped_recs),
           f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"],
-                                      "tts": tts_rec["max_abs_err"], "train": fwd_train_err}
+                                      "tts": tts_rec["max_abs_err"],
+                                      "vt2m": vt2m_rec["max_abs_err"], "train": fwd_train_err}
     fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err_by_path"].values())
-    fwd_rec["tts_shape"] = {k: tts_rec[k] for k in (
-        "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "library_device_ms_graph", "max_abs_err")}
+    for path, r in (("tts", tts_rec), ("vt2m", vt2m_rec)):
+        fwd_rec[f"{path}_shape"] = {k: r[k] for k in (
+            "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms_graph", "max_abs_err")}
     fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
                                      for p in ("train", "train_gmm")}
     fwd_rec["train_shape"] = fwd_train

@@ -94,8 +94,8 @@ def test_default_device_is_cuda(tmp_path, capsys):
 def test_unported_options_raise():
     """A directory without weights raises FileNotFoundError, as in the JAX
     package; without a model_path random weights must be asked for;
-    unknown serving modes and cache types are errors; VT2M comes with a
-    later slice."""
+    unknown serving modes and cache types are errors; PEFT params come with
+    a later slice."""
     with pytest.raises(FileNotFoundError):
         UniMoEAudio("/nonexistent", allow_random=True, device="cpu")
     with pytest.raises(ValueError):
@@ -104,13 +104,9 @@ def test_unported_options_raise():
         UniMoEAudio(allow_random=True, device="cpu", serving_mode="int3")
     with pytest.raises(ValueError):
         UniMoEAudio(allow_random=True, device="cpu", kv_cache_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="VT2M"):
-        UniMoEAudio(allow_random=True, device="cpu").video_text_to_music("v.mp4", "c")
-    from unimoe_audio_torch.apps import inference as app
-
-    with pytest.raises(NotImplementedError, match="VT2M"):
-        app.inference("video_text_to_music", "c", video_path="v.mp4", allow_random=True,
-                      device="cpu")
+    cfg = tiny_test_config()
+    with pytest.raises(NotImplementedError, match="PEFT"):
+        params_from_jax({"peft": {}, "layers": {}}, cfg, "cpu")
 
 
 def test_port_imports_no_jax():
@@ -124,6 +120,7 @@ def test_port_imports_no_jax():
         "import unimoe_audio_torch.core.export, unimoe_audio_torch.ops.gptq\n"
         "import unimoe_audio_torch.codec.native, unimoe_audio_torch.core.convert\n"
         "import unimoe_audio_torch.generate.streaming, unimoe_audio_torch.apps.inference\n"
+        "import unimoe_audio_torch.models.vision, unimoe_audio_torch.apps.video\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'unimoe_audio_tpu', 'ml_dtypes'))\n"
         "print(bad)\n"

@@ -8,6 +8,7 @@ argument aliases and messages for empty inputs, and `text_to_music`'s
 `rebuild_codec` and ignored keywords."""
 
 import dataclasses
+import functools
 import os
 import wave
 
@@ -225,12 +226,17 @@ def test_text_to_music_rebuild_and_ignored_keywords(tmp_path, tts_models):
         assert f.getnframes() == 9 * tm.dac.config.hop_length
 
 
-def test_inference_cli_text_to_speech(tmp_path, capsys):
+def test_inference_cli_text_to_speech(tmp_path, capsys, monkeypatch):
     """`python -m unimoe_audio_torch.apps.inference --task text_to_speech`
     with random weights on the CPU writes one wav; a missing --ref-text is
-    a usage error, a missing reference file a failed generation."""
+    a usage error, a missing reference file a failed generation.  The CLI's
+    model is built with a 24-frame budget: at the API's default of 1,000
+    frames a random-weight model rarely samples EOS, and decoding and
+    writing 1,000 frames on the CPU takes minutes."""
     from unimoe_audio_torch.apps import inference as app
 
+    monkeypatch.setattr(app, "UniMoEAudio",
+                        functools.partial(UniMoEAudio, max_tokens=24, min_tokens=4))
     voice = str(tmp_path / "voice.wav")
     TIO.write_wav(voice, _two_tones(0.01), PROMPT_SR)
     argv = ["--task", "text_to_speech", "--input", "hello there", "--ref-audio", voice,

@@ -1,5 +1,5 @@
 """UniMoEAudio — the user-facing task API of the port: text-to-music
-(batched and streaming) and voice-clone text-to-speech.
+(batched and streaming), voice-clone text-to-speech and video+text-to-music.
 
 Counterpart of `unimoe_audio_tpu/api.py`: the same prompt templates,
 64-token left-padded buckets, CFG pairs and generation defaults, bf16 with
@@ -10,7 +10,7 @@ directory (a serving snapshot, `model.jax.pkl`, or `config.json` with HF
 safetensors shards) or are random from a seed (`allow_random=True`); the
 DAC's from `dac_weights=` / DAC_WEIGHTS.  Runs on CUDA unless the caller
 passes `device="cpu"`; without a GPU it raises rather than running on the
-CPU.  VT2M comes with a later slice.
+CPU.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 class UniMoEAudio:
-    """Text-to-music and voice-clone text-to-speech."""
+    """Text-to-music, voice-clone text-to-speech and video+text-to-music."""
 
     MAX_TOKENS = 1000   # ≤ 20 s of audio at 50 frames/s
     MIN_TOKENS = 100
@@ -118,7 +118,8 @@ class UniMoEAudio:
         `core/convert.py`), or with allow_random random weights of that
         config; else FileNotFoundError.  Without model_path, allow_random
         gives random weights from a fixed seed for `config` (default the
-        tiny test config).  Floating weights are cast to dtype.
+        tiny test config), the vision tower included where the config has
+        one.  Floating weights are cast to dtype.
 
         device_id selects `cuda:{device_id}`; device (for example "cpu")
         overrides it.  tokenizer: any callable with the HF tokenizer's
@@ -131,10 +132,11 @@ class UniMoEAudio:
         generation writes each stream's codes as `.wav.codes.npy`.
 
         serving_mode (`api.py:94-191`): True or "int8" quantizes the
-        attention projections, expert FFNs and output heads to per-channel
-        int8, pads the expert FFNs to 128 columns and sizes packed dispatch
-        from the batch; "int4" requantizes the experts to int4; "int4-gptq"
-        quantizes them with GPTQ against a greedy self-calibration run
+        attention projections, expert FFNs, output heads and the vision
+        tower's projections to per-channel int8, pads the expert FFNs to
+        128 columns and sizes packed dispatch from the batch; "int4"
+        requantizes the experts to int4; "int4-gptq" quantizes them with
+        GPTQ against a greedy self-calibration run
         (`gptq_calibration`: {"captions", "frames", "group_size"}) first.
         kv_cache_dtype="int8" keeps the KV cache in int8.  a8_compute runs
         the packed expert FFNs in int8 (`packed_a8`) where serving selects
@@ -215,7 +217,8 @@ class UniMoEAudio:
         if not allow_random:
             raise ValueError("model_path is required unless allow_random=True")
         cfg = config or tiny_test_config()
-        return cfg, init_model_params(cfg, seed=0, dtype=dtype, device=self.device)
+        return cfg, init_model_params(cfg, seed=0, dtype=dtype, device=self.device,
+                                      with_vision=True)
 
     @staticmethod
     def _load_tokenizer(model_path):
@@ -246,9 +249,10 @@ class UniMoEAudio:
     def _quantize(self, serving_mode, gptq_calibration: dict) -> None:
         """The JAX constructor's pipeline (`api.py:172-191`): GPTQ experts
         first for "int4-gptq" (the int8 pass leaves QTensor leaves alone),
-        int8 in place, the expert FFNs padded, then int4 for "int4"."""
+        int8 in place, the expert FFNs padded, then int4 for "int4"; the
+        vision tower, where present, in int8."""
         from .ops.quant import (pad_expert_ffn, quantize_model_params_inplace,
-                                requantize_experts_int4_inplace)
+                                quantize_vision_params, requantize_experts_int4_inplace)
 
         if serving_mode == "int4-gptq":
             self._gptq_quantize_experts(**gptq_calibration)
@@ -257,6 +261,8 @@ class UniMoEAudio:
         pad_expert_ffn(self.params)
         if serving_mode == "int4":
             requantize_experts_int4_inplace(self.params)
+        if "vision" in self.params:
+            self.params["vision"] = quantize_vision_params(self.params["vision"])
         _sync(self.device)
         self.load_timings["quantize_s"] = time.perf_counter() - t0
 
@@ -374,10 +380,17 @@ class UniMoEAudio:
         max_tokens: Optional[int] = None,
         min_tokens=None,
         decode_emit: Optional[bool] = None,
+        visual_embeds=None,
+        visual_mask=None,
+        prefill_position_ids=None,
+        rope_deltas=None,
     ) -> List[str]:
         """Generate codes for CFG-interleaved rows, decode them to wavs
         (`api.py:398-569`).  codec_input_ids: the flat [N, C] codec rows of
         the prompts' placeholders, in reading order (`align_codec_ids`).
+        The vision inputs (arrays or tensors: visual_embeds [2B, T, D],
+        visual_mask [2B, T], prefill_position_ids [3, 2B, T], rope_deltas
+        [2B, 1]) go to the loop.
         Without a DAC each stream's codes go to `.wav.codes.npy` files;
         with rebuild_codec [T, C] its decode is written once per stream as
         `rebuild_{save_name}_{i}.wav`.  Keeps the per-stream codes [T_i, C]
@@ -404,6 +417,11 @@ class UniMoEAudio:
         kw = self.serving_dispatch(*input_ids.shape)
         if self.kv_cache_dtype:
             kw["kv_dtype"] = self.kv_cache_dtype
+        for k, v in (("visual_embeds", visual_embeds), ("visual_mask", visual_mask),
+                     ("prefill_position_ids", prefill_position_ids),
+                     ("rope_deltas", rope_deltas)):
+            if v is not None:
+                kw[k] = torch.as_tensor(v, device=self.device)
         res = gen_fn(
             self.params, cfg,
             torch.as_tensor(input_ids, device=self.device),
@@ -601,8 +619,108 @@ class UniMoEAudio:
         print(f"Speech generation completed! Time: {time.time() - t0:.2f}s")
         return paths
 
-    def video_text_to_music(self, *args, **kwargs):
-        raise NotImplementedError("video-text-to-music comes with the VT2M slice of the port")
+    def video_text_to_music(
+        self,
+        video,
+        caption: Union[str, List[str]],
+        save_name: str = "video_music",
+        rebuild_codec=None,
+        fps: int = 1,
+        sampling_fps: int = 1,
+        total_pixels: int = 3 * 28 * 28,
+        max_frames: Optional[int] = 1,
+        output_dir: str = "./",
+        cfg_scale: float = 10.0,
+        temperature: float = 1.0,
+        top_p: float = 1.0,
+        cfg_filter_top_k: int = 45,
+        eos_prob_mul_factor: float = 0.6,
+        do_sample: bool = True,
+        seed: Optional[int] = None,
+        max_audio_seconds: Optional[float] = None,
+        min_audio_seconds: Optional[float] = None,
+        **_ignored,
+    ) -> List[str]:
+        """Video+text-to-music (`api.py:726-831`): one wav per (video,
+        caption).  A video is a file path (frames sampled at sampling_fps,
+        at most max_frames, resized under total_pixels; needs OpenCV) or
+        pre-extracted frames, a float array [T, 3, H, W] in [0, 255], taken
+        as they are.  Each video goes through the vision tower once; its
+        features fill the `<|video_pad|>` slots of both rows of its CFG
+        pair, the prefill takes 3-D mRoPE positions (`get_rope_index`,
+        second_per_grid_t = temporal_patch_size / fps) and decode starts at
+        T_text + rope_deltas.  max/min_audio_seconds count 50 frames per
+        second.  Without a vision tower it warns and generates from the
+        captions (`text_to_music`), as the JAX package does.
+        `last_timings["vision_s"]` holds each tower call's device-
+        synchronised seconds."""
+        video = [video] if isinstance(video, str) else list(video)
+        caption = [caption] if isinstance(caption, str) else caption
+        assert len(video) == len(caption), "The number of videos and captions must match"
+        if self.config.vision_config is None or "vision" not in self.params:
+            print("[warning] model has no vision tower; generating from captions only")
+            return self.text_to_music(
+                caption, save_name=save_name, rebuild_codec=rebuild_codec,
+                output_dir=output_dir, cfg_scale=cfg_scale, temperature=temperature,
+                top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
+                eos_prob_mul_factor=eos_prob_mul_factor, do_sample=do_sample, seed=seed,
+                max_audio_seconds=max_audio_seconds, min_audio_seconds=min_audio_seconds)
+        from .apps.video import extract_frames, frame_process, video_to_patches
+        from .models import vision
+        from .models.model import get_rope_index
+
+        vcfg = self.config.vision_config
+        m2 = vcfg.spatial_merge_size ** 2
+        mt = int(max_audio_seconds * 50) if max_audio_seconds is not None else None
+        mn = int(min_audio_seconds * 50) if min_audio_seconds is not None else None
+        text_input, feats, grids, spgts, vision_s = [], [], [], [], []
+        with torch.inference_mode():
+            for v, c in zip(video, caption):
+                if isinstance(v, str):
+                    pixels = frame_process(extract_frames(v, sampling_fps, max_frames),
+                                           total_pixels=total_pixels, min_pixels=28 * 28)
+                else:
+                    pixels = np.asarray(v, dtype=np.float32)
+                patches, grid = video_to_patches(
+                    pixels, patch_size=vcfg.patch_size,
+                    temporal_patch_size=vcfg.temporal_patch_size,
+                    merge_size=vcfg.spatial_merge_size)
+                t0 = time.perf_counter()
+                f = vision.vision_forward(self.params["vision"],
+                                          torch.as_tensor(patches, device=self.device),
+                                          grid[None], vcfg)
+                _sync(self.device)
+                vision_s.append(time.perf_counter() - t0)
+                span = ("<|vision_start|>" + "<|video_pad|>" * (patches.shape[0] // m2)
+                        + "<|vision_end|>")
+                for cap in (T2M_NEGATIVE_CAPTION, c):        # the CFG pair shares the video
+                    text_input.append(SYSTEM_MESSAGE + INPUT_FORMAT.format(span + music_span(cap))
+                                      + AUDIO_START)
+                    feats.append(f)
+                    grids.append(grid)
+                    spgts.append(vcfg.temporal_patch_size / fps)
+            ids, mask = self._tokenize(text_input)
+            # The features at the video-token slots, row by row.
+            visual_mask = (ids == self.config.video_token_id).astype(np.int32)
+            visual_embeds = torch.zeros(*ids.shape, feats[0].shape[-1], dtype=feats[0].dtype,
+                                        device=self.device)
+            for r in range(ids.shape[0]):
+                slots = np.flatnonzero(visual_mask[r])
+                assert len(slots) == feats[r].shape[0], (
+                    f"video tokens {len(slots)} != features {feats[r].shape[0]}")
+                visual_embeds[r, torch.as_tensor(slots, device=self.device)] = feats[r]
+        position_ids, deltas = get_rope_index(
+            ids, self.config, video_grid_thw=np.stack(grids), second_per_grid_ts=spgts,
+            attention_mask=mask)
+        t0 = time.time()
+        paths = self._generate_core(
+            ids, mask, None, save_name, rebuild_codec, output_dir, cfg_scale, temperature, top_p,
+            cfg_filter_top_k, eos_prob_mul_factor, do_sample, seed,
+            max_tokens=mt, min_tokens=mn, visual_embeds=visual_embeds,
+            visual_mask=visual_mask, prefill_position_ids=position_ids, rope_deltas=deltas)
+        self.last_timings["vision_s"] = vision_s
+        print(f"Video music generation completed! Time: {time.time() - t0:.2f}s")
+        return paths
 
 
 def create_unimoe_audio(model_path: str, device_id: int = 0) -> UniMoEAudio:

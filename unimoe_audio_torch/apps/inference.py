@@ -8,9 +8,12 @@ and the same flags and task names.
         --input "Hello there." --ref-audio voice.wav --ref-text "Its transcript." \\
         --model path/to/model --output ./output
 
+    python -m unimoe_audio_torch.apps.inference --task video_text_to_music \\
+        --input "Calm piano." --video clip.mp4 --model path/to/model
+
 Runs on `cuda:{--device}`; `--cpu` runs on the CPU.  `--allow-random`
-serves random weights (development and smoke runs).  video_text_to_music
-comes with the VT2M slice and raises NotImplementedError.
+serves random weights (development and smoke runs).  Reading a video file
+needs OpenCV (`cv2`).
 """
 
 from __future__ import annotations
@@ -66,8 +69,6 @@ def inference(
     """One generation call; returns the output path(s), or None when the
     generation failed (the failure is printed), as the reference's entry
     point does.  device (for example "cpu") overrides `cuda:{device_id}`."""
-    if task == "video_text_to_music":
-        raise NotImplementedError("video_text_to_music comes with the VT2M slice of the port")
     try:
         model = _get_model(model_path, device_id, reuse_model, allow_random, device)
         os.makedirs(output_path, exist_ok=True)
@@ -80,6 +81,10 @@ def inference(
             result = model.text_to_speech(transcription=input_text,
                                           prompt_transcription=ref_text,
                                           prompt_wav=ref_audio, output_dir=output_path)
+        elif task == "video_text_to_music":
+            _require_file(video_path, "video (--video)")
+            result = model.video_text_to_music(video=video_path, caption=input_text,
+                                               output_dir=output_path)
         else:
             raise ValueError(f"unknown task {task!r}; expected one of {', '.join(TASKS)}")
         if result:

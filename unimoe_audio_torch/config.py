@@ -1,8 +1,7 @@
 """Configuration of the PyTorch port — its own copy of
 `unimoe_audio_tpu/config.py`, so the port imports nothing of the JAX
 package.  Same dataclasses, field names, defaults and `config.json`
-reading; `VisionConfig` is kept for the config round-trip only (the
-vision tower comes with a later slice).
+reading.
 """
 
 from __future__ import annotations

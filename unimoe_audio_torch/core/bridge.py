@@ -85,9 +85,11 @@ def params_from_jax(tree: Dict, cfg: UniMoEAudioConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Dict:
     """JAX model params (numpy leaves) → the port's param dict, with
     `layers` as a list of per-layer dicts.  dtype=None keeps each leaf's
-    dtype; otherwise floating leaves are cast to dtype."""
-    if "vision" in tree or "peft" in tree:
-        raise NotImplementedError("vision and PEFT params come with later slices")
+    dtype; otherwise floating leaves are cast to dtype.  The vision tower
+    (`"vision"`, its blocks a list in both packages) is copied as it is,
+    QTensor leaves included."""
+    if "peft" in tree:
+        raise NotImplementedError("PEFT params come with the PEFT slice")
     out = to_torch({k: v for k, v in tree.items() if k != "layers"}, device, dtype)
     stacked = to_torch(tree["layers"], device, dtype, "/layers")
     L = stacked["input_layernorm"].shape[0]

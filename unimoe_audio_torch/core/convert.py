@@ -1,7 +1,6 @@
 """Weight converters: torch / HF checkpoints → the JAX package's param
 layout, with numpy and torch only — counterpart of
-`unimoe_audio_tpu/core/convert.py` (the vision tower's converter comes with
-the VT2M slice).
+`unimoe_audio_tpu/core/convert.py`.
 
 Two weight sources:
   * the DAC codec checkpoint `weights_16khz.pth` (torch, weight-normed
@@ -162,7 +161,9 @@ def convert_model_state_dict(sd: Dict[str, Any], cfg) -> Dict:
       language_model.norm.weight / lm_head.weight (tied to the embedding
           when absent)
       codec_embed_tokens.{c}.weight / codec_head.weight
-    Bias-free q/k/v get zero biases.  `visual.*` weights are not read."""
+    Bias-free q/k/v get zero biases.  When the config has a vision tower
+    and the state dict holds its weights, `visual.*` goes through
+    `convert_vision_state_dict` into "vision"."""
     tc = cfg.text_config
     L = tc.num_hidden_layers
 
@@ -208,7 +209,7 @@ def convert_model_state_dict(sd: Dict[str, Any], cfg) -> Dict:
                       for p in ("gate", "up", "down")},
         },
     }
-    return {
+    params = {
         "embed_tokens": get("language_model.embed_tokens.weight"),
         "layers": layers,
         "norm": get("language_model.norm.weight"),
@@ -217,6 +218,47 @@ def convert_model_state_dict(sd: Dict[str, Any], cfg) -> Dict:
         "codec_embed": np.stack([get(f"codec_embed_tokens.{c}.weight")
                                  for c in range(cfg.codec_channels)]),
         "codec_head": get("codec_head.weight", transpose=True),
+    }
+    if cfg.vision_config is not None and "visual.patch_embed.proj.weight" in sd:
+        params["vision"] = convert_vision_state_dict(sd, cfg.vision_config)
+    return params
+
+
+def convert_vision_state_dict(sd: Dict[str, Any], vcfg) -> Dict:
+    """The HF `visual.*` weights → the vision tower's layout
+    (`models/vision.py`, numpy leaves; `convert.py:277-319`).  The conv3d
+    patch embed [D, C, tps, ps, ps] flattens to a [C·tps·ps·ps, D] matmul
+    weight (kernel == stride, so the two are equal).  Names:
+      visual.patch_embed.proj.weight
+      visual.blocks.{i}.norm1.weight / norm2.weight
+      visual.blocks.{i}.attn.qkv / attn.proj .weight / .bias
+      visual.blocks.{i}.mlp.{gate,up,down}_proj .weight / .bias
+      visual.merger.ln_q.weight, visual.merger.mlp.{0,2} .weight / .bias
+    A missing bias becomes zeros (f32)."""
+
+    def get(name, transpose=False):
+        t = _np(sd[name])
+        return t.T if transpose else t
+
+    def lin(prefix):
+        w = get(f"{prefix}.weight", transpose=True)
+        b = get(f"{prefix}.bias") if f"{prefix}.bias" in sd else \
+            np.zeros(w.shape[-1], dtype=np.float32)
+        return {"w": w, "b": b}
+
+    pe = _np(sd["visual.patch_embed.proj.weight"])              # [D, C, tps, ps, ps]
+    blocks = [{
+        "norm1": get(f"visual.blocks.{i}.norm1.weight"),
+        "norm2": get(f"visual.blocks.{i}.norm2.weight"),
+        "qkv": lin(f"visual.blocks.{i}.attn.qkv"),
+        "proj": lin(f"visual.blocks.{i}.attn.proj"),
+        "mlp": {p: lin(f"visual.blocks.{i}.mlp.{p}_proj") for p in ("gate", "up", "down")},
+    } for i in range(vcfg.depth)]
+    return {
+        "patch_embed": pe.reshape(pe.shape[0], -1).T,
+        "blocks": blocks,
+        "merger": {"ln_q": get("visual.merger.ln_q.weight"),
+                   "fc1": lin("visual.merger.mlp.0"), "fc2": lin("visual.merger.mlp.2")},
     }
 
 
@@ -280,11 +322,15 @@ def convert_model_weights(model_dir: str, out_path: str, dtype="bfloat16") -> No
     def cast(x):
         if isinstance(x, dict):
             return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cast(v) for v in x]
         return torch.from_numpy(np.ascontiguousarray(x)).to(t_dtype)
 
     def encode(x):
         if isinstance(x, dict):
             return {k: encode(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [encode(v) for v in x]
         if x.dtype == torch.bfloat16:
             return {"__bf16__": x.view(torch.int16).numpy().view(np.uint16)}
         return x.numpy()

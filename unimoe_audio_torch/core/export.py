@@ -5,7 +5,8 @@ self-calibration) — counterpart of `unimoe_audio_tpu/core/export.py:84-149`.
 The port writes `serving.torch.pkl`, a pickle that numpy alone reads:
 
   {"config": dict, "serving_mode": ..., "kv_cache_dtype": ...,
-   "params": tree in the JAX package's layout (layer-stacked [L, ...])}
+   "params": tree in the JAX package's layout (layer-stacked [L, ...];
+             the vision tower's blocks, where present, a list)}
 
 with each leaf a numpy array, or {"__bf16__": uint16 bits} for bf16, or a
 quantized leaf {"__qtensor__": True, "int4": bool, "q": int8 values or, for
@@ -97,6 +98,8 @@ def _decode(node):
         return torch.from_numpy(node["__bf16__"].view(np.int16)).view(torch.bfloat16)
     if isinstance(node, dict):
         return {k: _decode(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_decode(v) for v in node]
     return node
 
 

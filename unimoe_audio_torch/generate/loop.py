@@ -49,6 +49,7 @@ class LoopState:
     finished_step: torch.Tensor  # [B] int32
     guidance_loss: torch.Tensor  # f32 sum of the weighted NLL so far
     guidance_count: torch.Tensor  # int32 valid labels so far
+    pos_base: torch.Tensor       # [2B] mRoPE position of decode step 0
 
 
 def _sync(device: torch.device) -> None:
@@ -91,6 +92,10 @@ def generate(
     guidance_labels: Optional[torch.Tensor] = None,
     debug_guidance_step: int = 0,
     decode_emit: Optional[bool] = None,
+    visual_embeds: Optional[torch.Tensor] = None,         # [2B, T_text, D]
+    visual_mask: Optional[torch.Tensor] = None,           # [2B, T_text], 1 = vision slot
+    prefill_position_ids: Optional[torch.Tensor] = None,  # [3, 2B, T_text] mRoPE
+    rope_deltas: Optional[torch.Tensor] = None,           # [2B] or [2B, 1]
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
@@ -109,7 +114,14 @@ def generate(
     guidance_loss is the mean over the valid labels.  debug_guidance_step
     forces the labels in as the predictions of the steps before it (-1: of
     every step).  decode_emit=False runs the decode steps through the
-    general cache arithmetic (`models/model.text_model_forward`)."""
+    general cache arithmetic (`models/model.text_model_forward`).
+
+    Vision inputs (`loop.py:178-190`) shape the prefill only: visual_embeds
+    replace the embeddings where visual_mask is set (cast to the
+    embedding's dtype), prefill_position_ids replace the 1-D text
+    positions, and decode starts each row at T_text + rope_deltas
+    (`decode_position_base`).  A resumed call takes all of that from the
+    state."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -137,9 +149,15 @@ def generate(
             t0 = time.perf_counter()
         inputs_embeds = calculate_input_embedding(
             params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
-        pos = torch.cumsum(attention_mask, dim=-1) - 1
-        pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
-        position_ids = pos[None].expand(3, B2, T_text)
+        if visual_embeds is not None:
+            inputs_embeds = torch.where(visual_mask[..., None] > 0,
+                                        visual_embeds.to(inputs_embeds.dtype), inputs_embeds)
+        if prefill_position_ids is not None:
+            position_ids = prefill_position_ids
+        else:
+            pos = torch.cumsum(attention_mask, dim=-1) - 1
+            pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+            position_ids = pos[None].expand(3, B2, T_text)
         cache = KVCache.create(tc.num_hidden_layers, B2, T_total, tc.num_key_value_heads,
                                tc.head_dim, device=dev,
                                dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
@@ -165,6 +183,7 @@ def generate(
             finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
             guidance_loss=torch.zeros((), dtype=torch.float32, device=dev),
             guidance_count=torch.zeros((), dtype=torch.int32, device=dev),
+            pos_base=decode_position_base(attention_mask.sum(dim=-1), T_text, rope_deltas),
         )
         if timings is not None:
             _sync(dev)
@@ -176,7 +195,6 @@ def generate(
     if timings is not None:
         _sync(dev)
         t1 = time.perf_counter()
-    step_pos_base = decode_position_base(attention_mask.sum(dim=-1), T_text)   # [2B]
     stop_step = max_tokens if stop_at is None else min(stop_at, max_tokens)
     key_idx = torch.arange(T_total, device=dev)[None, :]
     text_valid = F.pad(attention_mask, (0, T_total - T_text), value=1)
@@ -195,7 +213,7 @@ def generate(
 
         tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
         emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
-        position_ids = (step_pos_base + rel)[None, :, None].expand(3, B2, 1)
+        position_ids = (s.pos_base + rel)[None, :, None].expand(3, B2, 1)
         kv_valid = torch.where(key_idx < T_text, text_valid,
                                (key_idx <= cache_pos).to(torch.int32))
         out = text_model_forward(
@@ -301,7 +319,11 @@ def generate_chunked(
     """`generate` with a KV cache that grows across decode chunks
     (`loop.py:456-530`): each chunk of `chunk_frames` steps attends over a
     right-sized cache, grown (one copy) between chunks.  Same result as one
-    `generate` call."""
+    `generate` call.  The vision inputs (visual_embeds, visual_mask,
+    prefill_position_ids, rope_deltas) go to the first chunk only; later
+    chunks resume from its state."""
+    vision = {k: kwargs.pop(k, None) for k in ("visual_embeds", "visual_mask",
+                                               "prefill_position_ids", "rope_deltas")}
     T_text = input_ids.shape[1]
     max_tokens = kwargs.pop("max_tokens")
     return_state = kwargs.pop("return_state", False)
@@ -319,7 +341,8 @@ def generate_chunked(
         res, state = generate(
             params, cfg, input_ids, attention_mask, codec_input_ids, prefill_buf,
             prefill_steps, gen, state, min(stop, max_tokens),
-            max_tokens=max_tokens, cache_len=cache_len, return_state=True, **kwargs)
+            max_tokens=max_tokens, cache_len=cache_len, return_state=True,
+            **(vision if state is None else {}), **kwargs)
         if bool((state.eos_countdown == 0).all()) or state.dec_step >= max_tokens:
             return (res, state) if return_state else res
         stop += chunk_frames

@@ -15,6 +15,7 @@ as a Python loop over them:
     "lm_head": [D, V],
     "codec_embed": [C, Vc, D],
     "codec_head": [D, C·Vc],
+    "vision": the vision tower (`models/vision.py`), when present,
   }
 """
 
@@ -31,6 +32,7 @@ from ..moe.block import dcmoe_block, init_dcmoe_params
 from ..ops.quant import matmul
 from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
                      rms_norm)
+from .vision import init_vision_params, vision_forward
 
 
 class TextModelOutput(NamedTuple):
@@ -194,6 +196,92 @@ def align_codec_ids(input_ids, flat_codec_ids, placeholder_id) -> np.ndarray:
     return out
 
 
+def get_rope_index(input_ids, cfg: UniMoEAudioConfig, *, image_grid_thw=None,
+                   video_grid_thw=None, second_per_grid_ts=None, attention_mask=None):
+    """mRoPE position ids of text + vision sequences, host numpy
+    (`model.py:321-409`): text tokens advance the three rows together; each
+    image or video span advances (t, h, w) over its merged grid, video time
+    scaled by second_per_grid_t x tokens_per_second; left pads (mask 0)
+    take position 1.  Returns (position_ids [3, B, T], rope_deltas [B, 1]),
+    the delta being max position + 1 - T per row (negative after a vision
+    span)."""
+    input_ids = np.asarray(input_ids)
+    B, T = input_ids.shape
+    if image_grid_thw is None and video_grid_thw is None:
+        if attention_mask is not None:
+            mask = np.asarray(attention_mask)
+            pos = np.where(mask == 0, 1, np.cumsum(mask, axis=-1) - 1)
+            position_ids = np.broadcast_to(pos[None], (3, B, T)).copy()
+            deltas = position_ids.max(axis=0).max(axis=-1, keepdims=True) + 1 - T
+            return position_ids, deltas
+        pos = np.broadcast_to(np.arange(T)[None], (B, T))
+        return np.broadcast_to(pos[None], (3, B, T)).copy(), np.zeros((B, 1), np.int64)
+
+    sms = cfg.vision_config.spatial_merge_size
+    tps = cfg.vision_config.tokens_per_second
+    attention_mask = np.ones_like(input_ids) if attention_mask is None \
+        else np.asarray(attention_mask)
+    position_ids = np.ones((3, B, T), dtype=np.int64)
+    deltas = []
+    img_i = vid_i = 0
+    for b in range(B):
+        ids = input_ids[b][attention_mask[b] == 1]
+        toks = ids.tolist()
+        vis_starts = np.where(ids == cfg.vision_start_token_id)[0]
+        vis_starts = vis_starts[vis_starts + 1 < len(ids)]        # drop a dangling span
+        vis_kinds = ids[vis_starts + 1] if len(vis_starts) else np.array([])
+        remain_i = n_images = int((vis_kinds == cfg.image_token_id).sum())
+        remain_v = n_videos = int((vis_kinds == cfg.video_token_id).sum())
+        parts = []
+        st = 0
+        for _ in range(n_images + n_videos):
+            ed_img = toks.index(cfg.image_token_id, st) if (
+                cfg.image_token_id in toks[st:] and remain_i > 0) else len(toks) + 1
+            ed_vid = toks.index(cfg.video_token_id, st) if (
+                cfg.video_token_id in toks[st:] and remain_v > 0) else len(toks) + 1
+            if ed_img < ed_vid:
+                t, h, w = np.asarray(image_grid_thw)[img_i]
+                spgt = 0
+                img_i += 1
+                remain_i -= 1
+                ed = ed_img
+            else:
+                t, h, w = np.asarray(video_grid_thw)[vid_i]
+                spgt = second_per_grid_ts[vid_i] if second_per_grid_ts is not None else 1.0
+                vid_i += 1
+                remain_v -= 1
+                ed = ed_vid
+            gt, gh, gw = int(t), int(h) // sms, int(w) // sms
+            text_len = ed - st
+            st_idx = parts[-1].max() + 1 if parts else 0
+            parts.append(np.broadcast_to(np.arange(text_len)[None], (3, text_len)) + st_idx)
+            t_idx = (np.arange(gt)[:, None] * spgt * tps).astype(np.int64)
+            t_idx = np.broadcast_to(t_idx, (gt, gh * gw)).reshape(-1)
+            h_idx = np.broadcast_to(np.arange(gh)[None, :, None], (gt, gh, gw)).reshape(-1)
+            w_idx = np.broadcast_to(np.arange(gw)[None, None, :], (gt, gh, gw)).reshape(-1)
+            parts.append(np.stack([t_idx, h_idx, w_idx]) + text_len + st_idx)
+            st = ed + gt * gh * gw
+        if st < len(toks):
+            st_idx = parts[-1].max() + 1 if parts else 0
+            text_len = len(toks) - st
+            parts.append(np.broadcast_to(np.arange(text_len)[None], (3, text_len)) + st_idx)
+        llm_pos = np.concatenate(parts, axis=1)
+        position_ids[:, b, attention_mask[b] == 1] = llm_pos
+        deltas.append(llm_pos.max() + 1 - len(input_ids[b]))
+    return position_ids, np.asarray(deltas)[:, None]
+
+
+def scatter_vision_features(inputs_embeds: torch.Tensor, input_ids: torch.Tensor,
+                            feats: torch.Tensor, token_id: int) -> torch.Tensor:
+    """Order-preserving scatter: the j-th `token_id` slot of the flattened
+    batch, in reading order, takes feats[j] (`model.py:474-491`)."""
+    B, T = input_ids.shape
+    vmask = input_ids == token_id
+    slot = torch.cumsum(vmask.reshape(-1), 0) - 1
+    gathered = feats[slot.clamp(0, feats.shape[0] - 1)].reshape(B, T, -1)
+    return torch.where(vmask[..., None], gathered.to(inputs_embeds.dtype), inputs_embeds)
+
+
 def codec_logits_from_hidden(params: Dict, hidden: torch.Tensor,
                              cfg: UniMoEAudioConfig) -> torch.Tensor:
     """[B, T, D] → [B, T, C, Vc] codec logits (fp32)."""
@@ -238,8 +326,10 @@ def model_forward(
     labels: Optional[torch.Tensor] = None,            # [B, T] text labels, -100 = ignore
     aux_balance_weight: Optional[torch.Tensor] = None,
     aux_loss_weight=0.0,
-    pixel_values: Optional[torch.Tensor] = None,
+    pixel_values: Optional[torch.Tensor] = None,         # [S_patches, patch_dim]
+    image_grid_thw=None,                                 # host numpy [n, 3]
     pixel_values_videos: Optional[torch.Tensor] = None,
+    video_grid_thw=None,
     training: bool = False,
     seed: Optional[int] = None,
     remat: bool = False,
@@ -251,9 +341,9 @@ def model_forward(
     (`model.py:432-567`): input embedding with the codec scatter, the
     decoder stack, the lm and codec heads, the per-channel shifted codec CE
     summed over channels, the optional text-label CE, plus
-    aux_loss_weight · mean(aux)."""
-    if pixel_values is not None or pixel_values_videos is not None:
-        raise NotImplementedError("vision inputs come with the VT2M slice")
+    aux_loss_weight · mean(aux).  Image and video patches go through the
+    vision tower (`params["vision"]`) and its features replace the
+    embeddings of the image and video token slots, in reading order."""
     tc = cfg.text_config
     B, T = input_ids.shape
     if attention_mask is None:
@@ -261,6 +351,11 @@ def model_forward(
     if inputs_embeds is None:
         inputs_embeds = calculate_input_embedding(
             params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
+    for pv, grid, tok_id in ((pixel_values, image_grid_thw, cfg.image_token_id),
+                             (pixel_values_videos, video_grid_thw, cfg.video_token_id)):
+        if pv is not None:
+            feats = vision_forward(params["vision"], pv, grid, cfg.vision_config)
+            inputs_embeds = scatter_vision_features(inputs_embeds, input_ids, feats, tok_id)
     if position_ids is None:
         pos = torch.cumsum(attention_mask, dim=-1) - 1
         pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
@@ -295,12 +390,14 @@ def model_forward(
 
 
 def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bfloat16,
-                      device="cuda") -> Dict:
+                      device="cuda", with_vision: bool = False) -> Dict:
     """Random weights made directly on `device`, tensor by tensor in the
     working dtype (the DCMoE router stays f32, as in the JAX init), from a
     seeded torch.Generator on that device.  The layout and scales follow
     `init_model_params` in the JAX package; the numbers differ (another
-    generator)."""
+    generator).  with_vision adds the vision tower when the config has one,
+    from a generator of its own (seed `fold_seed(seed, 6)`), so the
+    decoder's weights are the same with and without it."""
     tc = cfg.text_config
     Dm, V = tc.hidden_size, tc.vocab_size
     C, Vc = cfg.codec_channels, cfg.codec_embed_size
@@ -320,7 +417,7 @@ def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bflo
         "attn": init_attention_params(gen, tc, dtype=dtype, device=device),
         "moe": init_dcmoe_params(gen, tc, dtype=dtype, device=device),
     } for _ in range(tc.num_hidden_layers)]
-    return {
+    params = {
         "embed_tokens": nrm((V, Dm), std),
         "layers": layers,
         "norm": ones(Dm),
@@ -328,3 +425,7 @@ def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bflo
         "codec_embed": nrm((C, Vc, Dm), std),
         "codec_head": nrm((Dm, C * Vc), Dm ** -0.5),
     }
+    if with_vision and cfg.vision_config is not None:
+        params["vision"] = init_vision_params(cfg.vision_config, seed=fold_seed(seed, 6),
+                                              dtype=dtype, device=device)
+    return params

@@ -327,6 +327,26 @@ def quantize_model_params_inplace(params: Dict) -> Dict:
     return kmajor_experts(params)
 
 
+def quantize_vision_params(vision: Dict) -> Dict:
+    """Int8 per-channel weights for the vision tower (`quant.py:322-347`):
+    the patch embed and every projection of the blocks and the merger;
+    norms and biases stay as they are.  Returns a new tree (containers
+    copied, the other leaves shared)."""
+
+    def q(proj):
+        return {**proj, "w": quantize_tensor(proj["w"])}
+
+    return {
+        **vision,
+        "patch_embed": quantize_tensor(vision["patch_embed"]),
+        "blocks": [{**blk, "qkv": q(blk["qkv"]), "proj": q(blk["proj"]),
+                    "mlp": {k: q(v) for k, v in blk["mlp"].items()}}
+                   for blk in vision["blocks"]],
+        "merger": {**vision["merger"], "fc1": q(vision["merger"]["fc1"]),
+                   "fc2": q(vision["merger"]["fc2"])},
+    }
+
+
 def quantize_model_params(params: Dict) -> Dict:
     """`quantize_model_params_inplace` on a copy of the containers (leaves
     shared, not copied) (`quant.py:432-465`)."""

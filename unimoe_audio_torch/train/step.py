@@ -200,7 +200,7 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
     """The training loss and its metrics (`step.py:124-208`); `seed` stands
     for the JAX rng key; dispatch_mode and capacity go to the DCMoE blocks."""
     if any(k.startswith("vision_") or k in ("pixel_values", "image_grid_thw") for k in batch):
-        raise NotImplementedError("vision training comes with the VT2M slice")
+        raise NotImplementedError("vision training comes with the training slice (ROADMAP §1 item 7)")
     if "peft" in params:
         raise NotImplementedError("PEFT adapters come with the PEFT slice")
     out = model_forward(

@@ -172,7 +172,7 @@ class Trainer:
 
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         if "pixel_values" in batch:
-            raise NotImplementedError("vision batches come with the VT2M slice")
+            raise NotImplementedError("vision batches come with the training slice (ROADMAP §1 item 7)")
         return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
 
     @torch.no_grad()
