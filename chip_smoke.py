@@ -51,6 +51,19 @@ failure:
      per video, K1 at that prefill's shape against its plain version, and
      two reference checks, card vs CPU in f32: the tower at full width cut
      to 8 blocks, and a 2-layer flagship-width VT2M prefill fed by it;
+   - the serving apps on the same model: one `generate_mixed` batch of two
+     T2M requests, a voice-clone TTS request and a VT2M request, sampled
+     with a seed each (every stream within its budget, one prefill); the
+     continuous slot server (`continuous_server(deterministic=True)`, 4
+     slots, t_text 256, a 400-frame horizon, 32-frame chunks) on six
+     greedy requests, two admitted mid-flight and one after a compaction
+     (every request back within its budget, one K1 prefill per
+     admission), then K1 at the admission shape against its plain version
+     and a 2-layer f32 server against standalone decodes on the card
+     (share of equal frames); `text_to_music_speculative` against greedy
+     `text_to_music(decode_emit=False)`; `serve.measure_ttfa`; and the
+     studio's HTTP server on 127.0.0.1 (one POST /api/generate, a GET of
+     its wav);
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
@@ -247,6 +260,58 @@ VT2M_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
 VT2M_INT8_VIDEOS = ("A", "C")
 VT2M_INT8_SECONDS = 1
 
+# The serving apps on the flagship (`run_serving_apps`).
+#   Mixed batch: one generate_mixed call, sampled, a seed per request:
+#   two T2M requests (cfg 10 and 5; 1 s and 3 s), a voice-clone TTS request
+#   on the TTS phase's 3 s prompt (2 s) and a VT2M request on video C (2 s).
+MIXED_T2M = ((10.0, 1.0, 58), (5.0, 3.0, 74))     # (cfg_scale, seconds, caption words)
+MIXED_TTS_SECONDS = 2.0
+MIXED_VT2M_SECONDS = 2.0
+#   Continuous: a deterministic (dense) SlotServer of SERVE_SLOTS slots,
+#   t_text SERVE_T_TEXT, a SERVE_HORIZON-frame decode region and chunks of
+#   SERVE_CHUNK frames; greedy.  Four T2M requests of SERVE_T2M_SECONDS
+#   first (their minimum is their budget, so they end at frames 50, 75,
+#   100 and at most 125); after the first chunk a VT2M request (video C)
+#   and a TTS request on the 3 s prompt.  The VT2M request takes the first
+#   slot that frees (frame 64).  The TTS request's budget is set so that it
+#   does not fit the horizon at the second (frame 96) but fits 32 frames
+#   lower: on the flagship 283 frames (96 + 283 + 19 prompt frames + 18
+#   delay + 2 > 402 buffer frames).  It waits until the T2M rows retire at
+#   frame 128, when the server compacts the dead prefix below the VT2M row
+#   (64 frames) and admits it at frame 64.
+SERVE_SLOTS, SERVE_T_TEXT, SERVE_HORIZON, SERVE_CHUNK = 4, 256, 400, 32
+SERVE_T2M_SECONDS = (1.0, 1.5, 2.0, 2.5)
+SERVE_VT2M_SECONDS = 2.0
+#   The reference checks of the serving apps run a 2-layer flagship-width
+#   f32 model on the card (weights from seed 3; `check_serving_reference`):
+#   - a mixed batch of the four tasks, sampled, a seed each, short (t_text
+#     under 128: K1 takes bf16 only), against each request alone through
+#     generate_mixed: the witness that a seeded request's draws do not
+#     depend on its batch on the card, printed beside the flagship's bf16
+#     shares;
+#   - the continuous schedule at half the scale (chunks of
+#     SERVE_REF_CHUNK, horizon SERVE_REF_HORIZON, the T2M rows retiring 2,
+#     3 and 4 chunks in), so that it compacts as the flagship's does, with
+#     short requests (t_text under 128, so that the f32 prefill takes the
+#     einsum path: K1 takes bf16 only), against each request decoded alone
+#     by `generate` on the card.
+#   Each is gated on the least share of equal frames (codec frames of the
+#   delayed domain, up to each request's span).  The first reading of the
+#   continuous one on an H100 was 1.0000; the bound tolerates a late
+#   reduction-order flip of a near-tied argmax in one request, not an early
+#   divergence.
+SERVE_REF_SECONDS = (0.6, 0.8, 1.0, 1.2, 0.8)  # 4 T2M, VT2M; the late TTS from the horizon
+SERVE_REF_HORIZON, SERVE_REF_CHUNK = 160, 16
+SERVE_REF_EQUAL_SHARE = 0.95
+#   Speculative: one caption, SPEC_SECONDS, spec_len SPEC_LEN, the first
+#   SPEC_DRAFT_LAYERS layers as the draft; against greedy text_to_music
+#   with decode_emit=False on the same prompt.
+SPEC_SECONDS, SPEC_LEN, SPEC_DRAFT_LAYERS = 2.0, 4, 9
+#   Time to first audio: TTFA_TRIALS timed calls after a first one.
+TTFA_TRIALS = 5
+#   The studio: one POST /api/generate of STUDIO_SECONDS of music.
+STUDIO_SECONDS = 1.0
+
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
 
@@ -374,15 +439,18 @@ def allowed_mask(valid, T, S, causal=True):
     return (valid[:, None, :] > 0) & tri                                  # [B, T, S]
 
 
-def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True) -> float:
-    """Kernel vs plain version; dead rows exactly 0.  Returns max |err|."""
+def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None) -> float:
+    """Kernel vs plain version; dead rows exactly 0.  Returns max |err|.
+    The keys' validity is `pads` left pads per row, or the mask `valid`
+    [B, S] where it is given."""
     import torch
     from unimoe_audio_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
 
-    valid = np.ones((B, S), np.int32)
-    for b, p in enumerate(pads):
-        valid[b, :p] = 0
+    if valid is None:
+        valid = np.ones((B, S), np.int32)
+        for b, p in enumerate(pads):
+            valid[b, :p] = 0
     q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed)
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
     torch.cuda.synchronize()
@@ -1116,7 +1184,8 @@ def time_flash(tc, mask, launches, card, path: str):
     B, T = mask.shape
     H, KV, Dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     q, k, v, vt = flash_inputs(B, H, KV, T, T, Dh, mask, seed=5)
-    err = check_flash(B, H, KV, T, T, Dh, [int((mask[b] == 0).sum()) for b in range(B)], seed=5)
+    pads = [int((mask[b] == 0).sum()) for b in range(B)]
+    err = check_flash(B, H, KV, T, T, Dh, pads, seed=5, valid=np.asarray(mask, np.int32))
 
     kk = k.repeat_interleave(H // KV, dim=1)
     vv = v.repeat_interleave(H // KV, dim=1)
@@ -1158,7 +1227,7 @@ def time_flash(tc, mask, launches, card, path: str):
         return "not measured" if x is None else f"{x:.4f} ms"
 
     print(f"kernel timing [{card}]: flash_attention_fwd at the {path} prefill shape B={B} H={H} "
-          f"KV={KV} T=S={T} Dh={Dh}, left pads {[int((mask[b] == 0).sum()) for b in range(B)]}: "
+          f"KV={KV} T=S={T} Dh={Dh}, pads {pads}: "
           f"kernel {ms:.4f} ms (graph replay, L2 cold: {g(graph)}), plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms (graph replay: {g(library_graph)}), bound "
           f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} ({nbytes / 1e6:.2f} MB, "
@@ -1836,6 +1905,421 @@ def run_vt2m_int8(model, card: str, out_dir: str) -> dict:
           f"decode {t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame; flash launches "
           f"{launches['flash_attention_fwd']}", flush=True)
     return launches
+
+
+def _equal_frame_share(pairs, max_delay: int) -> float:
+    """Share of equal codec frames over (codes_a, len_a, codes_b, len_b)
+    pairs of delayed-domain codes [T, C], each compared up to its longer
+    span (frames + max_delay)."""
+    equal = total = 0
+    for a, la, b, lb in pairs:
+        n = min(max(la, lb) + max_delay, len(a), len(b))
+        equal += int(np.all(a[:n] == b[:n], axis=-1).sum())
+        total += n
+    return equal / max(total, 1)
+
+
+def _check_wavs(paths, lengths, hop: int, sr: int, label: str) -> None:
+    """Each wav exists and holds max(frames x hop, 1 s) samples of not
+    silent audio."""
+    for p, n in zip(paths, lengths):
+        check(os.path.isfile(p), f"{label}: missing wav {p}")
+        with wave.open(p) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+        check(n > 0 and pcm.size == max(n * hop, sr) and int(np.abs(pcm[:n * hop]).max()) > 0,
+              f"{label}: {p}: {pcm.size} samples for {n} frames, or silent")
+
+
+def _alone_shares(model, reqs, batch_codes, out_dir: str, label: str) -> list:
+    """Each request run alone through generate_mixed with its seed: the
+    share of its frames that equal its stream of the batch."""
+    shares = []
+    for i, r in enumerate(reqs):
+        model.generate_mixed([r], output_dir=out_dir, save_name=f"{label}_alone_{i}")
+        alone = model.last_codes[0]
+        shares.append(_equal_frame_share([(alone, len(alone), batch_codes[i],
+                                           len(batch_codes[i]))], 0))
+    return shares
+
+
+def run_mixed_batch(model, wav: str, card: str, out_dir: str):
+    """One `generate_mixed` batch of MIXED_T2M, a TTS and a VT2M request,
+    sampled with a seed each: every stream within its budget, one prefill
+    (36 K1 launches) and no other kernel; then the first request alone with
+    its seed, the share of its frames that equal its row of the batch, and
+    again at the batch's T_text (not gated: bf16 products over other
+    shapes round differently; the f32 witness is in
+    `check_serving_reference`).  Returns (launch counts, the two shares)."""
+    import torch
+
+    tc = model.config.text_config
+    reqs = [{"task": "text_to_music", "caption": caption(w), "cfg_scale": c, "seed": 100 + i,
+             "max_audio_seconds": s, "min_audio_seconds": 0.5}
+            for i, (c, s, w) in enumerate(MIXED_T2M)]
+    reqs += [{"task": "text_to_speech", "caption": TTS_SENTENCES[1], "prompt_text": TTS_PROMPT_TEXT,
+              "prompt_wav": wav, "seed": 102, "max_audio_seconds": MIXED_TTS_SECONDS,
+              "min_audio_seconds": 0.5},
+             {"task": "video_text_to_music", "caption": caption(40), "video": vt2m_videos(("C",))[0],
+              "seed": 103, "max_audio_seconds": MIXED_VT2M_SECONDS, "min_audio_seconds": 0.5}]
+    budgets = [int(r["max_audio_seconds"] * 50) for r in reqs]
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = model.generate_mixed(reqs, output_dir=out_dir, save_name="mixed")
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    t, codes = model.last_timings, model.last_codes
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers,
+          f"mixed batch: {launches['flash_attention_fwd']} K1 launches, want "
+          f"{tc.num_hidden_layers} (one prefill)")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention_fwd"),
+          f"mixed batch launched a backward or grouped kernel: {launches}")
+    check(len(paths) == len(reqs), f"mixed batch: {len(paths)} wavs for {len(reqs)} requests")
+    check(all(0 < n <= b for n, b in zip(t["lengths"], budgets)),
+          f"mixed batch: frames {t['lengths']} against budgets {budgets}")
+    _check_wavs(paths, t["lengths"], model.dac.config.hop_length, model.dac.config.sample_rate,
+                "mixed batch")
+    audio_s = sum(t["lengths"]) / 50.0
+    print(f"serving [{card}]: mixed batch T2M x2 (cfg 10 / 5) + TTS + VT2M, sampled, seeds "
+          f"100-103: T_text {t['T_text']}, {t['steps']} decode steps, frames {t['lengths']} "
+          f"(budgets {budgets}); K1 launches {launches['flash_attention_fwd']}; tower "
+          f"{sum(t['vision_s']) * 1e3:.2f} ms, prefill {t['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{t['decode_s']:.3f} s ({t['decode_s'] * 1e3 / t['steps']:.2f} ms/frame), DAC "
+          f"{t['dac_s'] * 1e3:.1f} ms; aggregate realtime factor {audio_s / wall_s:.3f} "
+          f"({audio_s:.2f} s of audio in {wall_s:.2f} s, the whole call with the prompt's "
+          f"DAC encode)", flush=True)
+    share = _alone_shares(model, reqs[:1], codes, out_dir, "mixed")[0]
+    alone_T, alone_n = model.last_timings["T_text"], len(model.last_codes[0])
+    # The same request alone at the batch's bucket: its CFG pair left-padded
+    # to the batch's T_text as the batch pads it, so that only the row count
+    # differs from its rows of the batch.
+    r = reqs[0]
+    ids, mask = model._tokenize(_t2m_prompts([r["caption"]]))
+    pad = ((0, 0), (t["T_text"] - ids.shape[1], 0))
+    model._generate_core(
+        np.pad(ids, pad), np.pad(mask, pad), None, "mixed_alone_bucket", None, out_dir,
+        cfg_scale=r["cfg_scale"], eos_prob_mul_factor=0.6, max_tokens=budgets[0],
+        min_tokens=int(r["min_audio_seconds"] * 50), max_tokens_vec=[budgets[0]],
+        sample_seeds=[r["seed"]])
+    at_bucket = model.last_codes[0]
+    bucket_share = _equal_frame_share([(at_bucket, len(at_bucket), codes[0], len(codes[0]))], 0)
+    print(f"serving [{card}]: the first request alone with its seed: at T_text {alone_T}, "
+          f"{alone_n} frames against {len(codes[0])} in the batch, equal frames {share:.3f}; "
+          f"at the batch's T_text {t['T_text']} (2 rows instead of 8), {len(at_bucket)} "
+          f"frames, equal frames {bucket_share:.3f} (neither gated)", flush=True)
+    return launches, (share, bucket_share)
+
+
+def _slot_standalone(params, cfg, req, t_text: int):
+    """A SlotRequest decoded alone by `generate` on the card, its ids and
+    vision inputs right-padded to t_text as the server pads them."""
+    import torch
+    from unimoe_audio_torch.generate.loop import generate, pad_buffer
+    from unimoe_audio_torch.models.model import align_codec_ids
+
+    t_req = req.input_ids.shape[1]
+
+    def pad(a):
+        a = np.asarray(a)
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, t_text - t_req)])
+
+    ids, mask = pad(req.input_ids), pad(req.attention_mask)
+    kw = {}
+    if req.visual_embeds is not None:
+        ve = torch.zeros(2, t_text, req.visual_embeds.shape[-1], dtype=req.visual_embeds.dtype,
+                         device="cuda")
+        ve[:, :t_req] = req.visual_embeds
+        kw = dict(visual_embeds=ve, visual_mask=torch.as_tensor(pad(req.visual_mask), device="cuda"),
+                  prefill_position_ids=torch.as_tensor(pad(req.prefill_position_ids), device="cuda"),
+                  rope_deltas=torch.as_tensor(np.asarray(req.rope_deltas).reshape(-1),
+                                              device="cuda"))
+    codec = None
+    if req.codec_flat is not None:
+        codec = torch.as_tensor(align_codec_ids(ids, np.tile(req.codec_flat, (2, 1)),
+                                                cfg.codec_placeholder_value), device="cuda")
+    res = generate(
+        params, cfg, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"),
+        codec, pad_buffer(torch.as_tensor(req.prefill[None], device="cuda"), req.max_tokens),
+        [req.prefill_steps], torch.Generator(device="cuda"), max_tokens=req.max_tokens,
+        min_tokens=req.min_tokens, cfg_scale=req.cfg_scale, temperature=req.temperature,
+        top_p=req.top_p, cfg_filter_top_k=45, eos_prob_mul_factor=req.eos_prob_mul_factor,
+        sample_seeds=[req.seed], do_sample=False, **kw)
+    return res.codes[0].cpu().numpy(), int(res.lengths[0])
+
+
+def _serve_schedule(server, first, late, chunk_ms=None):
+    """Submit `first`, run one chunk, submit `late`, run until drained;
+    returns the results by rid (each chunk's host-synchronised ms into
+    chunk_ms)."""
+    import torch
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = server.step()
+        torch.cuda.synchronize()
+        if chunk_ms is not None:
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for r in first:
+        server.submit(r)
+    results = step()
+    for r in late:
+        server.submit(r)
+    while server.queue or server.active.any():
+        results += step()
+    return {r.rid: r for r in results}
+
+
+def _late_tts_seconds(first, max_delay: int, horizon: int, chunk: int) -> float:
+    """The late TTS request's budget on the continuous schedule (SERVE_*
+    above): it does not fit the horizon when the second T2M row retires (3
+    chunks in), but fits once the rows of 4 chunks have retired and the
+    server has compacted the 2 chunks below the VT2M row.  In seconds, half
+    a frame over, so that the request's frame count comes out exact."""
+    extra = first.prefill.shape[0] + max_delay + 2
+    return (horizon + 2 - 5 * chunk // 2 - extra + 0.5) / 50
+
+
+def run_continuous(model, wav: str, card: str, out_dir: str):
+    """The continuous slot server on the flagship (SERVE_* above): six
+    greedy requests, two admitted mid-flight, one compaction; every
+    request back within its budget, 36 K1 launches per admission.  Then K1
+    at the admission shape (one request's CFG pair at t_text 256, its left
+    pads from the tokenizer and its right pads from the server).  Returns
+    (launch counts, K1's record at the admission shape)."""
+    import torch
+
+    cfg = model.config
+    tc = cfg.text_config
+    mk = model.make_slot_request
+    first = [mk("t2m", caption=caption(w), seed=200 + i, max_audio_seconds=s, rid=f"t2m{i}")
+             for i, (s, w) in enumerate(zip(SERVE_T2M_SECONDS, (58, 74, 90, 106)))]
+    late = [mk("vt2m", caption=caption(40), video=vt2m_videos(("C",))[0], seed=204,
+               max_audio_seconds=SERVE_VT2M_SECONDS, rid="vt2m"),
+            mk("tts", caption=TTS_SENTENCES[2], prompt_text=TTS_PROMPT_TEXT, prompt_wav=wav,
+               seed=205, rid="tts", max_audio_seconds=_late_tts_seconds(
+                   first[0], cfg.max_delay, SERVE_HORIZON, SERVE_CHUNK))]
+    budgets = {r.rid: r.max_tokens for r in first + late}
+    server = model.continuous_server(slots=SERVE_SLOTS, t_text=SERVE_T_TEXT,
+                                     horizon=SERVE_HORIZON, chunk_frames=SERVE_CHUNK,
+                                     do_sample=False, deterministic=True)
+    chunk_ms = []
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    results = _serve_schedule(server, first, late, chunk_ms)
+    wall_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    admissions = len(budgets)
+    check(set(results) == set(budgets), f"continuous: results {sorted(results)} for "
+          f"{sorted(budgets)}")
+    check(all(0 < results[k].length <= b for k, b in budgets.items()),
+          f"continuous: lengths {[(k, results[k].length) for k in budgets]} against budgets "
+          f"{budgets}")
+    check(server.compactions >= 1, "continuous: no compaction")
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers * admissions,
+          f"continuous: {launches['flash_attention_fwd']} K1 launches, want "
+          f"{tc.num_hidden_layers} x {admissions} admissions")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention_fwd"),
+          f"continuous launched a backward or grouped kernel: {launches}")
+    paths = model.decode_slot_results(list(results.values()), output_dir=out_dir,
+                                      save_name="continuous")
+    _check_wavs(paths, [r.length for r in results.values()], model.dac.config.hop_length,
+                model.dac.config.sample_rate, "continuous")
+    audio_s = sum(r.length for r in results.values()) / 50.0
+    print(f"serving [{card}]: continuous server, {SERVE_SLOTS} slots, t_text {SERVE_T_TEXT}, "
+          f"horizon {SERVE_HORIZON}, chunks of {SERVE_CHUNK}, greedy, dense: "
+          f"{len(chunk_ms)} chunks, {server.compactions} compaction(s), K1 launches "
+          f"{launches['flash_attention_fwd']} ({admissions} admissions); "
+          + "; ".join(f"{k} {r.length}/{budgets[k]} frames, wait {r.wait_s:.3f} s, serve "
+                      f"{r.serve_s:.3f} s" for k, r in results.items()), flush=True)
+    print(f"serving [{card}]: continuous: {float(np.mean(chunk_ms)):.1f} ms per chunk (median "
+          f"{float(np.median(chunk_ms)):.1f}, {SERVE_CHUNK} frames x {2 * SERVE_SLOTS} rows, "
+          f"admissions included); aggregate realtime factor {audio_s / wall_s:.3f} "
+          f"({audio_s:.2f} s of audio in {wall_s:.2f} s)", flush=True)
+    mask = np.pad(first[0].attention_mask, ((0, 0), (0, SERVE_T_TEXT - first[0].input_ids.shape[1])))
+    rec = time_flash(tc, mask, launches, card, "continuous admission")
+    return launches, rec
+
+
+def check_serving_reference(model, card: str, out_dir: str, flagship_shares) -> None:
+    """The serving apps on a 2-layer flagship-width f32 model on the card
+    (weights from seed 3, the flagship's bf16 vision tower; SERVE_REF_*
+    above).  First a mixed batch of the mixed phase's four tasks, made
+    short (t_text under 128: K1 takes bf16 only), sampled, a seed per
+    request, against each request alone: the share of equal frames,
+    printed beside the flagship's bf16 shares of the mixed phase.  Then
+    the continuous schedule at half the scale, which must compact, against
+    each request decoded alone by `generate`: lengths and the share of
+    equal frames.  Both shares at least SERVE_REF_EQUAL_SHARE."""
+    import copy
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.apps.continuous import SlotServer
+    from unimoe_audio_torch.models import model as M
+
+    cfg = dataclasses.replace(model.config, text_config=dataclasses.replace(
+        model.config.text_config, num_hidden_layers=2))
+    params = M.init_model_params(cfg, seed=3, dtype=torch.float32, device="cuda")
+    params["vision"] = model.params["vision"]     # the flagship's tower feeds the VT2M rows
+    ref = copy.copy(model)
+    ref.config, ref.params = cfg, params
+
+    codec = np.random.default_rng(4).integers(0, cfg.codec_eos_value, size=(15, cfg.codec_channels))
+    short = dict(min_audio_seconds=0.5, max_audio_seconds=0.8)
+    reqs = [{"task": "text_to_music", "caption": caption(6), "cfg_scale": 10.0, "seed": 400,
+             **short, "max_audio_seconds": 1.0},
+            {"task": "text_to_music", "caption": caption(8), "cfg_scale": 5.0, "seed": 401, **short},
+            {"task": "text_to_speech", "caption": "Hello there.", "prompt_text": "A short reference.",
+             "prompt_codec": codec, "seed": 402, **short},
+            {"task": "video_text_to_music", "caption": caption(6),
+             "video": vt2m_videos(("C",))[0], "seed": 403, **short}]
+    ref.generate_mixed(reqs, output_dir=out_dir, save_name="mixed_ref")
+    batch_codes, T_text = ref.last_codes, ref.last_timings["T_text"]
+    check(T_text < 128, f"mixed reference: T_text {T_text} takes K1 (bf16 only)")
+    shares = _alone_shares(ref, reqs, batch_codes, out_dir, "mixed_ref")
+    print(f"reference check [{card}]: 2-layer flagship-width f32 mixed batch (T2M x2, TTS, "
+          f"VT2M; sampled, seeds 400-403; T_text {T_text}, 8 rows) vs each request alone (2 "
+          f"rows) through generate_mixed on the card: frames {[len(c) for c in batch_codes]}, "
+          f"equal frames by request {[round(x, 4) for x in shares]} (limit "
+          f"{SERVE_REF_EQUAL_SHARE}); the flagship's bf16 shares of the mixed phase's first "
+          f"request alone {flagship_shares[0]:.3f} and at the batch's T_text "
+          f"{flagship_shares[1]:.3f} (not gated)", flush=True)
+    check(min(shares) >= SERVE_REF_EQUAL_SHARE, f"mixed reference: equal frames {shares}")
+
+    mk = ref.make_slot_request
+    secs = SERVE_REF_SECONDS
+    reqs = [mk("t2m", caption=caption(6 + 2 * i), seed=300 + i, max_audio_seconds=secs[i],
+               rid=f"t2m{i}") for i in range(4)]
+    reqs += [mk("vt2m", caption=caption(6), video=vt2m_videos(("C",))[0], seed=304,
+                max_audio_seconds=secs[4], rid="vt2m"),
+             mk("tts", caption="Hello there.", prompt_text="A short reference.",
+                prompt_codec=codec, seed=305, rid="tts", max_audio_seconds=_late_tts_seconds(
+                    reqs[0], cfg.max_delay, SERVE_REF_HORIZON, SERVE_REF_CHUNK))]
+    t_text = max(r.input_ids.shape[1] for r in reqs)
+    check(t_text < 128, f"continuous reference: t_text {t_text} takes K1 (bf16 only)")
+    with torch.inference_mode():
+        server = SlotServer(params, cfg, slots=SERVE_SLOTS, t_text=t_text,
+                            horizon=SERVE_REF_HORIZON, chunk_frames=SERVE_REF_CHUNK,
+                            do_sample=False)
+        got = _serve_schedule(server, reqs[:4], reqs[4:])
+        alone = {r.rid: _slot_standalone(params, cfg, r, t_text) for r in reqs}
+    pairs = [(got[k].codes, got[k].length, *alone[k]) for k in alone]
+    share = _equal_frame_share(pairs, cfg.max_delay)
+    lengths = {k: (got[k].length, alone[k][1]) for k in alone}
+    print(f"reference check [{card}]: 2-layer flagship-width f32 continuous server (t_text "
+          f"{t_text}, horizon {SERVE_REF_HORIZON}, chunks of {SERVE_REF_CHUNK}, "
+          f"{server.compactions} compaction(s), the TTS budget {reqs[5].max_tokens} frames) vs "
+          f"each request alone through generate on the card: lengths (server, alone) "
+          f"{lengths}; equal frames {share:.4f} (limit {SERVE_REF_EQUAL_SHARE})", flush=True)
+    check(server.compactions >= 1, "continuous reference: no compaction")
+    check(share >= SERVE_REF_EQUAL_SHARE, f"continuous reference: equal frames {share}")
+    del params, ref, server
+    torch.cuda.empty_cache()
+
+
+def run_speculative(model, card: str, out_dir: str) -> dict:
+    """`text_to_music_speculative` (SPEC_*) on one caption that buckets to
+    128 tokens (36 K1 launches in its prefill), against greedy
+    `text_to_music(decode_emit=False)` on the same prompt: frames, cycles,
+    accept rate, ms per frame of both and the share of equal frames (not
+    gated: the verify forward's bf16 GEMMs over 4 frames round otherwise
+    than one frame's)."""
+    tc = model.config.text_config
+    text = caption(58)
+    kw = dict(output_dir=out_dir, max_audio_seconds=SPEC_SECONDS, min_audio_seconds=1)
+    _zero_launch_counts()
+    paths = model.text_to_music_speculative(text, spec_len=SPEC_LEN,
+                                            draft_layers=SPEC_DRAFT_LAYERS, **kw)
+    launches = _launch_counts()
+    st, spec = model.last_timings, model.last_codes[0]
+    check(launches["flash_attention_fwd"] == tc.num_hidden_layers,
+          f"speculative: {launches['flash_attention_fwd']} K1 launches, want "
+          f"{tc.num_hidden_layers} (one prefill)")
+    check(all(n == 0 for k, n in launches.items() if k != "flash_attention_fwd"),
+          f"speculative launched a backward or grouped kernel: {launches}")
+    check(len(paths) == 1 and os.path.isfile(paths[0]) and 0 < len(spec) <= SPEC_SECONDS * 50,
+          f"speculative: {paths}, {len(spec)} frames")
+    model.text_to_music(text, do_sample=False, decode_emit=False, **kw)
+    bt, base = model.last_timings, model.last_codes[0]
+    share = _equal_frame_share([(spec, len(spec), base, len(base))], 0)
+    print(f"serving [{card}]: speculative, spec_len {SPEC_LEN}, {SPEC_DRAFT_LAYERS} draft "
+          f"layers: {st['frames']} frames in {st['cycles']} cycles, accept rate "
+          f"{st['accept_rate']:.3f}, prefill {st['prefill_s'] * 1e3:.2f} ms, "
+          f"{st['decode_s'] * 1e3 / st['frames']:.2f} ms/frame; greedy baseline "
+          f"(decode_emit=False) {bt['steps']} frames, prefill {bt['prefill_s'] * 1e3:.2f} ms, "
+          f"{bt['decode_s'] * 1e3 / bt['steps']:.2f} ms/frame; codes {len(spec)} / {len(base)} "
+          f"frames, equal frames {share:.3f} (not gated); K1 launches "
+          f"{launches['flash_attention_fwd']}", flush=True)
+    return launches
+
+
+def run_studio(model, card: str, out_dir: str) -> None:
+    """`StudioServer` on 127.0.0.1 at a free port: one POST /api/generate
+    of STUDIO_SECONDS of music (through the studio's request batcher), then
+    a GET of the wav it names; fails on a non-200 reply or an empty wav."""
+    import http.client
+    import threading
+
+    from unimoe_audio_torch.apps.web_demo import StudioServer
+
+    studio = StudioServer(model, output_dir=os.path.join(out_dir, "studio"))
+    server = studio.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/api/generate", json.dumps(
+            {"mode": "music", "text": caption(20), "max_audio_seconds": STUDIO_SECONDS}),
+            {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read()
+        post_s = time.perf_counter() - t0
+        check(resp.status == 200, f"studio: POST /api/generate gave {resp.status}: {body[:300]}")
+        url = json.loads(body)["audio"]
+        conn.request("GET", url)
+        resp = conn.getresponse()
+        data = resp.read()
+        check(resp.status == 200 and data[:4] == b"RIFF" and len(data) > 44,
+              f"studio: GET {url} gave {resp.status}, {len(data)} bytes")
+        print(f"serving [{card}]: studio on 127.0.0.1:{port}: POST /api/generate "
+              f"({STUDIO_SECONDS} s of music) 200 in {post_s:.2f} s, GET {url} 200, "
+              f"{len(data)} bytes", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        studio.close()
+
+
+def run_serving_apps(model, card: str, out_dir: str, stamp=lambda phase: None):
+    """The serving apps on the flagship of the earlier phases: a mixed-task
+    batch, the continuous slot server (K1 at its admission shape), the
+    2-layer f32 reference checks, self-speculative decoding, time to first audio
+    (`measure_ttfa`) and the studio's HTTP round trip.  Returns (launch
+    counts by path, K1's record at the admission shape)."""
+    from unimoe_audio_torch.apps.serve import measure_ttfa
+
+    wav = os.path.join(out_dir, "serving_prompt.wav")
+    _two_tone_wav(wav, TTS_PROMPT_SECONDS, TTS_PROMPT_SR)
+    mixed, mixed_shares = run_mixed_batch(model, wav, card, out_dir)
+    stamp("serving apps: mixed batch")
+    continuous, rec = run_continuous(model, wav, card, out_dir)
+    stamp("serving apps: continuous server and K1 at its admission shape")
+    check_serving_reference(model, card, out_dir, mixed_shares)
+    stamp("serving apps: the 2-layer f32 reference checks")
+    speculative = run_speculative(model, card, out_dir)
+    stamp("serving apps: speculative")
+    ttfa = measure_ttfa(model, n_trials=TTFA_TRIALS)
+    print(f"serving [{card}]: time to first audio over {ttfa['trials']} trials: p50 "
+          f"{ttfa['p50_ttfa_s'] * 1e3:.2f} ms, p90 {ttfa['p90_ttfa_s'] * 1e3:.2f} ms", flush=True)
+    run_studio(model, card, out_dir)
+    stamp("serving apps: TTFA and the studio")
+    return {"t2m_mixed": mixed, "continuous": continuous, "speculative": speculative}, rec
 
 
 def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
@@ -2708,6 +3192,7 @@ def main() -> None:
         stamp("streaming T2M")
         vt2m_launches, vt2m_rec = run_vt2m(model, card, out_dir)
         stamp("VT2M, K1 at its prefill shape and the reference checks")
+        serving_launches, admit_rec = run_serving_apps(model, card, out_dir, stamp)
         gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
         stamp("gmm serving")
     del model
@@ -2753,7 +3238,8 @@ def main() -> None:
     # Launches by path (each run counted from 0) and summed over the paths;
     # K1's error is the larger of the checks at the two paths' shapes.
     paths = {"t2m": t2m_launches, "tts": tts_launches, "t2m_stream": stream_launches,
-             "vt2m": vt2m_launches, "t2m_gmm": gmm_t2m_launches, **quant_launches,
+             "vt2m": vt2m_launches, **serving_launches, "t2m_gmm": gmm_t2m_launches,
+             **quant_launches,
              "train": train_launches, "train_gmm": gmm_train_launches}
     for rec in (fwd_rec, *bwd_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
@@ -2769,9 +3255,11 @@ def main() -> None:
           f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"],
                                       "tts": tts_rec["max_abs_err"],
-                                      "vt2m": vt2m_rec["max_abs_err"], "train": fwd_train_err}
+                                      "vt2m": vt2m_rec["max_abs_err"],
+                                      "continuous": admit_rec["max_abs_err"],
+                                      "train": fwd_train_err}
     fwd_rec["max_abs_err"] = max(fwd_rec["max_abs_err_by_path"].values())
-    for path, r in (("tts", tts_rec), ("vt2m", vt2m_rec)):
+    for path, r in (("tts", tts_rec), ("vt2m", vt2m_rec), ("continuous", admit_rec)):
         fwd_rec[f"{path}_shape"] = {k: r[k] for k in (
             "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms_graph", "max_abs_err")}

@@ -1,5 +1,6 @@
 """UniMoEAudio — the user-facing task API of the port: text-to-music
-(batched and streaming), voice-clone text-to-speech and video+text-to-music.
+(batched, streaming and self-speculative), voice-clone text-to-speech,
+video+text-to-music, mixed-task batches and the continuous slot server.
 
 Counterpart of `unimoe_audio_tpu/api.py`: the same prompt templates,
 64-token left-padded buckets, CFG pairs and generation defaults, bf16 with
@@ -56,6 +57,11 @@ def music_span(caption: str) -> str:
 def t2m_prompt(caption: str) -> str:
     """The T2M prompt layout."""
     return SYSTEM_MESSAGE + INPUT_FORMAT.format(music_span(caption)) + AUDIO_START
+
+
+def vt2m_prompt(video_span: str, caption: str) -> str:
+    """The VT2M prompt layout: the video's span, then the music caption."""
+    return SYSTEM_MESSAGE + INPUT_FORMAT.format(video_span + music_span(caption)) + AUDIO_START
 
 
 def _bucket(n: int, step: int = 64) -> int:
@@ -384,9 +390,14 @@ class UniMoEAudio:
         visual_mask=None,
         prefill_position_ids=None,
         rope_deltas=None,
+        max_tokens_vec=None,
+        sample_seeds=None,
     ) -> List[str]:
         """Generate codes for CFG-interleaved rows, decode them to wavs
-        (`api.py:398-569`).  codec_input_ids: the flat [N, C] codec rows of
+        (`api.py:398-569`).  cfg_scale / temperature / top_p /
+        eos_prob_mul_factor / min_tokens take a float or one value per
+        sample, max_tokens_vec [B] per-sample budgets and sample_seeds [B]
+        per-sample seeds (`generate_mixed`).  codec_input_ids: the flat [N, C] codec rows of
         the prompts' placeholders, in reading order (`align_codec_ids`).
         The vision inputs (arrays or tensors: visual_embeds [2B, T, D],
         visual_mask [2B, T], prefill_position_ids [3, 2B, T], rope_deltas
@@ -430,7 +441,8 @@ class UniMoEAudio:
             max_tokens=max_tokens, min_tokens=min_tokens, cfg_scale=cfg_scale,
             temperature=temperature, top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
             eos_prob_mul_factor=eos_prob_mul_factor, do_sample=do_sample, timings=timings,
-            decode_emit=decode_emit, **kw,
+            decode_emit=decode_emit, max_tokens_vec=max_tokens_vec, sample_seeds=sample_seeds,
+            **kw,
         )
         codes = res.codes.cpu().numpy()
         lengths = res.lengths.cpu().numpy()
@@ -597,16 +609,8 @@ class UniMoEAudio:
             return []
 
         codec_ids = self._preprocess_codec(prompt_codec)                    # [P, C]
-        prompt_caption = ("<|SPEECH_PROMPT_START|>" + prompt_text + "<|SPEECH_PROMPT_END|>"
-                          + "<|VOICE_PROMPT_START|>"
-                          + "<|AUDIO_PLACEHOLDER|>" * codec_ids.shape[0]
-                          + "<|VOICE_PROMPT_END|>")
-
-        def prompt(target: str) -> str:
-            return (SYSTEM_MESSAGE + INPUT_FORMAT.format(
-                prompt_caption + "<|SPEECH_START|>" + target + "<|SPEECH_END|>") + AUDIO_START)
-
-        text_input = [x for c in caption for x in (prompt(""), prompt(c))]
+        text_input = [self._tts_prompt(prompt_text, codec_ids.shape[0], x)
+                      for c in caption for x in ("", c)]
         ids, mask = self._tokenize(text_input)
         # The flat codec rows, once per CFG row.
         flat = np.tile(codec_ids, (len(text_input), 1))
@@ -665,50 +669,22 @@ class UniMoEAudio:
                 top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
                 eos_prob_mul_factor=eos_prob_mul_factor, do_sample=do_sample, seed=seed,
                 max_audio_seconds=max_audio_seconds, min_audio_seconds=min_audio_seconds)
-        from .apps.video import extract_frames, frame_process, video_to_patches
-        from .models import vision
         from .models.model import get_rope_index
 
         vcfg = self.config.vision_config
-        m2 = vcfg.spatial_merge_size ** 2
         mt = int(max_audio_seconds * 50) if max_audio_seconds is not None else None
         mn = int(min_audio_seconds * 50) if min_audio_seconds is not None else None
         text_input, feats, grids, spgts, vision_s = [], [], [], [], []
-        with torch.inference_mode():
-            for v, c in zip(video, caption):
-                if isinstance(v, str):
-                    pixels = frame_process(extract_frames(v, sampling_fps, max_frames),
-                                           total_pixels=total_pixels, min_pixels=28 * 28)
-                else:
-                    pixels = np.asarray(v, dtype=np.float32)
-                patches, grid = video_to_patches(
-                    pixels, patch_size=vcfg.patch_size,
-                    temporal_patch_size=vcfg.temporal_patch_size,
-                    merge_size=vcfg.spatial_merge_size)
-                t0 = time.perf_counter()
-                f = vision.vision_forward(self.params["vision"],
-                                          torch.as_tensor(patches, device=self.device),
-                                          grid[None], vcfg)
-                _sync(self.device)
-                vision_s.append(time.perf_counter() - t0)
-                span = ("<|vision_start|>" + "<|video_pad|>" * (patches.shape[0] // m2)
-                        + "<|vision_end|>")
-                for cap in (T2M_NEGATIVE_CAPTION, c):        # the CFG pair shares the video
-                    text_input.append(SYSTEM_MESSAGE + INPUT_FORMAT.format(span + music_span(cap))
-                                      + AUDIO_START)
-                    feats.append(f)
-                    grids.append(grid)
-                    spgts.append(vcfg.temporal_patch_size / fps)
-            ids, mask = self._tokenize(text_input)
-            # The features at the video-token slots, row by row.
-            visual_mask = (ids == self.config.video_token_id).astype(np.int32)
-            visual_embeds = torch.zeros(*ids.shape, feats[0].shape[-1], dtype=feats[0].dtype,
-                                        device=self.device)
-            for r in range(ids.shape[0]):
-                slots = np.flatnonzero(visual_mask[r])
-                assert len(slots) == feats[r].shape[0], (
-                    f"video tokens {len(slots)} != features {feats[r].shape[0]}")
-                visual_embeds[r, torch.as_tensor(slots, device=self.device)] = feats[r]
+        for v, c in zip(video, caption):
+            f, grid, span, secs = self._video_features(v, sampling_fps, max_frames, total_pixels)
+            vision_s.append(secs)
+            for cap in (T2M_NEGATIVE_CAPTION, c):        # the CFG pair shares the video
+                text_input.append(vt2m_prompt(span, cap))
+                feats.append(f)
+                grids.append(grid)
+                spgts.append(vcfg.temporal_patch_size / fps)
+        ids, mask = self._tokenize(text_input)
+        visual_embeds, visual_mask = self._scatter_video(ids, feats)
         position_ids, deltas = get_rope_index(
             ids, self.config, video_grid_thw=np.stack(grids), second_per_grid_ts=spgts,
             attention_mask=mask)
@@ -720,6 +696,360 @@ class UniMoEAudio:
             visual_mask=visual_mask, prefill_position_ids=position_ids, rope_deltas=deltas)
         self.last_timings["vision_s"] = vision_s
         print(f"Video music generation completed! Time: {time.time() - t0:.2f}s")
+        return paths
+
+    # ------------------------------------------------------------------
+    # Shared by the VT2M entry points
+    # ------------------------------------------------------------------
+    def _video_features(self, video, sampling_fps, max_frames, total_pixels):
+        """One video through the tower: a file path (frames sampled at
+        sampling_fps, at most max_frames, resized under total_pixels; needs
+        OpenCV) or pre-extracted frames [T, 3, H, W] in [0, 255].  Returns
+        (features [tokens, D] on the device, grid [3], the prompt's video
+        span, the tower call's device-synchronised seconds)."""
+        from .apps.video import extract_frames, frame_process, video_to_patches
+        from .models import vision
+
+        vcfg = self.config.vision_config
+        if isinstance(video, str):
+            pixels = frame_process(extract_frames(video, sampling_fps, max_frames),
+                                   total_pixels=total_pixels, min_pixels=28 * 28)
+        else:
+            pixels = np.asarray(video, dtype=np.float32)
+        patches, grid = video_to_patches(
+            pixels, patch_size=vcfg.patch_size, temporal_patch_size=vcfg.temporal_patch_size,
+            merge_size=vcfg.spatial_merge_size)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            feats = vision.vision_forward(self.params["vision"],
+                                          torch.as_tensor(patches, device=self.device),
+                                          grid[None], vcfg)
+        _sync(self.device)
+        n_tok = patches.shape[0] // vcfg.spatial_merge_size ** 2
+        span = "<|vision_start|>" + "<|video_pad|>" * n_tok + "<|vision_end|>"
+        return feats, grid, span, time.perf_counter() - t0
+
+    def _scatter_video(self, ids: np.ndarray, feats):
+        """The per-row features (None for a row without video) at the
+        `<|video_pad|>` slots of ids [R, T]: (visual_embeds [R, T, D] on
+        the device, visual_mask [R, T] numpy)."""
+        visual_mask = (ids == self.config.video_token_id).astype(np.int32)
+        like = next(f for f in feats if f is not None)
+        visual_embeds = torch.zeros(*ids.shape, like.shape[-1], dtype=like.dtype,
+                                    device=self.device)
+        for r, f in enumerate(feats):
+            slots = np.flatnonzero(visual_mask[r])
+            n = 0 if f is None else f.shape[0]
+            assert len(slots) == n, f"video tokens {len(slots)} != features {n}"
+            if n:
+                visual_embeds[r, torch.as_tensor(slots, device=self.device)] = f
+        return visual_embeds, visual_mask
+
+    # ------------------------------------------------------------------
+    # Self-speculative decoding
+    # ------------------------------------------------------------------
+    def text_to_music_speculative(
+        self,
+        caption: str,
+        *,
+        save_name: str = "music_spec",
+        output_dir: str = "./",
+        cfg_scale: float = 10.0,
+        eos_prob_mul_factor: float = 0.6,
+        spec_len: int = 4,
+        draft_layers: Optional[int] = None,
+        max_audio_seconds: Optional[float] = None,
+        min_audio_seconds: Optional[float] = None,
+    ) -> List[str]:
+        """Single-stream T2M by self-speculative greedy decoding
+        (`api.py:833-886`): the codes of `text_to_music(do_sample=False,
+        decode_emit=False)`, with the full model verifying spec_len frames
+        per forward (`generate/speculative.py`).  draft_layers defaults to
+        a quarter of the layers.  `last_timings` holds the prefill and
+        decode seconds, frames, cycles and accept_rate."""
+        from .generate.speculative import speculative_generate
+
+        cfg = self.config
+        mt = int(max_audio_seconds * 50) if max_audio_seconds else self.MAX_TOKENS
+        mn = int(min_audio_seconds * 50) if min_audio_seconds else self.MIN_TOKENS
+        draft_layers = draft_layers or max(1, cfg.text_config.num_hidden_layers // 4)
+        ids, mask = self._tokenize([t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(caption)])
+        prefill, steps = dl.prepare_audio_prompt(
+            [None], num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
+            delay_pattern=cfg.codec_delay_pattern)
+        timings: dict = {}
+        res = speculative_generate(
+            self.params, cfg, torch.as_tensor(ids, device=self.device),
+            torch.as_tensor(mask, device=self.device), None,
+            pad_buffer(torch.as_tensor(prefill, device=self.device), mt), steps,
+            max_tokens=mt, min_tokens=mn, cfg_scale=cfg_scale,
+            eos_prob_mul_factor=eos_prob_mul_factor, spec_len=spec_len,
+            draft_layers=draft_layers, timings=timings, kv_dtype=self.kv_cache_dtype,
+            **self.serving_dispatch(*ids.shape))
+        audios = dl.generate_output(res.codes.cpu().numpy(), res.lengths.cpu().numpy(),
+                                    pad_value=cfg.codec_pad_value,
+                                    delay_pattern=cfg.codec_delay_pattern)
+        timings.update(frames=res.frames, cycles=res.cycles, accept_rate=res.accept_rate,
+                       lengths=res.lengths.cpu().tolist(), T_text=ids.shape[1])
+        self.last_timings = timings
+        self.last_codes = audios
+        return self._write_streams(audios, output_dir, save_name)
+
+    def _write_streams(self, audios, output_dir: str, save_name: str, names=None) -> List[str]:
+        """Each stream's codes [T_i, C] as `generated_{save_name}_{name}.wav`
+        (one DAC decode per stream, at least 1 s), or as `.wav.codes.npy`
+        without a DAC."""
+        os.makedirs(output_dir, exist_ok=True)
+        out = []
+        for i, frames in enumerate(audios):
+            path = os.path.join(output_dir,
+                                f"generated_{save_name}_{i if names is None else names[i]}.wav")
+            if self.dac is not None:
+                self.dac.decode(frames.T[None], save_path=path, min_duration=1)
+            else:
+                np.save(path + ".codes.npy", frames)
+                path += ".codes.npy"
+            out.append(path)
+        return out
+
+    # ------------------------------------------------------------------
+    # Continuous batching (apps/continuous.py)
+    # ------------------------------------------------------------------
+    def continuous_server(self, *, slots: int = 4, t_text: int = 128,
+                          horizon: Optional[int] = None, chunk_frames: int = 64,
+                          do_sample: bool = True, deterministic: bool = False):
+        """A SlotServer over this model's params (`api.py:892-930`): feed it
+        `make_slot_request`s, turn its results into wavs with
+        `decode_slot_results`.  A serving-mode server of 64 or more CFG rows
+        (2 x slots) decodes with capacity-packed dispatch, as
+        `_generate_core` does, and says that a request's output may then
+        depend on the requests beside it; deterministic=True keeps dense,
+        dropless dispatch.  The default horizon is MAX_TOKENS + 512 (a
+        voice prompt's delayed frames) + 4 chunks."""
+        from .apps.continuous import SlotServer
+
+        dispatch_kw = {}
+        S_dec = 2 * slots
+        if not deterministic and self.serving_mode and S_dec >= 64:
+            dispatch_kw["decode_dispatch_mode"] = "packed_a8" if self.a8_compute else "packed"
+            dispatch_kw["decode_capacity"] = _ceil_to(int(S_dec * 0.64), 16)
+            print(f"continuous_server: slots={slots} uses capacity-packed decode dispatch "
+                  "(aggregate-throughput config); outputs may vary with co-resident load — "
+                  "pass deterministic=True for dropless per-request-reproducible serving")
+        return SlotServer(
+            self.params, self.config, slots=slots, t_text=t_text,
+            horizon=horizon or (self.MAX_TOKENS + 512 + 4 * chunk_frames),
+            chunk_frames=chunk_frames, do_sample=do_sample, kv_dtype=self.kv_cache_dtype,
+            **dispatch_kw)
+
+    def make_slot_request(self, task: str = "text_to_music", *, caption: str,
+                          prompt_text: Optional[str] = None, prompt_wav: Optional[str] = None,
+                          prompt_codec=None, video=None, sampling_fps: int = 2,
+                          max_frames: int = 16, seed: int = 0,
+                          max_audio_seconds: Optional[float] = None,
+                          min_audio_seconds: Optional[float] = None,
+                          cfg_scale: Optional[float] = None, temperature: float = 1.0,
+                          top_p: float = 1.0, eos_prob_mul_factor: Optional[float] = None,
+                          rid=None):
+        """A SlotRequest for one task (`api.py:932-1052`), with the prompt
+        templates, tokenization, voice-prompt codes and video front end of
+        the task methods.  A VT2M request's features stay on the device."""
+        from .apps.continuous import SlotRequest
+
+        cfg = self.config
+        task = self.TASK_ALIASES.get(task, task)
+        if task not in self.MIXED_DEFAULTS:
+            raise ValueError(f"unsupported continuous task: {task}")
+        d = self.MIXED_DEFAULTS[task]
+        cfg_scale = d["cfg_scale"] if cfg_scale is None else cfg_scale
+        eosf = d["eos_prob_mul_factor"] if eos_prob_mul_factor is None else eos_prob_mul_factor
+        vision_kw = {}
+        codec_flat = None
+        if task == "video_text_to_music":
+            if video is None or "vision" not in self.params:
+                raise ValueError("VT2M requests need video= and a vision tower")
+            from .models.model import get_rope_index
+
+            vcfg = cfg.vision_config
+            feats, grid, span, _ = self._video_features(video, sampling_fps, max_frames,
+                                                        20480 * 28 * 28)
+            ids, mask = self._tokenize([vt2m_prompt(span, c)
+                                        for c in (T2M_NEGATIVE_CAPTION, caption)])
+            ve, vm = self._scatter_video(ids, [feats, feats])
+            position_ids, deltas = get_rope_index(
+                ids, cfg, video_grid_thw=np.stack([grid, grid]),
+                second_per_grid_ts=[vcfg.temporal_patch_size / sampling_fps] * 2,
+                attention_mask=mask)
+            vision_kw = dict(visual_embeds=ve, visual_mask=vm,
+                             prefill_position_ids=np.asarray(position_ids),
+                             rope_deltas=np.asarray(deltas).reshape(-1))
+        elif task == "text_to_music":
+            ids, mask = self._tokenize([t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(caption)])
+        else:
+            if prompt_codec is None:
+                if prompt_wav is None or self.dac is None:
+                    raise ValueError("TTS requests need prompt_codec or prompt_wav+DAC")
+                prompt_codec = self.dac.encode(prompt_wav)
+            codec_flat = self._preprocess_codec(prompt_codec)                  # [P, C]
+            ids, mask = self._tokenize([self._tts_prompt(prompt_text, codec_flat.shape[0], x)
+                                        for x in ("", caption)])
+
+        prefill, steps = dl.prepare_audio_prompt(
+            [None], num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
+            delay_pattern=cfg.codec_delay_pattern)
+        mt = int(max_audio_seconds * 50) if max_audio_seconds is not None else self.MAX_TOKENS
+        mn = (int(min_audio_seconds * 50) if min_audio_seconds is not None
+              else min(self.MIN_TOKENS, mt))
+        return SlotRequest(
+            input_ids=np.asarray(ids), attention_mask=np.asarray(mask),
+            prefill=np.asarray(prefill[0]), prefill_steps=int(steps[0]),
+            codec_flat=codec_flat, max_tokens=mt, min_tokens=mn, cfg_scale=cfg_scale,
+            temperature=temperature, top_p=top_p, eos_prob_mul_factor=eosf, seed=seed,
+            rid=rid, **vision_kw)
+
+    def decode_slot_results(self, results, output_dir: str = "./",
+                            save_name: str = "continuous") -> List[str]:
+        """The SlotResults' wavs (delay revert + DAC; `api.py:1054-1071`),
+        named by each result's rid."""
+        cfg = self.config
+        audios = [dl.generate_output(r.codes[None], np.asarray([r.length]),
+                                     pad_value=cfg.codec_pad_value,
+                                     delay_pattern=cfg.codec_delay_pattern)[0] for r in results]
+        return self._write_streams(audios, output_dir, save_name, names=[r.rid for r in results])
+
+    def _tts_prompt(self, prompt_text, n_placeholders: int, target: str) -> str:
+        """The voice-clone prompt: the prompt's transcript, n placeholder
+        slots for its codes, the target text."""
+        return (SYSTEM_MESSAGE + INPUT_FORMAT.format(
+            "<|SPEECH_PROMPT_START|>" + str(prompt_text) + "<|SPEECH_PROMPT_END|>"
+            + "<|VOICE_PROMPT_START|>" + "<|AUDIO_PLACEHOLDER|>" * n_placeholders
+            + "<|VOICE_PROMPT_END|>" + "<|SPEECH_START|>" + target + "<|SPEECH_END|>")
+            + AUDIO_START)
+
+    # ------------------------------------------------------------------
+    # Mixed-task batches (one decode batch for TTS / T2M / VT2M requests)
+    # ------------------------------------------------------------------
+    # Per-task defaults of generate_mixed and make_slot_request.
+    MIXED_DEFAULTS = {
+        "text_to_music": dict(cfg_scale=10.0, eos_prob_mul_factor=0.6),
+        "text_to_speech": dict(cfg_scale=1.0, eos_prob_mul_factor=1.0),
+        "video_text_to_music": dict(cfg_scale=10.0, eos_prob_mul_factor=0.6),
+    }
+    TASK_ALIASES = {"t2m": "text_to_music", "tts": "text_to_speech",
+                    "vt2m": "video_text_to_music"}
+
+    def check_mixed_request(self, r: dict) -> None:
+        """Raise ValueError if request `r` of `generate_mixed` cannot run on
+        this model: an unknown task, a TTS request without a prompt (or a
+        prompt_wav that is missing or not a wav, or no DAC to encode it), a
+        VT2M request without a video or a vision tower, or a video file that
+        is missing or cannot be read here (no OpenCV).  Checked before any
+        device work, so that a bad request fails on its own."""
+        import wave
+
+        task = r.get("task")
+        if task not in self.MIXED_DEFAULTS:
+            raise ValueError(f"unknown task: {task}")
+        if task == "text_to_speech" and r.get("prompt_codec") is None:
+            wav = r.get("prompt_wav")
+            if wav is None:
+                raise ValueError("text_to_speech requires prompt_wav or prompt_codec")
+            if self.dac is None:
+                raise ValueError("prompt_wav given but no DAC codec is loaded")
+            try:
+                with wave.open(str(wav), "rb"):
+                    pass
+            except (OSError, EOFError, wave.Error) as e:
+                raise ValueError(f"prompt_wav {wav!r} is not a readable wav: {e}") from e
+        if task == "video_text_to_music":
+            video = r.get("video")
+            if video is None:
+                raise ValueError("video_text_to_music requires video")
+            if self.config.vision_config is None or "vision" not in self.params:
+                raise ValueError("video_text_to_music requires a model with a vision tower")
+            if isinstance(video, str):
+                from .apps.video import _cv2
+
+                if not os.path.isfile(video):
+                    raise ValueError(f"video {video!r} is not a file")
+                try:
+                    _cv2()
+                except ImportError as e:
+                    raise ValueError(str(e)) from e
+
+    def generate_mixed(self, requests: List[dict], *, output_dir: str = "./",
+                       save_name: str = "mixed", seed: Optional[int] = None,
+                       do_sample: bool = True) -> List[str]:
+        """Heterogeneous requests as ONE generation batch
+        (`api.py:1073-1221`).  Each request dict has "task" (text_to_music,
+        text_to_speech or video_text_to_music), that task's inputs
+        (caption; prompt_text with prompt_codec or prompt_wav; video with
+        sampling_fps, max_frames, total_pixels, fps) and optionally its own
+        cfg_scale / temperature / top_p / eos_prob_mul_factor /
+        max_audio_seconds / min_audio_seconds / seed, which ride the batch
+        as per-sample vectors.  A request's seed defaults to seed + its
+        index; its draws do not depend on the other requests (dense
+        dispatch).  Returns one path per request, in order;
+        `last_timings["vision_s"]` holds the tower calls' seconds."""
+        cfg = self.config
+        texts, codec_rows, feats, grids, spgts, vision_s = [], [], [], [], [], []
+        p_cfg, p_temp, p_topp, p_eosf, p_min, p_max, p_seed = [], [], [], [], [], [], []
+        base_seed = seed if seed is not None else int(time.time() * 1e3) % (2 ** 31)
+        for r in requests:
+            self.check_mixed_request(r)
+        for r in requests:
+            task = r["task"]
+            d = self.MIXED_DEFAULTS[task]
+            p_cfg.append(float(r.get("cfg_scale", d["cfg_scale"])))
+            p_temp.append(float(r.get("temperature", 1.0)))
+            p_topp.append(float(r.get("top_p", 1.0)))
+            p_eosf.append(float(r.get("eos_prob_mul_factor", d["eos_prob_mul_factor"])))
+            p_min.append(int(r.get("min_audio_seconds", self.MIN_TOKENS / 50) * 50))
+            p_max.append(int(r.get("max_audio_seconds", self.MAX_TOKENS / 50) * 50))
+            p_seed.append(int(r.get("seed", base_seed + len(p_seed))))
+            if task == "text_to_music":
+                texts += [t2m_prompt(T2M_NEGATIVE_CAPTION), t2m_prompt(r["caption"])]
+                feats += [None, None]
+            elif task == "text_to_speech":
+                prompt_codec = r.get("prompt_codec")
+                if prompt_codec is None:
+                    prompt_codec = self.dac.encode(r["prompt_wav"])
+                codec_ids = self._preprocess_codec(prompt_codec)                # [P, C]
+                texts += [self._tts_prompt(r["prompt_text"], codec_ids.shape[0], x)
+                          for x in ("", r["caption"])]
+                codec_rows += [codec_ids, codec_ids]                            # one per CFG row
+                feats += [None, None]
+            else:
+                vcfg = cfg.vision_config
+                f, grid, span, secs = self._video_features(
+                    r["video"], r.get("sampling_fps", 1), r.get("max_frames", 1),
+                    r.get("total_pixels", 3 * 28 * 28))
+                vision_s.append(secs)
+                texts += [vt2m_prompt(span, c) for c in (T2M_NEGATIVE_CAPTION, r["caption"])]
+                feats += [f, f]
+                grids += [grid, grid]
+                spgts += [vcfg.temporal_patch_size / r.get("fps", 1)] * 2
+
+        ids, mask = self._tokenize(texts)
+        flat_codec = np.concatenate(codec_rows, axis=0) if codec_rows else None
+        vision_kw = {}
+        if grids:
+            from .models.model import get_rope_index
+
+            visual_embeds, visual_mask = self._scatter_video(ids, feats)
+            position_ids, deltas = get_rope_index(
+                ids, cfg, video_grid_thw=np.stack(grids), second_per_grid_ts=spgts,
+                attention_mask=mask)
+            vision_kw = dict(visual_embeds=visual_embeds, visual_mask=visual_mask,
+                             prefill_position_ids=position_ids, rope_deltas=deltas)
+        paths = self._generate_core(
+            ids, mask, flat_codec, save_name, None, output_dir,
+            np.asarray(p_cfg, np.float32), np.asarray(p_temp, np.float32),
+            np.asarray(p_topp, np.float32), 45, np.asarray(p_eosf, np.float32), do_sample, seed,
+            max_tokens=max(p_max), min_tokens=np.asarray(p_min, np.int32),
+            max_tokens_vec=np.asarray(p_max, np.int32), sample_seeds=np.asarray(p_seed, np.int64),
+            **vision_kw)
+        self.last_timings["vision_s"] = vision_s
         return paths
 
 

@@ -28,7 +28,7 @@ from ..models.model import (
     codec_logits_from_hidden,
     text_model_forward,
 )
-from .sampler import sample_next_token
+from .sampler import row_keys, sample_next_token
 
 
 class GenerateResult(NamedTuple):
@@ -96,6 +96,11 @@ def generate(
     visual_mask: Optional[torch.Tensor] = None,           # [2B, T_text], 1 = vision slot
     prefill_position_ids: Optional[torch.Tensor] = None,  # [3, 2B, T_text] mRoPE
     rope_deltas: Optional[torch.Tensor] = None,           # [2B] or [2B, 1]
+    max_tokens_vec=None,                                  # [B] per-sample budgets
+    sample_seeds=None,                                    # [B] per-sample seeds
+    decode_start=None,                                    # [B] first valid decode slot
+    start_step: Optional[int] = None,
+    seed_step_offset=None,                                # [B]
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
@@ -121,7 +126,20 @@ def generate(
     embedding's dtype), prefill_position_ids replace the 1-D text
     positions, and decode starts each row at T_text + rope_deltas
     (`decode_position_base`).  A resumed call takes all of that from the
-    state."""
+    state, except that rope_deltas, when given, reset the decode position
+    base (as the JAX loop recomputes it on every call).
+
+    Serving hooks (`loop.py:84-114`), each defaulting to one batch decoded
+    to its end: max_tokens_vec [B] gives each sample its own budget (its
+    EOS countdown starts at max_tokens_vec - max_delay); sample_seeds [B]
+    draws each sample from its own counter-based chain keyed by (seed,
+    step - seed_step_offset, channel), so that a seeded request samples
+    the same codes whichever requests share its batch (dense dispatch;
+    the numbers differ from JAX's fold_in chains, the distribution does
+    not); decode_start [B] masks cache slots below it for the sample's
+    decode steps (a row admitted into a running batch has an unwritten
+    gap there); start_step overrides min(prefill_steps) - 1 as the decode
+    origin."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -142,7 +160,17 @@ def generate(
     top_p_rows = np.repeat(_per_sample(top_p, B).astype(np.float32), C)
     attention_mask = attention_mask.to(torch.int32)
 
-    start_step = int(steps_np.min()) - 1
+    start_step = int(steps_np.min()) - 1 if start_step is None else int(start_step)
+    mt_vec = torch.as_tensor(
+        _per_sample(max_tokens if max_tokens_vec is None else max_tokens_vec, B).astype(np.int64),
+        device=dev)
+    dstart_2B = None if decode_start is None else torch.as_tensor(
+        np.repeat(_per_sample(decode_start, B).astype(np.int64), 2), device=dev)[:, None]
+    seeds_t = None if sample_seeds is None else torch.as_tensor(
+        _per_sample(sample_seeds, B).astype(np.int64), device=dev)
+    seed_off_t = torch.as_tensor(
+        _per_sample(0 if seed_step_offset is None else seed_step_offset, B).astype(np.int64),
+        device=dev)
     if resume_state is None:
         if timings is not None:
             _sync(dev)
@@ -191,6 +219,9 @@ def generate(
     else:
         state = resume_state
         assert state.cache.k.shape[1] == T_total, "resume cache length must match cache_len"
+        if rope_deltas is not None:
+            state.pos_base = decode_position_base(attention_mask.sum(dim=-1), T_text,
+                                                  rope_deltas)
 
     if timings is not None:
         _sync(dev)
@@ -198,10 +229,7 @@ def generate(
     stop_step = max_tokens if stop_at is None else min(stop_at, max_tokens)
     key_idx = torch.arange(T_total, device=dev)[None, :]
     text_valid = F.pad(attention_mask, (0, T_total - T_text), value=1)
-    col = torch.arange(Vc, device=dev)[None, None, :]
     ch = torch.arange(C, device=dev)[None, :, None]
-    eos_slot = (ch == 0) & (col == eos)
-    neg_inf = torch.full((), float("-inf"), device=dev)
     ch_weight = torch.where(torch.arange(C, device=dev) == 0, 3.0, 1.0)[None, :]   # [1, C]
 
     s = state
@@ -214,8 +242,10 @@ def generate(
         tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
         emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
         position_ids = (s.pos_base + rel)[None, :, None].expand(3, B2, 1)
-        kv_valid = torch.where(key_idx < T_text, text_valid,
-                               (key_idx <= cache_pos).to(torch.int32))
+        decode_ok = key_idx <= cache_pos
+        if dstart_2B is not None:
+            decode_ok = decode_ok & (key_idx >= dstart_2B)
+        kv_valid = torch.where(key_idx < T_text, text_valid, decode_ok.to(torch.int32))
         out = text_model_forward(
             params, emb, position_ids, tc,
             kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
@@ -224,22 +254,15 @@ def generate(
         )
         logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]  # [2B, C, Vc]
 
-        # CFG combine over interleaved [neg, cond] rows.
-        pair = logits.reshape(B, 2, C, Vc)
-        uncond, cond = pair[:, 0], pair[:, 1]
-        scale_b = cfg_scale_t[:, None, None]
-        logits_B = torch.where(scale_b != 0, cond + scale_b * (cond - uncond), cond)
-
-        # EOS gating.
-        enable_eos = (dec_step >= min_tokens_t)[:, None, None]
-        kill = (col > eos) | ((ch > 0) & (col >= eos)) | (~enable_eos & (col >= eos))
-        logits_B = torch.where(kill, neg_inf, logits_B)
-        logits_B = torch.where(eos_slot, logits_B * eos_mul_t[:, None, None], logits_B)
+        pair = logits.reshape(B, 2, C, Vc)                             # [neg, cond] rows
+        logits_B = guided_logits(cfg, pair[:, 0], pair[:, 1], dec_step >= min_tokens_t,
+                                 cfg_scale_t, eos_mul_t)
 
         flat = logits_B.reshape(B * C, Vc)
         if do_sample:
+            keys = None if seeds_t is None else row_keys(seeds_t, current_step - seed_off_t, C)
             pred = sample_next_token(gen, flat, temperature=temp_rows, top_p=top_p_rows,
-                                     top_k=cfg_filter_top_k, audio_eos_value=eos)
+                                     top_k=cfg_filter_top_k, audio_eos_value=eos, keys=keys)
         else:
             pred = flat.argmax(dim=-1)
         pred = pred.reshape(B, C).to(torch.int32)
@@ -259,7 +282,7 @@ def generate(
         # Delay-pattern EOS countdown.
         active = s.eos_countdown != 0
         is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
-        is_max_len = current_step >= max_tokens - max_delay
+        is_max_len = current_step >= mt_vec - max_delay
         trigger = active & (is_eos_tok | is_max_len)
         eos_detected = s.eos_detected | trigger
         start_cd = trigger & (s.eos_countdown < 0)
@@ -287,7 +310,10 @@ def generate(
                            torch.full_like(s.finished_step, final_step - max_delay),
                            s.finished_step)
     lengths = torch.clamp(finished - prefill_steps_t, 0, max_tokens)
-    idx = prefill_steps_t[:, None] + torch.arange(max_tokens, device=dev)[None, :]
+    # Each sample's window from its prefill step; the start is clamped so
+    # that the window fits the buffer, as JAX's dynamic_slice clamps it.
+    first = prefill_steps_t.clamp(0, max(s.buf.shape[1] - max_tokens, 0))
+    idx = first[:, None] + torch.arange(max_tokens, device=dev)[None, :]
     codes = torch.gather(s.buf, 1, idx[:, :, None].expand(B, max_tokens, C))
     span = (lengths + max_delay)[:, None]
     keep = torch.arange(max_tokens, device=dev)[None, :] < span
@@ -301,6 +327,27 @@ def generate(
         _sync(dev)
         timings["decode_s"] = timings.get("decode_s", 0.0) + time.perf_counter() - t1
     return (result, s) if return_state else result
+
+
+def guided_logits(cfg: UniMoEAudioConfig, uncond: torch.Tensor, cond: torch.Tensor,
+                  enable_eos: torch.Tensor, cfg_scale: torch.Tensor,
+                  eos_mul: torch.Tensor) -> torch.Tensor:
+    """CFG combine and EOS gating of codec logits (`loop.py:306-322`): the
+    decode loop's and the speculative verify's.  uncond / cond [N, C, Vc];
+    enable_eos (step >= min_tokens), cfg_scale and eos_mul are [N] or
+    scalars.  Columns past EOS are never taken, EOS only on channel 0 and
+    only once enabled, and channel 0's EOS logit is scaled by eos_mul."""
+    def per_row(x):
+        return x.reshape(-1, 1, 1)
+
+    eos, dev = cfg.codec_eos_value, cond.device
+    col = torch.arange(cfg.codec_embed_size, device=dev)[None, None, :]
+    ch = torch.arange(cfg.codec_channels, device=dev)[None, :, None]
+    scale = per_row(cfg_scale)
+    out = torch.where(scale != 0, cond + scale * (cond - uncond), cond)
+    kill = (col > eos) | ((ch > 0) & (col >= eos)) | (~per_row(enable_eos) & (col >= eos))
+    out = torch.where(kill, torch.full((), float("-inf"), device=dev), out)
+    return torch.where((ch == 0) & (col == eos), out * per_row(eos_mul), out)
 
 
 def generate_chunked(
@@ -327,7 +374,8 @@ def generate_chunked(
     T_text = input_ids.shape[1]
     max_tokens = kwargs.pop("max_tokens")
     return_state = kwargs.pop("return_state", False)
-    start = int(np.min(np.asarray(prefill_steps))) - 1
+    start = kwargs.get("start_step")
+    start = int(np.min(np.asarray(prefill_steps))) - 1 if start is None else int(start)
 
     def bucket(n_frames: int) -> int:
         return -(-(T_text + n_frames + 2) // chunk_frames) * chunk_frames
