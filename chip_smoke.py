@@ -9,7 +9,8 @@ failure:
 
 1. set-up: the card's name and power limit (nvidia-smi); the kernel sources
    unimoe_audio_torch/csrc/{flash_attention_fwd,flash_attention_bwd,
-   grouped_gemm}.cu built with nvcc, one process per source, in parallel;
+   flash_attention_f32,grouped_gemm}.cu built with nvcc, one process per
+   source, in parallel;
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
    non-causal, Dh 64 and the tile edges (T = S = 129; T 64 with S 300; for
@@ -20,9 +21,13 @@ failure:
    (cp.async loads), rows past the last group, one group, E = 1 and 64,
    groups split over K5 chunks, for the grouped GEMMs (K4 in both tile
    configurations, K4t with an f32 and a bf16 dy, outputs filled with NaN
-   before each launch, K5 launched twice and compared bit for bit).  A small model's bf16 prefill, and its
-   bf16 training loss and gradient (dense and gmm dispatch), are held
-   against their f32 CPU runs;
+   before each launch, K5 launched twice and compared bit for bit).  The
+   f32 kernels of K1, K2 and K3 (csrc/flash_attention_f32.cu) against their
+   plain versions in f32 at the prefill and training shapes, their tile
+   edges (64 query rows, 32-key tiles), pads, S > T, T > S, non-causal, Dh
+   64 and H = KV, K2 and K3 launched twice and compared bit for bit.  A
+   small model's bf16 prefill, and its bf16 training loss and gradient
+   (dense and gmm dispatch), are held against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
    counters zeroed just before it and read just after:
    - text to music: `UniMoEAudio.text_to_music` at the full width and
@@ -58,12 +63,18 @@ failure:
      slots, t_text 256, a 400-frame horizon, 32-frame chunks) on six
      greedy requests, two admitted mid-flight and one after a compaction
      (every request back within its budget, one K1 prefill per
-     admission), then K1 at the admission shape against its plain version
-     and a 2-layer f32 server against standalone decodes on the card
-     (share of equal frames); `text_to_music_speculative` against greedy
-     `text_to_music(decode_emit=False)`; `serve.measure_ttfa`; and the
-     studio's HTTP server on 127.0.0.1 (one POST /api/generate, a GET of
-     its wav);
+     admission), then K1 at the admission shape against its plain version;
+     the 2-layer flagship-width f32 witnesses at the serving shapes, each
+     prefill through the f32 K1: the mixed batch at T_text 256 against each
+     request alone, the server at t_text 256 against standalone decodes, and
+     `text_to_music_speculative` at T_text 128 against greedy
+     `text_to_music(decode_emit=False)` (shares of equal frames, lengths and
+     cycles); the codec-logit drift of the mixed batch's first request at
+     its first decode step, alone against in the batch, in bf16 and in f32
+     (printed, not gated); `text_to_music_speculative` on the flagship
+     against greedy `text_to_music(decode_emit=False)`;
+     `serve.measure_ttfa`; and the studio's HTTP server on 127.0.0.1 (one
+     POST /api/generate, a GET of its wav);
    - the same model and captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
@@ -84,10 +95,20 @@ failure:
    - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
      B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
      dispatch and then with `dispatch_mode="gmm"` on the same batch;
+   - the training core at the flagship width cut to 2 layers, on the same
+     batch: resume (2 steps, `Trainer.save`, a new Trainer that resumes, 2
+     more, against 4 straight, bf16; the checkpoint's bytes, save and
+     restore seconds), gradient accumulation in f32 (two micro-steps of the
+     batch against one step, through the f32 K1, K2 and K3), the Gumbel /
+     straight-through mixer (bf16, beside the closed-form mixer's step
+     time) and `save_pretrained` loaded by the port's `UniMoEAudio` (prefill
+     codec logits bit for bit);
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take (K1 also
    at the training shape, against SDPA with a boolean mask and with
-   is_causal=True; K4t with the step's bf16 dy and with an f32 dy): CUDA
+   is_causal=True; K4t with the step's bf16 dy and with an f32 dy; the f32
+   K1 at the T2M prefill and training shapes and the f32 K2 and K3 at the
+   training shape, against SDPA in f32, bound by the CUDA cores' f32 rate): CUDA
    events over back-to-back calls, and for the kernels and the library
    calls also the replay of a CUDA graph of the calls, each after a write
    that flushes the L2 (`graph_ms`).  A reading that implies more than
@@ -120,6 +141,10 @@ import numpy as np
 # its bytes over the first and its operations over the second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# f32 on the CUDA cores (no tensor cores): the f32 kernels' peak; TF32 on
+# the tensor cores, the ceiling of any f32 library reading.
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # A kernel or library reading implying more than this share of either peak
 # is a fault of the measurement, and fails the run.
 RATE_LIMIT = 1.05
@@ -138,6 +163,12 @@ STATS_RTOL, STATS_ATOL = 1e-2, 1e-2
 # relative L2 error of the whole tensor.
 BWD_RTOL, BWD_ATOL = 2e-2, 2e-2
 BWD_REL_L2 = 1e-2
+# The f32 kernels (csrc/flash_attention_f32.cu) vs their plain versions in
+# f32: no rounding below f32 on either side, sums in other orders and exp's
+# last bits (the cuda cases of tests/test_torch_flash.py).
+FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-4, 1e-5
+BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-4
+BWD_F32_REL_L2 = 1e-5
 # Small-model prefill vs its f32 CPU run, relative L2 error of the final
 # hidden state over live rows: f32 on the card (TF32 off: summation order
 # only), and bf16 on the card, whose rounding also flips a few router
@@ -158,6 +189,29 @@ TRAIN_FLASH_VS_EINSUM = 1.25
 # and TRAIN_TIMED_STEPS timed steps on one batch.
 TRAIN_LAYERS, TRAIN_B, TRAIN_T = 4, 4, 2048
 TRAIN_TIMED_STEPS = 5
+# The training core (`run_train_core`): the flagship width cut to
+# TRAIN_CORE_LAYERS layers, the train probe's batch, remat on.
+#   - resume, bf16: k = TRAIN_CORE_K steps, a save, a new Trainer that
+#     resumes, k more steps, against 2k steps straight through, twice (the
+#     two uninterrupted runs are the path's own floor: where they agree bit
+#     for bit, the resumed run must too; otherwise its parameters may differ
+#     from the first by at most TRAIN_RESUME_VS_FLOOR x the floor);
+#   - gradient accumulation, f32 (input jitter off and a constant aux-loss
+#     weight, so that both micro-steps compute the same gradient; the f32
+#     kernels K1-K3): two micro-steps of one batch (grad_accum_steps 2)
+#     against one step of it; their mean is that batch's gradient, so the
+#     parameters must agree to TRAIN_ACCUM_REL of the update's size
+#     (relative L2 of the difference over the update; 0 where the path is
+#     deterministic);
+#   - the Gumbel / straight-through mixer, bf16: TRAIN_MIXER_STEPS steps;
+#   - the export: save_pretrained of the resumed trainer, loaded by the
+#     port's UniMoEAudio in bf16: the prefill's codec logits equal those of
+#     the trainer's parameters cast as the loader casts them, bit for bit.
+TRAIN_CORE_LAYERS = 2
+TRAIN_CORE_K = 2
+TRAIN_RESUME_VS_FLOOR = 4.0
+TRAIN_ACCUM_REL = 1e-3
+TRAIN_MIXER_STEPS = 2
 # Extra T2M prefills timed after the main call.
 PREFILL_REPEATS = 3
 # Grouped GEMMs (K4, K4t, K5) vs their plain versions in bf16: both multiply
@@ -283,18 +337,24 @@ SERVE_SLOTS, SERVE_T_TEXT, SERVE_HORIZON, SERVE_CHUNK = 4, 256, 400, 32
 SERVE_T2M_SECONDS = (1.0, 1.5, 2.0, 2.5)
 SERVE_VT2M_SECONDS = 2.0
 #   The reference checks of the serving apps run a 2-layer flagship-width
-#   f32 model on the card (weights from seed 3; `check_serving_reference`):
-#   - a mixed batch of the four tasks, sampled, a seed each, short (t_text
-#     under 128: K1 takes bf16 only), against each request alone through
-#     generate_mixed: the witness that a seeded request's draws do not
-#     depend on its batch on the card, printed beside the flagship's bf16
-#     shares;
+#   f32 model on the card (weights from seed 3; `check_serving_reference`),
+#   at the serving shapes, so that every prefill takes the f32 K1:
+#   - a mixed batch of the mixed phase's four tasks (the TTS request on a
+#     prompt of SERVE_REF_TTS_FRAMES codec frames, so that the batch's
+#     T_text is 256 as the flagship's), sampled, a seed each, short,
+#     against each request alone through generate_mixed (T_text 128 or
+#     256): the witness that a seeded request's draws do not depend on its
+#     batch on the card, printed beside the flagship's bf16 shares;
 #   - the continuous schedule at half the scale (chunks of
 #     SERVE_REF_CHUNK, horizon SERVE_REF_HORIZON, the T2M rows retiring 2,
-#     3 and 4 chunks in), so that it compacts as the flagship's does, with
-#     short requests (t_text under 128, so that the f32 prefill takes the
-#     einsum path: K1 takes bf16 only), against each request decoded alone
-#     by `generate` on the card.
+#     3 and 4 chunks in) at the flagship's t_text 256, so that it compacts
+#     as the flagship's does, against each request decoded alone by
+#     `generate` on the card;
+#   - `text_to_music_speculative` (spec_len SPEC_LEN, one draft layer) on a
+#     caption that buckets to 128 against greedy `text_to_music(
+#     decode_emit=False)`, SERVE_REF_SPEC_SECONDS: equal lengths, the
+#     decoded frames equal to the baseline's steps, between
+#     ceil(frames / spec_len) and frames cycles.
 #   Each is gated on the least share of equal frames (codec frames of the
 #   delayed domain, up to each request's span).  The first reading of the
 #   continuous one on an H100 was 1.0000; the bound tolerates a late
@@ -303,6 +363,8 @@ SERVE_VT2M_SECONDS = 2.0
 SERVE_REF_SECONDS = (0.6, 0.8, 1.0, 1.2, 0.8)  # 4 T2M, VT2M; the late TTS from the horizon
 SERVE_REF_HORIZON, SERVE_REF_CHUNK = 160, 16
 SERVE_REF_EQUAL_SHARE = 0.95
+SERVE_REF_TTS_FRAMES = 150
+SERVE_REF_SPEC_SECONDS = 1.0
 #   Speculative: one caption, SPEC_SECONDS, spec_len SPEC_LEN, the first
 #   SPEC_DRAFT_LAYERS layers as the draft; against greedy text_to_music
 #   with decode_emit=False on the same prompt.
@@ -312,7 +374,8 @@ TTFA_TRIALS = 5
 #   The studio: one POST /api/generate of STUDIO_SECONDS of music.
 STUDIO_SECONDS = 1.0
 
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "grouped_gemm")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_f32",
+                  "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
 
 WORDS = ("warm analog synth pads drift over a slow hip hop beat with dusty vinyl "
@@ -407,28 +470,31 @@ def graph_ms(fn, iters: int):
     return (best[0] - best[1]) / iters
 
 
-def check_rate(label: str, ms, nbytes: float, flops: float) -> None:
+def check_rate(label: str, ms, nbytes: float, flops: float,
+               peak_flops: float = PEAK_BF16_FLOPS) -> None:
     """Fail when a reading of ms for a call that must move nbytes and do
-    flops (bf16) implies more than RATE_LIMIT x the card's peak rate of
-    either: such a reading is a fault of the measurement."""
+    flops (at peak_flops: bf16 tensor cores by default) implies more than
+    RATE_LIMIT x the card's peak rate of either: such a reading is a fault
+    of the measurement."""
     if ms is None:
         return
     check(ms > 0, f"{label}: reading {ms} ms is not positive")
-    check(flops / (ms * 1e-3) <= RATE_LIMIT * PEAK_BF16_FLOPS
+    check(flops / (ms * 1e-3) <= RATE_LIMIT * peak_flops
           and nbytes / (ms * 1e-3) <= RATE_LIMIT * PEAK_BYTES_PER_S,
           f"{label}: {ms:.4f} ms for {flops / 1e9:.3f} GFLOP and {nbytes / 1e6:.2f} MB is "
           f"{flops / ms / 1e9:.1f} TFLOP/s and {nbytes / ms / 1e9:.3f} TB/s, above "
-          f"{RATE_LIMIT:.0%} of the peak ({PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"{RATE_LIMIT:.0%} of the peak ({peak_flops / 1e12:.0f} TFLOP/s, "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
 
 
-def flash_inputs(B, H, KV, T, S, Dh, valid, seed):
+def flash_inputs(B, H, KV, T, S, Dh, valid, seed, dtype=None):
     import torch
 
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, H, T, Dh, generator=gen, device="cuda").mul_(0.5).to(torch.bfloat16)
-    k = torch.randn(B, KV, S, Dh, generator=gen, device="cuda").mul_(0.5).to(torch.bfloat16)
-    v = torch.randn(B, KV, S, Dh, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(B, H, T, Dh, generator=gen, device="cuda").mul_(0.5).to(dtype)
+    k = torch.randn(B, KV, S, Dh, generator=gen, device="cuda").mul_(0.5).to(dtype)
+    v = torch.randn(B, KV, S, Dh, generator=gen, device="cuda").to(dtype)
     return q, k, v, torch.as_tensor(valid, dtype=torch.int32, device="cuda").contiguous()
 
 
@@ -439,41 +505,49 @@ def allowed_mask(valid, T, S, causal=True):
     return (valid[:, None, :] > 0) & tri                                  # [B, T, S]
 
 
-def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None) -> float:
-    """Kernel vs plain version; dead rows exactly 0.  Returns max |err|.
-    The keys' validity is `pads` left pads per row, or the mask `valid`
-    [B, S] where it is given."""
+def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None, dtype=None) -> float:
+    """Kernel vs plain version, in bf16 (the default) or f32 (the f32
+    kernel, counted by its own counter); dead rows exactly 0.  Returns max
+    |err|.  The keys' validity is `pads` left pads per row, or the mask
+    `valid` [B, S] where it is given."""
     import torch
     from unimoe_audio_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
 
+    f32 = dtype == torch.float32
+    rtol, atol = (FLASH_F32_RTOL, FLASH_F32_ATOL) if f32 else (FLASH_RTOL, FLASH_ATOL)
+    srtol, satol = (FLASH_F32_RTOL, FLASH_F32_ATOL) if f32 else (STATS_RTOL, STATS_ATOL)
     if valid is None:
         valid = np.ones((B, S), np.int32)
         for b, p in enumerate(pads):
             valid[b, :p] = 0
-    q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed)
+    q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed, dtype)
+    counts = _launch_counts()
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
     torch.cuda.synchronize()
+    key = "flash_attention_fwd_f32" if f32 else "flash_attention_fwd"
+    check(_launch_counts()[key] == counts[key] + 1, f"check_flash: no {key} launch")
     ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
     o32, r32 = o.float(), ro.float()
-    name = f"flash B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} causal={causal} pads={list(pads)}"
+    name = (f"flash{' f32' if f32 else ''} B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} "
+            f"causal={causal} pads={list(pads)}")
     check(bool(torch.isfinite(o32).all()), f"{name}: non-finite output")
-    check(bool(((o32 - r32).abs() <= FLASH_ATOL + FLASH_RTOL * r32.abs()).all()),
+    check(bool(((o32 - r32).abs() <= atol + rtol * r32.abs()).all()),
           f"{name}: output differs from the plain version, max err "
           f"{(o32 - r32).abs().max().item()}")
-    check(bool(((m - rm).abs() <= STATS_ATOL + STATS_RTOL * rm.abs()).all()), f"{name}: m differs")
-    check(bool(((l - rl).abs() <= STATS_ATOL + STATS_RTOL * rl.abs()).all()), f"{name}: l differs")
+    check(bool(((m - rm).abs() <= satol + srtol * rm.abs()).all()), f"{name}: m differs")
+    check(bool(((l - rl).abs() <= satol + srtol * rl.abs()).all()), f"{name}: l differs")
     dead = ~allowed_mask(vt, T, S, causal).any(-1)                        # [B, T]
     dead_rows = int(dead.sum()) * H
     check(bool((o32.abs().sum(-1)[dead[:, None, :].expand(B, H, T)] == 0).all()),
           f"{name}: a dead row is not exactly 0")
     err = (o32 - r32).abs().max().item()
-    print(f"kernel check: {name}: max|err| {err:.3e} (rtol {FLASH_RTOL}, atol {FLASH_ATOL}); "
+    print(f"kernel check: {name}: max|err| {err:.3e} (rtol {rtol}, atol {atol}); "
           f"{dead_rows} dead rows exactly 0", flush=True)
     return err
 
 
-def bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed):
+def bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed, dtype=None):
     """Inputs of the backward kernels as the training path makes them: q, k,
     v, kv_valid, dO, and K1's residuals m, l with D = rowsum(dO * O)."""
     import torch
@@ -482,45 +556,52 @@ def bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed):
     valid = np.ones((B, S), np.int32)
     for b, p in enumerate(pads):
         valid[b, :p] = 0
-    q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed)
+    q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed + 100)
-    do = torch.randn(B, H, T, Dh, generator=gen, device="cuda").to(torch.bfloat16)
-    count = flash_attention.launches
+    do = torch.randn(B, H, T, Dh, generator=gen, device="cuda").to(q.dtype)
+    counts = _launch_counts()
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
-    flash_attention.launches = count                   # not a launch of the main path
+    _set_launch_counts(counts)                         # not a launch of the main path
     return q, k, v, do, m, l, softmax_residual_rowsum(do, o), vt
 
 
-def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
-    """The dq and dk/dv kernels vs their plain versions on the same inputs;
-    dq of dead rows exactly 0; a second launch on the same inputs gives the
-    same bits.  Returns max |err| of dq, dk and dv."""
+def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed, dtype=None) -> dict:
+    """The dq and dk/dv kernels vs their plain versions on the same inputs,
+    in bf16 (the default) or f32 (the f32 kernels); dq of dead rows exactly
+    0; a second launch on the same inputs gives the same bits.  Returns max
+    |err| of dq, dk and dv."""
     import torch
     from unimoe_audio_torch.ops import flash_attention as FA
 
-    args = bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed)
+    f32 = dtype == torch.float32
+    rtol, atol, rel_l2 = ((BWD_F32_RTOL, BWD_F32_ATOL, BWD_F32_REL_L2) if f32
+                          else (BWD_RTOL, BWD_ATOL, BWD_REL_L2))
+    args = bwd_inputs(B, H, KV, T, S, Dh, pads, causal, seed, dtype)
     counts = _launch_counts()
     dq = FA.flash_attention_bwd_dq(*args, causal)
     dk, dv = FA.flash_attention_bwd_dkv(*args, causal)
     dq2 = FA.flash_attention_bwd_dq(*args, causal)
     dk2, dv2 = FA.flash_attention_bwd_dkv(*args, causal)
     torch.cuda.synchronize()
+    key = "flash_attention_bwd_dq" + ("_f32" if f32 else "")
+    check(_launch_counts()[key] == counts[key] + 2, f"check_flash_bwd: {key} was not launched")
     _set_launch_counts(counts)                  # not launches of a main path
     rdq = FA.flash_attention_bwd_dq_reference(*args, causal)
     rdk, rdv = FA.flash_attention_bwd_dkv_reference(*args, causal)
-    name = (f"flash bwd B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} causal={causal} "
-            f"pads={list(pads)}")
+    name = (f"flash bwd{' f32' if f32 else ''} B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} "
+            f"causal={causal} pads={list(pads)}")
     errs, rels = {}, {}
     for label, got, want in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         g32, w32 = got.float(), want.float()
         check(bool(torch.isfinite(g32).all()), f"{name}: non-finite {label}")
         err = (g32 - w32).abs()
         rel = ((g32 - w32).norm() / w32.norm().clamp_min(1e-30)).item()
-        check(bool((err <= BWD_ATOL + BWD_RTOL * w32.abs()).all()) and rel <= BWD_REL_L2,
+        check(bool((err <= atol + rtol * w32.abs()).all()) and rel <= rel_l2,
               f"{name}: {label} differs from the plain version, max err {err.max().item()}, "
               f"relative L2 {rel}")
         errs[label], rels[label] = err.max().item(), rel
-    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+    bits = torch.int32 if f32 else torch.int16
+    check(all(torch.equal(a.view(bits), b.view(bits))
               for a, b in ((dq, dq2), (dk, dk2), (dv, dv2))),
           f"{name}: two launches on the same inputs differ")
     dead = ~allowed_mask(args[-1], T, S, causal).any(-1)                 # [B, T]
@@ -529,7 +610,7 @@ def check_flash_bwd(B, H, KV, T, S, Dh, pads, causal, seed) -> dict:
           f"{name}: dq of a dead row is not exactly 0")
     print(f"kernel check: {name}: " + ", ".join(
         f"{lab} max|err| {errs[lab]:.3e} rel L2 {rels[lab]:.2e}" for lab in errs)
-        + f" (rtol {BWD_RTOL}, atol {BWD_ATOL}, rel L2 {BWD_REL_L2}); "
+        + f" (rtol {rtol}, atol {atol}, rel L2 {rel_l2}); "
         f"{dead_rows} dead rows with dq exactly 0; a second launch bit-identical", flush=True)
     return errs
 
@@ -700,6 +781,10 @@ def _launch_counts():
             "flash_attention_bwd_dq": FA.flash_attention_bwd_dq.launches,
             "flash_attention_bwd_dkv": FA.flash_attention_bwd_dkv.launches,
             "flash_attention_bwd_dkv_reduce": FA.flash_attention_bwd_dkv.reduce_launches,
+            "flash_attention_fwd_f32": FA.flash_attention.f32_launches,
+            "flash_attention_bwd_dq_f32": FA.flash_attention_bwd_dq.f32_launches,
+            "flash_attention_bwd_dkv_f32": FA.flash_attention_bwd_dkv.f32_launches,
+            "flash_attention_bwd_dkv_f32_reduce": FA.flash_attention_bwd_dkv.f32_reduce_launches,
             "grouped_gemm_gmm": GG.gmm.launches,
             **{f"grouped_gemm_gmm_{c}": n for c, n in GG.gmm.launches_by_config.items()},
             "grouped_gemm_gmm_transposed": GG.gmm.transposed_launches,
@@ -715,6 +800,10 @@ def _set_launch_counts(counts: dict) -> None:
     FA.flash_attention_bwd_dq.launches = counts["flash_attention_bwd_dq"]
     FA.flash_attention_bwd_dkv.launches = counts["flash_attention_bwd_dkv"]
     FA.flash_attention_bwd_dkv.reduce_launches = counts["flash_attention_bwd_dkv_reduce"]
+    FA.flash_attention.f32_launches = counts["flash_attention_fwd_f32"]
+    FA.flash_attention_bwd_dq.f32_launches = counts["flash_attention_bwd_dq_f32"]
+    FA.flash_attention_bwd_dkv.f32_launches = counts["flash_attention_bwd_dkv_f32"]
+    FA.flash_attention_bwd_dkv.f32_reduce_launches = counts["flash_attention_bwd_dkv_f32_reduce"]
     GG.gmm.launches = GG.grouped_matmul.launches = counts["grouped_gemm_gmm"]
     for c in GG.GMM_CONFIGS:
         GG.gmm.launches_by_config[c] = counts[f"grouped_gemm_gmm_{c}"]
@@ -725,6 +814,18 @@ def _set_launch_counts(counts: dict) -> None:
 
 def _zero_launch_counts() -> None:
     _set_launch_counts(dict.fromkeys(_launch_counts(), 0))
+
+
+def probe_batch(cfg) -> dict:
+    """The JAX package's train probe batch (`bench.py:85-128`): B TRAIN_B x
+    T TRAIN_T codec placeholders, codec ids from seed 0 and the same ids as
+    labels."""
+    B, T, C = TRAIN_B, TRAIN_T, cfg.codec_channels
+    codec = np.random.default_rng(0).integers(0, cfg.codec_eos_value, size=(B, T, C))
+    return {"input_ids": np.full((B, T), cfg.codec_placeholder_value, np.int32),
+            "codec_input_ids": codec.astype(np.int32),
+            "attention_mask": np.ones((B, T), np.int32),
+            "codec_labels": codec.astype(np.int32)}
 
 
 def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
@@ -748,30 +849,15 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
         vision_config=None)
     params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    B, T, C = TRAIN_B, TRAIN_T, cfg.codec_channels
-    codec = np.random.default_rng(0).integers(0, cfg.codec_eos_value, size=(B, T, C))
-    batch = {"input_ids": np.full((B, T), cfg.codec_placeholder_value, np.int32),
-             "codec_input_ids": codec.astype(np.int32),
-             "attention_mask": np.ones((B, T), np.int32),
-             "codec_labels": codec.astype(np.int32)}
+    B, T = TRAIN_B, TRAIN_T
+    batch = probe_batch(cfg)
     trainer = Trainer(cfg, params, TrainerConfig(learning_rate=1e-4, warmup_steps=1,
                                                  total_steps=100, log_every=1, remat=True,
                                                  dispatch_mode=dispatch_mode))
     n_steps = 1 + TRAIN_TIMED_STEPS
-    marks = []                              # (time, launch counts) at each step's start
-
-    def batches():
-        for _ in range(n_steps):
-            torch.cuda.synchronize()
-            marks.append((time.perf_counter(), _launch_counts()))
-            yield batch
-
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    history = trainer.fit(batches())
-    torch.cuda.synchronize()
-    marks.append((time.perf_counter(), _launch_counts()))
+    history, _, marks = _fit_marked(trainer, batch, n_steps)   # (time, launch counts)
     launches = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -790,7 +876,9 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
             "grouped_gemm_gmm_transposed": 3 * L if gmm else 0,
             "grouped_gemm_tgmm": 3 * L if gmm else 0,
             "grouped_gemm_tgmm_reduce":
-                3 * L if gmm and GG.tgmm_workspace_slots(rows, 8) else 0}
+                3 * L if gmm and GG.tgmm_workspace_slots(rows, 8) else 0,
+            # bf16: no f32 kernel
+            **{k: 0 for k in per_step[0] if k.endswith(("_f32", "_f32_reduce"))}}
     check(all(p == want for p in per_step), f"launches per step {per_step}, want {want}")
     losses = [h["loss"] for h in history]
     check(len(losses) == n_steps and all(np.isfinite(losses)), f"losses {losses}")
@@ -802,7 +890,7 @@ def run_train_slice(card: str, dispatch_mode: str = "dense", dense_losses=None):
               f"{dense_losses[0]}: relative {rel0} (limit {TRAIN_GMM_LOSS_REL})")
         print(f"train slice [{card}]: {dispatch_mode} step 0 loss vs dense: relative {rel0:.3e} "
               f"(limit {TRAIN_GMM_LOSS_REL})", flush=True)
-    step_s = [b[0] - a[0] for a, b in zip(marks[1:], marks[2:])]
+    step_s = _durations(marks)[1:]
     med = float(np.median(step_s))
     print(f"train slice [{card}] {dispatch_mode}: {L} layers at flagship width, "
           f"{n_params / 1e9:.3f} B params "
@@ -859,6 +947,252 @@ def profile_train_step(trainer, batch, step_s: float, card: str) -> None:
         f"{e.self_device_time_total / 1e3 / e.count:.4f} ({e.count})"
         for e in sorted(ours, key=lambda e: e.key)), flush=True)
 
+
+
+def _fit_marked(trainer, batch, n: int, **kw):
+    """trainer.fit over n copies of batch; returns (history, the host time
+    before fit, (time, launch counts) as each batch was taken and at the
+    end, each after a synchronise)."""
+    import torch
+
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), _launch_counts()))
+
+    def batches():
+        for _ in range(n):
+            mark()
+            yield batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = trainer.fit(batches(), **kw)
+    mark()
+    return history, t0, marks
+
+
+def _durations(marks) -> list:
+    return [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+
+
+def _param_leaves(trainer):
+    from unimoe_audio_torch.train.step import named_leaves
+
+    return [t.detach() for _, t in named_leaves(trainer.state.params)]
+
+
+def _leaf_diff(a, b):
+    """(max |a - b|, elements that differ, ||a - b||) over aligned lists of
+    tensors."""
+    import torch
+
+    mx, n, sq = 0.0, 0, 0.0
+    for x, y in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        mx = max(mx, d.max().item())
+        n += int((x != y).sum())
+        sq += float(torch.linalg.vector_norm(d)) ** 2
+    return mx, n, sq ** 0.5
+
+
+def _by_name(params) -> list:
+    """The leaves of a param tree sorted by name (each layer's in layer
+    order), whatever the order of the dict's keys."""
+    from unimoe_audio_torch.train.step import named_leaves
+
+    return [t for _, t in sorted(named_leaves(params), key=lambda x: x[0])]
+
+
+def _per_step(launches: dict, steps: int) -> dict:
+    return {k: v // steps for k, v in launches.items() if v}
+
+
+def run_train_core(card: str) -> dict:
+    """The training core through `Trainer` at the flagship width cut to
+    TRAIN_CORE_LAYERS layers, on the train probe's batch (TRAIN_CORE_*
+    above): resume against an uninterrupted run (bf16), gradient
+    accumulation against one step (f32, the f32 kernels), the Gumbel mixer
+    (bf16) beside the closed-form one, and the export loaded by the port's
+    UniMoEAudio.  Returns the launch counts of its paths (train_resume: the
+    first uninterrupted run; train_accum_f32: the accumulating trainer;
+    train_mixer)."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params, model_forward
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    L, k = TRAIN_CORE_LAYERS, TRAIN_CORE_K
+    tc = dataclasses.replace(TextMoEConfig(), num_hidden_layers=L)
+    cfg = UniMoEAudioConfig(text_config=tc, vision_config=None)
+    batch = probe_batch(cfg)
+    tkw = dict(learning_rate=1e-4, warmup_steps=1, total_steps=100, log_every=1, remat=True)
+    bf16 = torch.bfloat16
+    paths = {}
+    per_step_bf16 = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv_reduce": L}
+
+    def trainer(c, seed, dtype, **extra):
+        return Trainer(c, init_model_params(c, seed=seed, dtype=dtype, device="cuda"),
+                       TrainerConfig(**{**tkw, **extra}))
+
+    # Resume, bf16: two uninterrupted runs of 2k steps (the floor), then k
+    # steps, a save, a fresh Trainer (other initial weights) that resumes,
+    # k more steps.
+    runs = []
+    for rep in range(2):
+        tr = trainer(cfg, 0, bf16)
+        _zero_launch_counts()
+        hist, _, marks = _fit_marked(tr, batch, 2 * k)
+        if rep == 0:
+            paths["train_resume"] = _launch_counts()
+            check(_per_step(paths["train_resume"], 2 * k) == per_step_bf16,
+                  f"train core: launches {paths['train_resume']} over {2 * k} steps, want "
+                  f"{per_step_bf16} a step")
+        runs.append(([h["loss"] for h in hist], [t.clone() for t in _param_leaves(tr)],
+                     _durations(marks)))
+        del tr
+    torch.cuda.empty_cache()
+    (losses, ref, closed_step_s), (losses2, ref2, _) = runs
+    check(all(np.isfinite(losses)), f"train core: losses {losses}")
+    floor = _leaf_diff(ref2, ref)
+    deterministic = losses2 == losses and floor[1] == 0
+    with tempfile.TemporaryDirectory() as ck:
+        first = trainer(cfg, 0, bf16)
+        _fit_marked(first, batch, k)
+        first.tcfg = dataclasses.replace(first.tcfg, ckpt_dir=ck, max_to_keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first.save()
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ck)
+                       for f in fs)
+        del first
+        torch.cuda.empty_cache()
+        second = trainer(cfg, 1, bf16, ckpt_dir=ck, max_to_keep=1)
+        hist2, t0, marks = _fit_marked(second, batch, k, max_steps=2 * k)
+        restore_s = marks[0][0] - t0
+    check([h["step"] for h in hist2] == list(range(k, 2 * k)),
+          f"train core: resumed steps {[h['step'] for h in hist2]}")
+    resumed = losses[:k] + [h["loss"] for h in hist2]
+    got = _leaf_diff(_param_leaves(second), ref)
+    if deterministic:
+        check(resumed == losses and got[1] == 0,
+              f"train core: resumed run differs from the uninterrupted one (deterministic "
+              f"path): losses {resumed} vs {losses}, {got[1]} elements, max {got[0]}")
+    else:
+        check(got[0] <= TRAIN_RESUME_VS_FLOOR * floor[0],
+              f"train core: resumed run max |diff| {got[0]} vs the floor {floor[0]}")
+    n_params = sum(t.numel() for t in ref)
+    print(f"train core [{card}]: resume, bf16, {L} layers at flagship width ({n_params / 1e9:.3f}"
+          f" B params), B {TRAIN_B} x T {TRAIN_T}: {k} steps, save, a new Trainer resumes, {k} "
+          f"more, against {2 * k} straight: losses {[round(x, 6) for x in resumed]} vs "
+          f"{[round(x, 6) for x in losses]}; parameters: {got[1]} elements differ (max "
+          f"{got[0]:.3e}); two straight runs differ in {floor[1]} elements (max "
+          f"{floor[0]:.3e}){' (bit-equal: deterministic path)' if deterministic else ''}; "
+          f"checkpoint {ck_bytes / 1e9:.3f} GB (parameters, moments), save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s (the fit's start to its first step)", flush=True)
+
+    # The export of the resumed trainer, loaded by the port's UniMoEAudio.
+    with tempfile.TemporaryDirectory() as ex:
+        t0 = time.perf_counter()
+        second.save_pretrained(ex)
+        export_s = time.perf_counter() - t0
+        ex_bytes = os.path.getsize(os.path.join(ex, "model.jax.pkl"))
+        t0 = time.perf_counter()
+        model = UniMoEAudio(ex, dtype=bf16, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    cast = _to(second.state.params, dtype=bf16)          # as the loader casts the leaves
+    same = _leaf_diff(_by_name(model.params), _by_name(cast))
+    check(same[1] == 0, f"export: loaded parameters differ in {same[1]} elements")
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(0, tc.vocab_size - 8, size=(4, 128)), device="cuda")
+    mask = torch.ones(4, 128, dtype=torch.int32, device="cuda")
+    mask[1, :40] = 0
+    counts = _launch_counts()
+    with torch.inference_mode():
+        a = model_forward(model.params, cfg, ids, attention_mask=mask).codec_logits
+        b = model_forward(cast, cfg, ids, attention_mask=mask).codec_logits
+    check(_launch_counts()["flash_attention_fwd"] == counts["flash_attention_fwd"] + 2 * L,
+          "export: the prefills did not take K1")
+    _set_launch_counts(counts)
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+          f"export: prefill codec logits differ, max {(a.float() - b.float()).abs().max().item()}")
+    print(f"train core [{card}]: export: save_pretrained {ex_bytes / 1e9:.3f} GB "
+          f"(model.jax.pkl, f32 leaves) in {export_s:.2f} s; UniMoEAudio load {load_s:.2f} s; "
+          f"prefill codec logits [4, 128] through K1 equal to the trainer's bit for bit",
+          flush=True)
+    del model, cast, second, ref, ref2
+    torch.cuda.empty_cache()
+
+    # Gradient accumulation, f32: one step of the batch against two
+    # micro-steps of it (warm-up 0, so the one update moves the parameters).
+    acfg = dataclasses.replace(cfg, text_config=dataclasses.replace(
+        tc, input_jitter_noise=0.0, min_l_aux_weight=tc.l_aux_weight))
+    akw = dict(warmup_steps=0)
+    one = trainer(acfg, 0, torch.float32, **akw)
+    start = [t.clone() for t in _param_leaves(one)]
+    h_one, _, m_one = _fit_marked(one, batch, 1)
+    p_one = [t.clone() for t in _param_leaves(one)]
+    del one
+    torch.cuda.empty_cache()
+    two = trainer(acfg, 0, torch.float32, grad_accum_steps=2, **akw)
+    _zero_launch_counts()
+    h_two, _, m_two = _fit_marked(two, batch, 2)
+    paths["train_accum_f32"] = _launch_counts()
+    want = {f"{k}_f32" if not k.endswith("reduce") else k.replace("_reduce", "_f32_reduce"): v
+            for k, v in per_step_bf16.items()}
+    check(_per_step(paths["train_accum_f32"], 2) == want,
+          f"train core: f32 launches {paths['train_accum_f32']} over 2 micro-steps, want {want} "
+          f"a micro-step")
+    st = two.state
+    check(st.step == 2 and st.opt_state.count == 1 and st.opt_state.mini_step == 0,
+          f"accumulation: step {st.step}, updates {st.opt_state.count}, mini-step "
+          f"{st.opt_state.mini_step}")
+    diff = _leaf_diff(_param_leaves(two), p_one)
+    update = _leaf_diff(p_one, start)
+    rel = diff[2] / max(update[2], 1e-30)
+    l_one, l_two = h_one[0]["loss"], [h["loss"] for h in h_two]
+    check(all(np.isfinite(l_two)) and update[1] > 0 and rel <= TRAIN_ACCUM_REL,
+          f"accumulation: parameters differ by {rel:.3e} of the update (limit "
+          f"{TRAIN_ACCUM_REL}); losses {l_two} vs {l_one}")
+    print(f"train core [{card}]: gradient accumulation, f32, {L} layers, input jitter off, a "
+          f"constant aux-loss weight: two "
+          f"micro-steps of the batch (grad_accum_steps 2) vs one step: losses {l_two} vs "
+          f"{l_one}; parameters: {diff[1]} elements differ (max {diff[0]:.3e}), relative L2 "
+          f"{rel:.3e} of the update (limit {TRAIN_ACCUM_REL}; the update moved {update[1]} "
+          f"elements); micro-step times (s) {[round(x, 4) for x in _durations(m_two)]}, one "
+          f"step {_durations(m_one)[0]:.4f} s; f32 launches per micro-step "
+          f"{_per_step(paths['train_accum_f32'], 2)}", flush=True)
+    del two, start, p_one
+    torch.cuda.empty_cache()
+
+    # The Gumbel / straight-through mixer, bf16.
+    mcfg = dataclasses.replace(cfg, text_config=dataclasses.replace(
+        tc, ignore_differentiable_router=False))
+    tr = trainer(mcfg, 0, bf16)
+    _zero_launch_counts()
+    hist, _, marks = _fit_marked(tr, batch, TRAIN_MIXER_STEPS)
+    paths["train_mixer"] = _launch_counts()
+    check(_per_step(paths["train_mixer"], TRAIN_MIXER_STEPS) == per_step_bf16,
+          f"train core: mixer launches {paths['train_mixer']}")
+    m_losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(m_losses)) and not any(h["skipped"] for h in hist),
+          f"mixer: losses {m_losses}, skipped {[h['skipped'] for h in hist]}")
+    mixer_s = _durations(marks)
+    print(f"train core [{card}]: Gumbel / straight-through mixer (ignore_differentiable_router"
+          f"=False), bf16, {L} layers: losses {[round(x, 5) for x in m_losses]}, mean top-k "
+          f"{[round(h['mean_top_k'], 3) for h in hist]}; step times (s) "
+          f"{[round(x, 4) for x in mixer_s]} against the closed-form mixer's "
+          f"{[round(x, 4) for x in closed_step_s]} (the resume check's first run)", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return paths
 
 def run_slice(card: str, out_dir: str):
     """The flagship text-to-music path, wavs into out_dir; returns
@@ -1369,6 +1703,137 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
         recs.append(rec)
     return recs, fwd_train
 
+
+
+def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
+    """The f32 kernels (csrc/flash_attention_f32.cu), their plain versions
+    and SDPA in f32 (TF32 off) as the library call: K1 at the T2M prefill
+    shape (its attention mask) and at the training shape, K2 and K3 at the
+    training shape; CUDA events over back-to-back calls and graph replays
+    (`graph_ms`).  The bound takes the f32 rate of the CUDA cores
+    (PEAK_F32_FLOPS): the kernels use no tensor cores.  Returns the records
+    of the three kernels (K1's training-shape fields under train_shape)."""
+    import torch
+    import torch.nn.functional as F
+    from unimoe_audio_torch.config import TextMoEConfig
+    from unimoe_audio_torch.ops import flash_attention as FA
+
+    f32 = torch.float32
+    tc = TextMoEConfig()
+    H, KV, Dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+    src = "unimoe_audio_torch/csrc/flash_attention_f32.cu"
+    rep = "unimoe_audio_tpu/ops/flash_attention.py:"
+
+    def bound(nbytes, flops):
+        t = (nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3)
+        return max(t), "bytes" if t[0] >= t[1] else "operations"
+
+    def g(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+
+    def fwd_times(B, T, mask, seed, iters):
+        q, k, v, vt = flash_inputs(B, H, KV, T, T, Dh, mask, seed, f32)
+        counts = _launch_counts()
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, vt), iters=iters)
+        graph = graph_ms(lambda: FA.flash_attention(q, k, v, vt), max(iters // 4, 10))
+        _set_launch_counts(counts)
+        plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v, vt, True),
+                        iters=max(iters // 4, 3), warmup=1)
+        kk = k.repeat_interleave(H // KV, dim=1)
+        vv = v.repeat_interleave(H // KV, dim=1)
+        allowed = allowed_mask(vt, T, T)[:, None]
+        with torch.no_grad():
+            lib = {"attn_mask": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=allowed), iters=iters)}
+            if not bool((vt == 0).any()):
+                lib["is_causal"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kk, vv, is_causal=True), iters=iters)
+        pairs = int(allowed_mask(vt, T, T).sum()) * H
+        flops = 4 * Dh * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 + vt.numel() * 4 + 2 * B * H * T * 4
+        for form, x in lib.items():
+            check_rate(f"sdpa f32 ({form}) B={B} T={T}", x, nbytes, flops, PEAK_TF32_FLOPS)
+        check_rate(f"flash_attention_fwd_f32 B={B} T={T}, kernel", ms, nbytes, flops,
+                   PEAK_F32_FLOPS)
+        check_rate(f"flash_attention_fwd_f32 B={B} T={T}, kernel, graph", graph, nbytes, flops,
+                   PEAK_F32_FLOPS)
+        b, by = bound(nbytes, flops)
+        print(f"kernel timing [{card}]: flash_attention_fwd_f32 B={B} H={H} KV={KV} T=S={T} "
+              f"Dh={Dh}: kernel {ms:.4f} ms (graph replay, L2 cold: {g(graph)}; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, sdpa f32 "
+              + ", ".join(f"{f} {x:.4f} ms" for f, x in lib.items())
+              + f", bound {b:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+              f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+        return {"ms": ms, "device_ms_graph": graph, "plain_ms": plain, "bound_ms": b,
+                "bound_by": by, "library_ms": min(lib.values()),
+                **{f"library_ms_{f}": x for f, x in lib.items()}}
+
+    B, T = t2m_mask.shape
+    prefill = fwd_times(B, T, np.asarray(t2m_mask, np.int32), 5, 200)
+    train = fwd_times(TRAIN_B, TRAIN_T, np.ones((TRAIN_B, TRAIN_T), np.int32), 9, 20)
+    fwd = {"name": "flash_attention_fwd_f32", "route": "cuda", "source": src,
+           "replaces": rep + "30", "max_abs_err": errs["fwd"], **prefill,
+           "shape": f"T2M prefill B={B} H={H} KV={KV} T=S={T} Dh={Dh} causal",
+           "train_shape": {"shape": f"B={TRAIN_B} H={H} KV={KV} T=S={TRAIN_T} Dh={Dh} causal",
+                           **train}}
+
+    Bt, T = TRAIN_B, TRAIN_T
+    args = bwd_inputs(Bt, H, KV, T, T, Dh, (0,) * Bt, True, seed=9, dtype=f32)
+    q, k, v, do, m, l, dvec, vt = args
+    counts = _launch_counts()
+    times = {"flash_attention_bwd_dq_f32": (
+                 cuda_ms(lambda: FA.flash_attention_bwd_dq(*args, True), iters=10),
+                 graph_ms(lambda: FA.flash_attention_bwd_dq(*args, True), 5)),
+             "flash_attention_bwd_dkv_f32": (
+                 cuda_ms(lambda: FA.flash_attention_bwd_dkv(*args, True), iters=10),
+                 graph_ms(lambda: FA.flash_attention_bwd_dkv(*args, True), 5))}
+    _set_launch_counts(counts)
+    plain = {"flash_attention_bwd_dq_f32": cuda_ms(
+                 lambda: FA.flash_attention_bwd_dq_reference(*args, True), iters=3, warmup=1),
+             "flash_attention_bwd_dkv_f32": cuda_ms(
+                 lambda: FA.flash_attention_bwd_dkv_reference(*args, True), iters=3, warmup=1)}
+    qq = q.detach().requires_grad_(True)
+    kk = k.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
+    vv = v.repeat_interleave(H // KV, dim=1).detach().requires_grad_(True)
+    lib = {}
+    for form, kw in (("attn_mask", {"attn_mask": allowed_mask(vt, T, T)[:, None]}),
+                     ("is_causal", {"is_causal": True})):
+        out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
+        lib[form] = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True),
+                            iters=5)
+        del out
+    pairs = int(allowed_mask(vt, T, T).sum()) * H
+    in_bytes = (q.numel() + k.numel() + v.numel() + do.numel()) * 4 \
+        + (m.numel() + l.numel() + dvec.numel() + vt.numel()) * 4
+    for form, x in lib.items():       # five products over the pairs: dq, dk and dv at once
+        check_rate(f"sdpa f32 backward ({form})", x, in_bytes, 2 * Dh * pairs * 5,
+                   PEAK_TF32_FLOPS)
+    recs = [fwd]
+    for name, n_products, out_bytes, err in (
+            ("flash_attention_bwd_dq_f32", 3, q.numel() * 4, errs["dq"]),
+            ("flash_attention_bwd_dkv_f32", 4, (k.numel() + v.numel()) * 4,
+             max(errs["dk"], errs["dv"]))):
+        ms, graph = times[name]
+        flops, nbytes = 2 * Dh * pairs * n_products, in_bytes + out_bytes
+        check_rate(f"{name}, kernel", ms, nbytes, flops, PEAK_F32_FLOPS)
+        check_rate(f"{name}, kernel, graph", graph, nbytes, flops, PEAK_F32_FLOPS)
+        b, by = bound(nbytes, flops)
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep + ("150" if name.endswith("dq_f32") else "208"),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain[name], "bound_ms": b,
+               "bound_by": by, "library_ms": min(lib.values()),
+               **{f"library_ms_{f}": x for f, x in lib.items()}, "device_ms_graph": graph,
+               "shape": f"B={Bt} H={H} KV={KV} T=S={T} Dh={Dh} causal"}
+        print(f"kernel timing [{card}]: {name} B={Bt} H={H} KV={KV} T=S={T} Dh={Dh} causal: "
+              f"kernel {ms:.4f} ms (graph replay, L2 cold: {g(graph)}; "
+              f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain[name]:.4f} ms, sdpa f32 backward "
+              f"(dq, dk, dv) attn_mask {lib['attn_mask']:.4f} ms, is_causal "
+              f"{lib['is_causal']:.4f} ms, bound {b:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+        recs.append(rec)
+    for rec in recs:
+        print(json.dumps({"kernel": rec}), flush=True)
+    return recs
 
 def flagship_group_sizes(S: int, seed: int):
     """`moe_ffn_gmm`'s group sizes for S tokens routed by the flagship router
@@ -1942,6 +2407,36 @@ def _alone_shares(model, reqs, batch_codes, out_dir: str, label: str) -> list:
     return shares
 
 
+@contextlib.contextmanager
+def first_decode_logits():
+    """Records the codec logits of the first decode step of the first
+    `generate` call made while the block runs ([2B, C, Vc] f32 on the CPU;
+    the loop computes them through its module's `codec_logits_from_hidden`,
+    which the prefill does not call)."""
+    from unimoe_audio_torch.generate import loop as LP
+
+    out, f = [], LP.codec_logits_from_hidden
+
+    def recorded(params, hidden, cfg):
+        y = f(params, hidden, cfg)
+        if not out:
+            out.append(y[:, 0].float().cpu())
+        return y
+
+    LP.codec_logits_from_hidden = recorded
+    try:
+        yield out
+    finally:
+        LP.codec_logits_from_hidden = f
+
+
+def _first_request_drift(batch_logits, alone_logits) -> float:
+    """Relative L2 of the first request's CFG pair of codec logits (rows 0
+    and 1) alone against in the batch."""
+    a, b = alone_logits[0][:2], batch_logits[0][:2]
+    return ((a - b).norm() / b.norm()).item()
+
+
 def run_mixed_batch(model, wav: str, card: str, out_dir: str):
     """One `generate_mixed` batch of MIXED_T2M, a TTS and a VT2M request,
     sampled with a seed each: every stream within its budget, one prefill
@@ -1965,7 +2460,8 @@ def run_mixed_batch(model, wav: str, card: str, out_dir: str):
     _zero_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    paths = model.generate_mixed(reqs, output_dir=out_dir, save_name="mixed")
+    with first_decode_logits() as batch_logits:
+        paths = model.generate_mixed(reqs, output_dir=out_dir, save_name="mixed")
     wall_s = time.perf_counter() - t0
     launches = _launch_counts()
     t, codes = model.last_timings, model.last_codes
@@ -1988,7 +2484,8 @@ def run_mixed_batch(model, wav: str, card: str, out_dir: str):
           f"{t['dac_s'] * 1e3:.1f} ms; aggregate realtime factor {audio_s / wall_s:.3f} "
           f"({audio_s:.2f} s of audio in {wall_s:.2f} s, the whole call with the prompt's "
           f"DAC encode)", flush=True)
-    share = _alone_shares(model, reqs[:1], codes, out_dir, "mixed")[0]
+    with first_decode_logits() as alone_logits:
+        share = _alone_shares(model, reqs[:1], codes, out_dir, "mixed")[0]
     alone_T, alone_n = model.last_timings["T_text"], len(model.last_codes[0])
     # The same request alone at the batch's bucket: its CFG pair left-padded
     # to the batch's T_text as the batch pads it, so that only the row count
@@ -1996,18 +2493,25 @@ def run_mixed_batch(model, wav: str, card: str, out_dir: str):
     r = reqs[0]
     ids, mask = model._tokenize(_t2m_prompts([r["caption"]]))
     pad = ((0, 0), (t["T_text"] - ids.shape[1], 0))
-    model._generate_core(
-        np.pad(ids, pad), np.pad(mask, pad), None, "mixed_alone_bucket", None, out_dir,
-        cfg_scale=r["cfg_scale"], eos_prob_mul_factor=0.6, max_tokens=budgets[0],
-        min_tokens=int(r["min_audio_seconds"] * 50), max_tokens_vec=[budgets[0]],
-        sample_seeds=[r["seed"]])
+    with first_decode_logits() as bucket_logits:
+        model._generate_core(
+            np.pad(ids, pad), np.pad(mask, pad), None, "mixed_alone_bucket", None, out_dir,
+            cfg_scale=r["cfg_scale"], eos_prob_mul_factor=0.6, max_tokens=budgets[0],
+            min_tokens=int(r["min_audio_seconds"] * 50), max_tokens_vec=[budgets[0]],
+            sample_seeds=[r["seed"]])
     at_bucket = model.last_codes[0]
     bucket_share = _equal_frame_share([(at_bucket, len(at_bucket), codes[0], len(codes[0]))], 0)
+    drift = (_first_request_drift(batch_logits, alone_logits),
+             _first_request_drift(batch_logits, bucket_logits))
     print(f"serving [{card}]: the first request alone with its seed: at T_text {alone_T}, "
           f"{alone_n} frames against {len(codes[0])} in the batch, equal frames {share:.3f}; "
           f"at the batch's T_text {t['T_text']} (2 rows instead of 8), {len(at_bucket)} "
           f"frames, equal frames {bucket_share:.3f} (neither gated)", flush=True)
-    return launches, (share, bucket_share)
+    print(f"serving [{card}]: bf16 drift with the batch's shape: codec logits of the first "
+          f"request's CFG pair at its first decode step, relative L2 alone vs in the batch: "
+          f"{drift[0]:.3e} at T_text {alone_T}, {drift[1]:.3e} at the batch's T_text "
+          f"{t['T_text']} (a measurement, not gated)", flush=True)
+    return launches, (share, bucket_share, *drift)
 
 
 def _slot_standalone(params, cfg, req, t_text: int):
@@ -2143,16 +2647,21 @@ def run_continuous(model, wav: str, card: str, out_dir: str):
     return launches, rec
 
 
-def check_serving_reference(model, card: str, out_dir: str, flagship_shares) -> None:
+def check_serving_reference(model, card: str, out_dir: str, flagship_shares) -> dict:
     """The serving apps on a 2-layer flagship-width f32 model on the card
     (weights from seed 3, the flagship's bf16 vision tower; SERVE_REF_*
-    above).  First a mixed batch of the mixed phase's four tasks, made
-    short (t_text under 128: K1 takes bf16 only), sampled, a seed per
-    request, against each request alone: the share of equal frames,
-    printed beside the flagship's bf16 shares of the mixed phase.  Then
-    the continuous schedule at half the scale, which must compact, against
-    each request decoded alone by `generate`: lengths and the share of
-    equal frames.  Both shares at least SERVE_REF_EQUAL_SHARE."""
+    above), at the serving shapes, every prefill through the f32 K1.  First
+    a mixed batch of the mixed phase's four tasks (T_text 256), sampled, a
+    seed per request, against each request alone: the share of equal
+    frames, printed beside the flagship's bf16 shares of the mixed phase,
+    and the codec-logit drift of the first request at its first decode
+    step.  Then the continuous schedule at half the scale and t_text 256,
+    which must compact, against each request decoded alone by `generate`:
+    lengths and the share of equal frames.  Then self-speculative decoding
+    against the greedy baseline.  Each share at least
+    SERVE_REF_EQUAL_SHARE.  Returns the launch counts of the three f32 runs
+    (mixed_ref_f32: the batch; continuous_ref_f32: the server;
+    speculative_ref_f32: the speculative call)."""
     import copy
     import dataclasses
 
@@ -2162,31 +2671,53 @@ def check_serving_reference(model, card: str, out_dir: str, flagship_shares) -> 
 
     cfg = dataclasses.replace(model.config, text_config=dataclasses.replace(
         model.config.text_config, num_hidden_layers=2))
+    L = cfg.text_config.num_hidden_layers
     params = M.init_model_params(cfg, seed=3, dtype=torch.float32, device="cuda")
     params["vision"] = model.params["vision"]     # the flagship's tower feeds the VT2M rows
     ref = copy.copy(model)
     ref.config, ref.params = cfg, params
+    paths = {}
 
-    codec = np.random.default_rng(4).integers(0, cfg.codec_eos_value, size=(15, cfg.codec_channels))
+    def f32_prefills(launches, n, label):
+        check(launches["flash_attention_fwd_f32"] == n * L
+              and launches["flash_attention_fwd"] == 0,
+              f"{label}: K1 launches {launches}, want {n} f32 prefill(s) of {L} layers")
+
+    codec = np.random.default_rng(4).integers(0, cfg.codec_eos_value,
+                                              size=(SERVE_REF_TTS_FRAMES, cfg.codec_channels))
     short = dict(min_audio_seconds=0.5, max_audio_seconds=0.8)
-    reqs = [{"task": "text_to_music", "caption": caption(6), "cfg_scale": 10.0, "seed": 400,
+    reqs = [{"task": "text_to_music", "caption": caption(58), "cfg_scale": 10.0, "seed": 400,
              **short, "max_audio_seconds": 1.0},
-            {"task": "text_to_music", "caption": caption(8), "cfg_scale": 5.0, "seed": 401, **short},
-            {"task": "text_to_speech", "caption": "Hello there.", "prompt_text": "A short reference.",
+            {"task": "text_to_music", "caption": caption(74), "cfg_scale": 5.0, "seed": 401,
+             **short},
+            {"task": "text_to_speech", "caption": TTS_SENTENCES[1], "prompt_text": TTS_PROMPT_TEXT,
              "prompt_codec": codec, "seed": 402, **short},
-            {"task": "video_text_to_music", "caption": caption(6),
+            {"task": "video_text_to_music", "caption": caption(40),
              "video": vt2m_videos(("C",))[0], "seed": 403, **short}]
-    ref.generate_mixed(reqs, output_dir=out_dir, save_name="mixed_ref")
+    _zero_launch_counts()
+    with first_decode_logits() as batch_logits:
+        ref.generate_mixed(reqs, output_dir=out_dir, save_name="mixed_ref")
+    paths["mixed_ref_f32"] = _launch_counts()
     batch_codes, T_text = ref.last_codes, ref.last_timings["T_text"]
-    check(T_text < 128, f"mixed reference: T_text {T_text} takes K1 (bf16 only)")
-    shares = _alone_shares(ref, reqs, batch_codes, out_dir, "mixed_ref")
+    check(T_text == 256, f"mixed reference: T_text {T_text}, want the flagship's 256")
+    f32_prefills(paths["mixed_ref_f32"], 1, "mixed reference")
+    with first_decode_logits() as alone_logits:
+        shares = _alone_shares(ref, reqs[:1], batch_codes, out_dir, "mixed_ref")
+    alone_T = ref.last_timings["T_text"]
+    shares += _alone_shares(ref, reqs[1:], batch_codes[1:], out_dir, "mixed_ref_rest")
+    drift = _first_request_drift(batch_logits, alone_logits)
     print(f"reference check [{card}]: 2-layer flagship-width f32 mixed batch (T2M x2, TTS, "
-          f"VT2M; sampled, seeds 400-403; T_text {T_text}, 8 rows) vs each request alone (2 "
-          f"rows) through generate_mixed on the card: frames {[len(c) for c in batch_codes]}, "
-          f"equal frames by request {[round(x, 4) for x in shares]} (limit "
-          f"{SERVE_REF_EQUAL_SHARE}); the flagship's bf16 shares of the mixed phase's first "
-          f"request alone {flagship_shares[0]:.3f} and at the batch's T_text "
-          f"{flagship_shares[1]:.3f} (not gated)", flush=True)
+          f"VT2M; sampled, seeds 400-403; T_text {T_text}, 8 rows, the f32 K1) vs each request "
+          f"alone (2 rows) through generate_mixed on the card: frames "
+          f"{[len(c) for c in batch_codes]}, equal frames by request "
+          f"{[round(x, 4) for x in shares]} (limit {SERVE_REF_EQUAL_SHARE}); the flagship's bf16 "
+          f"shares of the mixed phase's first request alone {flagship_shares[0]:.3f} and at the "
+          f"batch's T_text {flagship_shares[1]:.3f} (not gated)", flush=True)
+    print(f"reference check [{card}]: f32 drift with the batch's shape: codec logits of the "
+          f"first request's CFG pair at its first decode step, relative L2 alone (T_text "
+          f"{alone_T}) vs in the batch: {drift:.3e}; the flagship's bf16: {flagship_shares[2]:.3e}"
+          f" (T_text alone), {flagship_shares[3]:.3e} (the batch's T_text) (not gated)",
+          flush=True)
     check(min(shares) >= SERVE_REF_EQUAL_SHARE, f"mixed reference: equal frames {shares}")
 
     mk = ref.make_slot_request
@@ -2196,28 +2727,59 @@ def check_serving_reference(model, card: str, out_dir: str, flagship_shares) -> 
     reqs += [mk("vt2m", caption=caption(6), video=vt2m_videos(("C",))[0], seed=304,
                 max_audio_seconds=secs[4], rid="vt2m"),
              mk("tts", caption="Hello there.", prompt_text="A short reference.",
-                prompt_codec=codec, seed=305, rid="tts", max_audio_seconds=_late_tts_seconds(
+                prompt_codec=codec[:15], seed=305, rid="tts", max_audio_seconds=_late_tts_seconds(
                     reqs[0], cfg.max_delay, SERVE_REF_HORIZON, SERVE_REF_CHUNK))]
-    t_text = max(r.input_ids.shape[1] for r in reqs)
-    check(t_text < 128, f"continuous reference: t_text {t_text} takes K1 (bf16 only)")
+    t_text = SERVE_T_TEXT
+    check(max(r.input_ids.shape[1] for r in reqs) <= t_text,
+          f"continuous reference: a request is longer than t_text {t_text}")
     with torch.inference_mode():
         server = SlotServer(params, cfg, slots=SERVE_SLOTS, t_text=t_text,
                             horizon=SERVE_REF_HORIZON, chunk_frames=SERVE_REF_CHUNK,
                             do_sample=False)
+        _zero_launch_counts()
         got = _serve_schedule(server, reqs[:4], reqs[4:])
+        paths["continuous_ref_f32"] = _launch_counts()
         alone = {r.rid: _slot_standalone(params, cfg, r, t_text) for r in reqs}
+    f32_prefills(paths["continuous_ref_f32"], len(reqs), "continuous reference")
     pairs = [(got[k].codes, got[k].length, *alone[k]) for k in alone]
     share = _equal_frame_share(pairs, cfg.max_delay)
     lengths = {k: (got[k].length, alone[k][1]) for k in alone}
     print(f"reference check [{card}]: 2-layer flagship-width f32 continuous server (t_text "
           f"{t_text}, horizon {SERVE_REF_HORIZON}, chunks of {SERVE_REF_CHUNK}, "
-          f"{server.compactions} compaction(s), the TTS budget {reqs[5].max_tokens} frames) vs "
-          f"each request alone through generate on the card: lengths (server, alone) "
-          f"{lengths}; equal frames {share:.4f} (limit {SERVE_REF_EQUAL_SHARE})", flush=True)
+          f"{server.compactions} compaction(s), the TTS budget {reqs[5].max_tokens} frames; "
+          f"the f32 K1 at every admission) vs each request alone through generate on the card: "
+          f"lengths (server, alone) {lengths}; equal frames {share:.4f} (limit "
+          f"{SERVE_REF_EQUAL_SHARE})", flush=True)
     check(server.compactions >= 1, "continuous reference: no compaction")
     check(share >= SERVE_REF_EQUAL_SHARE, f"continuous reference: equal frames {share}")
+
+    text = caption(58)
+    kw = dict(output_dir=out_dir, max_audio_seconds=SERVE_REF_SPEC_SECONDS, min_audio_seconds=0.5)
+    _zero_launch_counts()
+    ref.text_to_music_speculative(text, spec_len=SPEC_LEN, draft_layers=1, save_name="spec_ref",
+                                  **kw)
+    paths["speculative_ref_f32"] = _launch_counts()
+    st, spec = ref.last_timings, ref.last_codes[0]
+    check(st["T_text"] == 128, f"speculative reference: T_text {st['T_text']}, want 128")
+    f32_prefills(paths["speculative_ref_f32"], 1, "speculative reference")
+    ref.text_to_music(text, do_sample=False, decode_emit=False, save_name="spec_ref_base", **kw)
+    bt, base = ref.last_timings, ref.last_codes[0]
+    share = _equal_frame_share([(spec, len(spec), base, len(base))], 0)
+    frames, cycles = st["frames"], st["cycles"]
+    print(f"reference check [{card}]: 2-layer flagship-width f32 text_to_music_speculative "
+          f"(spec_len {SPEC_LEN}, 1 draft layer, T_text {st['T_text']}, the f32 K1) vs greedy "
+          f"text_to_music(decode_emit=False): {len(spec)} / {len(base)} frames, {frames} decoded "
+          f"in {cycles} cycles (baseline {bt['steps']} steps), accept rate "
+          f"{st['accept_rate']:.3f}; equal frames {share:.4f} (limit {SERVE_REF_EQUAL_SHARE})",
+          flush=True)
+    check(len(spec) == len(base) and frames == bt["steps"]
+          and -(-frames // SPEC_LEN) <= cycles <= frames,
+          f"speculative reference: lengths {len(spec)} / {len(base)}, frames {frames} vs "
+          f"{bt['steps']} steps, {cycles} cycles")
+    check(share >= SERVE_REF_EQUAL_SHARE, f"speculative reference: equal frames {share}")
     del params, ref, server
     torch.cuda.empty_cache()
+    return paths
 
 
 def run_speculative(model, card: str, out_dir: str) -> dict:
@@ -2310,7 +2872,7 @@ def run_serving_apps(model, card: str, out_dir: str, stamp=lambda phase: None):
     stamp("serving apps: mixed batch")
     continuous, rec = run_continuous(model, wav, card, out_dir)
     stamp("serving apps: continuous server and K1 at its admission shape")
-    check_serving_reference(model, card, out_dir, mixed_shares)
+    ref_launches = check_serving_reference(model, card, out_dir, mixed_shares)
     stamp("serving apps: the 2-layer f32 reference checks")
     speculative = run_speculative(model, card, out_dir)
     stamp("serving apps: speculative")
@@ -2319,7 +2881,8 @@ def run_serving_apps(model, card: str, out_dir: str, stamp=lambda phase: None):
           f"{ttfa['p50_ttfa_s'] * 1e3:.2f} ms, p90 {ttfa['p90_ttfa_s'] * 1e3:.2f} ms", flush=True)
     run_studio(model, card, out_dir)
     stamp("serving apps: TTFA and the studio")
-    return {"t2m_mixed": mixed, "continuous": continuous, "speculative": speculative}, rec
+    return {"t2m_mixed": mixed, "continuous": continuous, "speculative": speculative,
+            **ref_launches}, rec
 
 
 def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
@@ -3183,8 +3746,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         model, prompts, t2m_launches = run_slice(card, out_dir)
         stamp("dense text_to_music and its repeated prefills")
-        fwd_rec = time_flash(model.config.text_config, model._tokenize(prompts)[1],
-                             t2m_launches, card, "T2M")
+        t2m_mask = model._tokenize(prompts)[1]
+        fwd_rec = time_flash(model.config.text_config, t2m_mask, t2m_launches, card, "T2M")
         stamp("K1 timing at the T2M prefill shape")
         tts_launches, tts_rec = run_tts(model, card, out_dir)
         stamp("TTS, K1 at its prefill shape and the reference checks")
@@ -3225,6 +3788,29 @@ def main() -> None:
     check_small_training()
     torch.cuda.empty_cache()
     stamp("training-shape kernel checks and the small training check")
+    # The f32 kernels at the same shapes: the prefill and training shapes,
+    # tile edges (64 query rows, 32-key tiles), pads, S > T, T > S,
+    # non-causal, Dh 64, H = KV.
+    f32 = torch.float32
+    f32_errs = {"fwd": max(
+        check_flash(8, 16, 2, 128, 128, 128, (0,) * 8, seed=0, dtype=f32),
+        check_flash(8, 16, 2, 192, 192, 128, (0, 150, 3, 191, 64, 0, 100, 20), seed=1, dtype=f32),
+        check_flash(2, 16, 2, 100, 160, 64, (7, 0), seed=3, dtype=f32),
+        check_flash(2, 16, 2, 129, 129, 128, (0, 5), seed=4, dtype=f32),
+        check_flash(2, 16, 2, 64, 300, 128, (7, 0), seed=6, dtype=f32),
+        check_flash(2, 16, 2, 192, 192, 128, (0, 5), seed=8, causal=False, dtype=f32),
+        check_flash(TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, seed=9, dtype=f32))}
+    f32_bwd = [check_flash_bwd(*a, dtype=f32) for a in (
+        (TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, True, 10),
+        (4, 16, 2, 200, 200, 128, (0, 150, 3, 199), True, 11),
+        (2, 16, 2, 192, 192, 128, (0, 5), False, 14),
+        (2, 16, 2, 65, 65, 128, (0, 5), True, 16),
+        (2, 16, 2, 100, 145, 64, (5, 0), True, 18),
+        (2, 16, 2, 300, 200, 128, (0, 9), True, 20),
+        (2, 4, 4, 256, 256, 128, (0, 33), True, 21))]
+    f32_errs.update({lab: max(e[lab] for e in f32_bwd) for lab in ("dq", "dk", "dv")})
+    torch.cuda.empty_cache()
+    stamp("f32 kernel checks")
 
     train_launches, dense_losses = run_train_slice(card)
     bwd_recs, fwd_train = time_flash_bwd(train_launches, bwd_errs, card)
@@ -3233,6 +3819,11 @@ def main() -> None:
     gmm_train_launches, _ = run_train_slice(card, "gmm", dense_losses)
     torch.cuda.empty_cache()
     stamp("gmm training")
+    core_launches = run_train_core(card)
+    stamp("the training core (resume, accumulation, mixer, export)")
+    f32_recs = time_flash_f32(t2m_mask, f32_errs, card)
+    torch.cuda.empty_cache()
+    stamp("f32 kernel timing")
     grouped_recs = time_grouped(grouped_errs, card)
     stamp("grouped GEMM timing")
     # Launches by path (each run counted from 0) and summed over the paths;
@@ -3240,17 +3831,19 @@ def main() -> None:
     paths = {"t2m": t2m_launches, "tts": tts_launches, "t2m_stream": stream_launches,
              "vt2m": vt2m_launches, **serving_launches, "t2m_gmm": gmm_t2m_launches,
              **quant_launches,
-             "train": train_launches, "train_gmm": gmm_train_launches}
-    for rec in (fwd_rec, *bwd_recs, *grouped_recs):
+             "train": train_launches, "train_gmm": gmm_train_launches, **core_launches}
+    for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
-        if rec["name"] == "flash_attention_bwd_dkv":    # and its GQA sum
-            rec["reduce_launches_by_path"] = {p: n["flash_attention_bwd_dkv_reduce"]
-                                              for p, n in paths.items()}
+        if rec["name"].startswith("flash_attention_bwd_dkv"):    # and its GQA sum
+            reduce = rec["name"] + "_reduce"
+            rec["reduce_launches_by_path"] = {p: n[reduce] for p, n in paths.items()}
         if rec["name"] == "grouped_gemm_gmm":        # K4 by tile configuration and path
             rec["launches_by_config"] = {
                 c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}
                 for c in ("small", "large")}
+    check(all(r["launches"] > 0 for r in f32_recs),
+          f"an f32 kernel was not launched on any path: {[r['name'] for r in f32_recs]}")
     check(all(r["launches"] > 0 for r in grouped_recs),
           f"a grouped kernel was not launched on any path: {[r['name'] for r in grouped_recs]}")
     fwd_rec["max_abs_err_by_path"] = {"t2m": fwd_rec["max_abs_err"],
@@ -3267,7 +3860,7 @@ def main() -> None:
                                      for p in ("train", "train_gmm")}
     fwd_rec["train_shape"] = fwd_train
 
-    print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *grouped_recs]}), flush=True)
+    print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *f32_recs, *grouped_recs]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

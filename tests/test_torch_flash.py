@@ -5,8 +5,10 @@ The port's plain versions (what a CPU tensor runs) are held against the
 Pallas kernels in interpret mode and against `_reference_attention`, in f32
 at the tolerances of tests/test_flash_attention.py; the gradient is held
 against `jax.grad` of the Pallas flash attention and checked by
-`torch.autograd.gradcheck` in f64.  The CUDA kernels are held against their
-plain versions in bf16 on a card; those cases skip without one.
+`torch.autograd.gradcheck` in f64; the plain backward in f32 is also held
+against the JAX package's `_flash_backward` from the same residuals, at the
+f32 kernels' tile edges.  The CUDA kernels are held against their plain
+versions in bf16 and in f32 on a card; those cases skip without one.
 """
 
 import numpy as np
@@ -169,6 +171,49 @@ def test_backward_plain_bf16_rounds_as_jax(jx, B, H, KV, T, S, Dh, pad):
         torch.testing.assert_close(got, w, rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL)
 
 
+# The f32 kernels' tile edges (64 query rows and 32-key tiles for K1 and K2;
+# 32 keys and 64-row query tiles for K3): one row and one key past a tile,
+# S - T = 45 so that K3's key tiles start their query range in mid-tile,
+# T > S with dead rows, head_dim 64.
+F32_EDGES = [
+    # B, H, KV, T, S, Dh, pad, causal
+    (1, 4, 2, 65, 65, 128, 0, True),
+    (2, 4, 2, 100, 145, 64, 9, True),
+    (1, 4, 4, 130, 97, 128, 3, True),
+    (1, 8, 2, 96, 96, 64, 5, False),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", F32_EDGES)
+def test_plain_f32_matches_jax_kernels(jx, B, H, KV, T, S, Dh, pad, causal):
+    """The plain versions in f32 (what the f32 kernels are held to on the
+    card) against the JAX package's Pallas kernels in f32, interpret mode:
+    o, m, l of `_flash_forward`, then dq, dk, dv of `_flash_backward` from
+    the JAX forward's residuals."""
+    jnp, jfa = jx
+    q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + Dh)
+    g = np.random.default_rng(T).standard_normal((B, H, T, Dh)).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jvalid = jnp.asarray(valid)
+    o, m, l = jfa._flash_forward(jq, jk, jv, jvalid, causal, 512, 512, True)
+    tq, tk, tv, tg = (torch.tensor(a) for a in (q, k, v, g))
+    vt = torch.tensor(valid)
+    to, tm, tl = flash_attention(tq, tk, tv, vt, causal=causal, return_stats=True)
+    jm, jl = np.asarray(m)[:, :T, 0], np.asarray(l)[:, :T, 0]
+    np.testing.assert_allclose(to.numpy(), np.asarray(o), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=RTOL, atol=ATOL)
+    want = jfa._flash_backward(jq, jk, jv, jvalid, o, m, l, jg, causal, 512, 512, True)
+    jo = torch.tensor(np.asarray(o))
+    dvec = FA.softmax_residual_rowsum(tg, jo)
+    tm, tl = torch.tensor(jm), torch.tensor(jl)
+    dq = FA.flash_attention_bwd_dq(tq, tk, tv, tg, tm, tl, dvec, vt, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(tq, tk, tv, tg, tm, tl, dvec, vt, causal)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
 def test_gradcheck_f64():
     """FlashAttention's backward (the plain version on the CPU) against
     finite differences, f64: GQA, left padding with a dead row, S > T."""
@@ -225,9 +270,10 @@ def test_cpu_path_counts_no_kernel_launch():
 
 
 def test_kernel_input_checks_raise():
-    """What the kernel does not take is refused before launch: head_dim
-    outside {64, 128}, dtypes other than bf16, non-contiguous inputs, a
-    malformed mask, H not a multiple of KV."""
+    """What the kernels do not take is refused before launch: head_dim
+    outside {64, 128}, dtypes other than bf16 and f32 (and q, k, v of two
+    dtypes), non-contiguous inputs, a malformed mask, H not a multiple of
+    KV."""
     bf = torch.bfloat16
 
     def qkv(Dh=128, dtype=bf, H=4, KV=2):
@@ -236,9 +282,11 @@ def test_kernel_input_checks_raise():
 
     valid = torch.ones(1, 8, dtype=torch.int32)
     assert _check(*qkv(), valid) == (1, 4, 2, 8, 8, 128)
+    assert _check(*qkv(dtype=torch.float32), valid) == (1, 4, 2, 8, 8, 128)
     bad = [
         (qkv(Dh=96), valid),
-        (qkv(dtype=torch.float32), valid),
+        (qkv(dtype=torch.float16), valid),
+        ((qkv(dtype=torch.float32)[0],) + qkv()[1:], valid),
         ((qkv()[0].transpose(2, 3).contiguous().transpose(2, 3),) + qkv()[1:], valid),
         (qkv(), valid.long()),
         (qkv(), torch.ones(1, 9, dtype=torch.int32)),
@@ -285,12 +333,12 @@ def test_kernel_matches_plain_bf16(cuda, T, S, pad, Dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_cuda_prefill_takes_kernel_or_raises(cuda, dtype):
     """A causal self-attention of 128 tokens on the card takes the flash
-    kernel, as the reference takes its Pallas kernel there: in bf16 it
-    launches; in f32 the kernel refuses it.  It never falls back to the
-    einsum path."""
+    kernel, as the reference takes its Pallas kernel there: in bf16 the bf16
+    kernel launches, in f32 the f32 kernel; f16 is refused.  It never falls
+    back to the einsum path."""
     from unimoe_audio_torch.config import tiny_test_config
     from unimoe_audio_torch.models import layers as TL
 
@@ -302,16 +350,18 @@ def test_cuda_prefill_takes_kernel_or_raises(cuda, dtype):
     x = torch.randn(B, T, cfg.hidden_size, generator=gen, device=cuda).to(dtype)
     pos = torch.arange(T, device=cuda)[None, None].expand(3, B, T)
     cos, sin = TL.compute_mrope(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
-    before = flash_attention.launches
-    if dtype == torch.bfloat16:
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    if dtype in (torch.bfloat16, torch.float32):
         out, _ = TL.attention(params, x, cos, sin, cfg)
         torch.cuda.synchronize()
-        assert flash_attention.launches == before + 1
+        f32 = dtype == torch.float32
+        assert (flash_attention.launches, flash_attention.f32_launches) == \
+            (before[0] + (not f32), before[1] + f32)
         assert out.shape == (B, T, cfg.hidden_size) and bool(torch.isfinite(out).all())
     else:
-        with pytest.raises(ValueError, match="bf16"):
+        with pytest.raises(ValueError, match="bf16 or f32"):
             TL.attention(params, x, cos, sin, cfg)
-        assert flash_attention.launches == before
+        assert (flash_attention.launches, flash_attention.f32_launches) == before
 
 
 def _bwd_inputs(cuda, T, S, pad, Dh, causal):
@@ -399,3 +449,48 @@ def test_cuda_attention_backward_launches_both_kernels(cuda):
     assert (flash_attention.launches, FA.flash_attention_bwd_dq.launches,
             FA.flash_attention_bwd_dkv.launches) == tuple(b + 1 for b in before)
     assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and x.grad.abs().sum() > 0
+
+
+# The f32 kernels vs their plain versions on the card: both compute in f32
+# and differ in the order of their sums and in exp's last bits.
+F32_RTOL, F32_ATOL = 1e-4, 1e-5
+F32_BWD_RTOL, F32_BWD_ATOL = 1e-4, 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", F32_EDGES + [
+    (4, 16, 2, 128, 128, 128, 0, True), (4, 16, 2, 2048, 2048, 128, 0, True)])
+def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
+    """K1, K2 and K3 in f32 (`csrc/flash_attention_f32.cu`) vs their plain
+    versions at the f32 kernels' tile edges, the T2M prefill shape and the
+    training shape: o, m, l, then dq, dk, dv from the kernel's residuals;
+    dead rows exactly 0; a second launch gives the same bits; the f32
+    counters count each launch and the bf16 ones none."""
+    q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + Dh)
+    q, k, v = (torch.tensor(a, device=cuda) for a in (q, k, v))
+    vt = torch.tensor(valid, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    do = torch.randn(B, H, T, Dh, generator=gen, device=cuda)
+    names = ("launches", "f32_launches")
+    fns = (flash_attention, FA.flash_attention_bwd_dq, FA.flash_attention_bwd_dkv)
+    before = [getattr(f, n) for f in fns for n in names]
+    o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
+    dvec = FA.softmax_residual_rowsum(do, o)
+    args = (q, k, v, do, m, l, dvec, vt, causal)
+    got = (FA.flash_attention_bwd_dq(*args), *FA.flash_attention_bwd_dkv(*args))
+    again = (FA.flash_attention_bwd_dq(*args), *FA.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert [getattr(f, n) for f in fns for n in names] == \
+        [b + d for b, d in zip(before, (0, 1, 0, 2, 0, 2))]
+    ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
+    torch.testing.assert_close(o, ro, rtol=F32_RTOL, atol=F32_ATOL)
+    torch.testing.assert_close(m, rm, rtol=F32_RTOL, atol=F32_ATOL)
+    torch.testing.assert_close(l, rl, rtol=F32_RTOL, atol=F32_ATOL)
+    want = (FA.flash_attention_bwd_dq_reference(*args), *FA.flash_attention_bwd_dkv_reference(*args))
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
+        torch.testing.assert_close(a, w, rtol=F32_BWD_RTOL, atol=F32_BWD_ATOL)
+    allowed = (vt[:, None, :] > 0) & torch.ones(T, S, dtype=torch.bool, device=cuda).tril(
+        S - T if causal else S)
+    dead = ~allowed.any(-1)[:, None].expand(B, H, T)
+    assert (o.abs().sum(-1)[dead] == 0).all() and (got[0].abs().sum(-1)[dead] == 0).all()

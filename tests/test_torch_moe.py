@@ -93,19 +93,20 @@ def test_dcmoe_block_dense_matches():
 
 
 def test_dcmoe_block_unported_modes_raise():
-    """Modes of later slices raise: ep dispatch (with or without a8), the
-    Gumbel mixer in training; a8 in training and training jitter without a
-    seed are errors, as in the JAX package."""
+    """Modes of later slices raise: ep dispatch (with or without a8); a8 in
+    training, training jitter without a seed and the Gumbel mixer in
+    training without a seed are errors, as in the JAX package (the mixer
+    itself runs: tests/test_torch_train_core.py)."""
     cfg = tiny_test_config().text_config
     x = torch.zeros(1, 2, cfg.hidden_size)
-    for c, kw in ((cfg, {"dispatch_mode": "ep"}), (cfg, {"dispatch_mode": "ep_a8"}),
-                  (dataclasses.replace(cfg, ignore_differentiable_router=False),
-                   {"training": True, "seed": 0})):
+    for c, kw in ((cfg, {"dispatch_mode": "ep"}), (cfg, {"dispatch_mode": "ep_a8"})):
         with pytest.raises(NotImplementedError):
             TB.dcmoe_block({}, x, c, **kw)
-    for kw in ({"training": True, "dispatch_mode": "dense_a8"}, {"training": True}):
-        with pytest.raises(ValueError):
-            TB.dcmoe_block({"gate": torch.zeros(cfg.hidden_size, cfg.num_experts)}, x, cfg, **kw)
+    mixer = dataclasses.replace(cfg, ignore_differentiable_router=False, input_jitter_noise=0.0)
+    for c, kw in ((cfg, {"training": True, "dispatch_mode": "dense_a8"}),
+                  (cfg, {"training": True}), (mixer, {"training": True})):
+        with pytest.raises(ValueError, match="seed|a8"):
+            TB.dcmoe_block({"gate": torch.zeros(cfg.hidden_size, cfg.num_experts)}, x, c, **kw)
 
 
 # Gradients in f32: the same arithmetic in another order.

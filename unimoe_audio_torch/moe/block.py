@@ -12,17 +12,18 @@ Null experts exist only in the router.  Fixed experts are always on, and
 `padding_token_mask` gates the dynamic selection.  Training adds the f32
 router (`fp32_gate`), input jitter on the router's input (experts see the
 un-jittered hidden states) and the `aux_balance_weight` emphasis of the
-load-balancing loss; the mixer stays the closed-form eval mixer, as in the
-JAX package with `ignore_differentiable_router=True`.  `token_drop` caps
+load-balancing loss; the mixer is the closed-form eval mixer under
+`ignore_differentiable_router=True` (the default) and the iterative Gumbel /
+straight-through mixer otherwise, as in the JAX package.  `token_drop` caps
 each expert at `expert_capacity` tokens by router logit or by position.
 An `_a8` suffix on the dispatch mode (`dense_a8`, `packed_a8`) runs the
-dynamic and the fixed experts in int8 (serving only).  The Gumbel mixer and
-the ep dispatch mode (the parallel slice) raise here.
+dynamic and the fixed experts in int8 (serving only).  The ep dispatch mode
+(the parallel slice) raises here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,9 +60,13 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
                 seed: Optional[int] = None,
                 dispatch_mode: str = "dense",
                 capacity: Optional[int] = None,
-                assignment_budget: Optional[int] = None) -> MoEOutput:
+                assignment_budget: Optional[int] = None,
+                mixer_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> MoEOutput:
     """Forward of the DCMoE block (`block.py:42-236`).  `seed` (training
-    with input jitter) takes the place of the JAX package's rng key;
+    with input jitter or the Gumbel mixer) takes the place of the JAX
+    package's rng key: the jitter is drawn from `seed`, the mixer's draws
+    from `fold_seed(seed, 1)`, unless `mixer_draws` (gumbel [E_dyn, S,
+    E_dyn], coin [E_dyn, S]) gives them;
     aux_balance_weight [B, T] weights tokens in the load-balancing loss.
     dispatch_mode: 'dense' | 'packed' | 'gmm', or 'dense_a8' | 'packed_a8'
     (`block.py:64-80`: int8 expert products, with per-channel QTensor
@@ -80,10 +85,6 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
         raise NotImplementedError("dispatch_mode='ep' comes with the parallel slice")
     if dispatch_mode not in ("dense", "packed", "gmm"):
         raise ValueError(f"Unknown dispatch_mode: {dispatch_mode}")
-    if training and not cfg.ignore_differentiable_router:
-        raise NotImplementedError(
-            "the Gumbel / straight-through mixer (ignore_differentiable_router=False) "
-            "comes with a later training slice")
     B, T, dim = hidden_states.shape
     S = B * T
     E_dyn = cfg.num_dynamic_experts
@@ -114,8 +115,18 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     else:
         dynamic_top_k = torch.full((S,), cfg.mlp_dynamic_top_k, dtype=torch.int32,
                                    device=x.device)
-    routing_weights, dyn_mask = R.sparse_expert_mixer_eval(
-        dynamic_logits, dynamic_top_k, jitter_eps=cfg.router_jitter_noise)
+    if training and not cfg.ignore_differentiable_router:
+        if seed is None and mixer_draws is None:
+            raise ValueError("the training mixer requires a seed")
+        from ..models.model import fold_seed
+
+        routing_weights, dyn_mask = R.sparse_expert_mixer(
+            dynamic_logits, dynamic_top_k, max_k=E_dyn, jitter_eps=cfg.router_jitter_noise,
+            training=True, seed=None if seed is None else fold_seed(seed, 1),
+            draws=mixer_draws)
+    else:
+        routing_weights, dyn_mask = R.sparse_expert_mixer_eval(
+            dynamic_logits, dynamic_top_k, jitter_eps=cfg.router_jitter_noise)
     routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
 
     expert_mask = torch.cat(

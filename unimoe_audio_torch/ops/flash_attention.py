@@ -1,7 +1,8 @@
 """Causal GQA flash attention with exact gradients: the hand-written CUDA
 kernels `csrc/flash_attention_fwd.cu` (forward) and
-`csrc/flash_attention_bwd.cu` (dq; dk and dv), their plain PyTorch versions,
-and the autograd function that joins them.
+`csrc/flash_attention_bwd.cu` (dq; dk and dv) for bf16, and
+`csrc/flash_attention_f32.cu` (all three) for f32, their plain PyTorch
+versions, and the autograd function that joins them.
 
 Replaces the Pallas TPU kernels of `unimoe_audio_tpu/ops/flash_attention.py`:
 `_flash_kernel` (:30-97, the forward, reached through `_flash_forward` and
@@ -17,17 +18,21 @@ T = S = 128, Dh = 128) a forward moves about 9 MB and does about 0.5 GFLOP,
 so it is bound by memory traffic and launch latency; at the training shape
 (B = 4, T = S = 2048) each kernel does 34-138 GFLOP on about 70 MB and is
 bound by the tensor cores.  The [T, S] matrices never reach device memory:
-all three kernels keep their score tiles in registers (TMA-fed wgmma); see
-the sources for the designs.
+the bf16 kernels keep their score tiles in registers (TMA-fed wgmma); the
+f32 kernels compute every product in f32 FMAs on the CUDA cores (TF32
+would keep 10 mantissa bits), as the JAX package's kernels compute in the
+input dtype; see the sources for the designs.
 
 `flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
 the plain version and a CUDA tensor to the kernel, with no fallback between
 them; its backward runs the two backward kernels on the card and their plain
-versions on the CPU.  Each
-wrapper counts its kernel's launches: `flash_attention.launches`,
-`flash_attention_bwd_dq.launches`, `flash_attention_bwd_dkv.launches` and
+versions on the CPU.  On the card each wrapper picks the kernel by dtype
+(bf16 or f32) and raises for any other.  Each wrapper counts its kernels'
+launches: `flash_attention.launches`, `flash_attention_bwd_dq.launches`,
+`flash_attention_bwd_dkv.launches` and
 `flash_attention_bwd_dkv.reduce_launches` (the GQA sum of the per-head
-dk and dv, when H > KV).
+dk and dv, when H > KV) for bf16, and the same names with an `f32_`
+prefix (`flash_attention.f32_launches`, ...) for f32.
 """
 
 from __future__ import annotations
@@ -140,8 +145,9 @@ def _check(q, k, v, kv_valid):
     if Dh not in (64, 128):
         raise ValueError(f"the flash kernel takes Dh in (64, 128), got {Dh}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16; {name} is {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"the flash kernels take bf16 or f32, one dtype for q, k and v; "
+                             f"{name} is {t.dtype}, q {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"the flash kernel takes contiguous tensors; {name} is not")
         if t.data_ptr() % 16:
@@ -154,25 +160,31 @@ def _check(q, k, v, kv_valid):
     return B, H, KV, T, S, Dh
 
 
-# Rows of a CTA's tile: K1's and K2's query rows, K3's keys.  The grids are
-# (B*H, ceil(T / 128)) for K1 and K2 and (B*H, ceil(S / 128)) for K3.
-BLOCK_ROWS = 128
+# The dtypes the kernels take: bf16 (flash_attention_fwd.cu,
+# flash_attention_bwd.cu) and f32 (flash_attention_f32.cu).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+# Rows of a CTA's tile by dtype: (K1's and K2's query rows, K3's keys).  The
+# grids are (B*H, ceil(T / rows)) for K1 and K2 and (B*H, ceil(S / keys))
+# for K3.
+BLOCK_ROWS = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
 
 
 def _check_fwd(q, k, v, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    if B * H >= 2 ** 31 or -(-T // BLOCK_ROWS) > 65535:
+    rows = BLOCK_ROWS[q.dtype][0]
+    if B * H >= 2 ** 31 or -(-T // rows) > 65535:
         raise ValueError(f"B*H={B * H}, T={T} exceed the forward kernel's grid limits "
-                         f"(B*H < 2**31, ceil(T / {BLOCK_ROWS}) <= 65535)")
+                         f"(B*H < 2**31, ceil(T / {rows}) <= 65535)")
     return B, H, KV, T, S, Dh
 
 
 def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    if B * H >= 2 ** 31 or max(-(-T // BLOCK_ROWS), -(-S // BLOCK_ROWS)) > 65535:
+    rows, keys = BLOCK_ROWS[q.dtype]
+    if B * H >= 2 ** 31 or max(-(-T // rows), -(-S // keys)) > 65535:
         raise ValueError(f"B*H={B * H}, T={T}, S={S} exceed the backward kernels' grid limits "
-                         f"(B*H < 2**31, ceil(T / {BLOCK_ROWS}) and ceil(S / {BLOCK_ROWS}) "
-                         f"<= 65535)")
+                         f"(B*H < 2**31, ceil(T / {rows}) and ceil(S / {keys}) <= 65535)")
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
             or do.data_ptr() % 16:
         raise ValueError("dO must be a contiguous, 16-byte aligned tensor shaped and typed as q")
@@ -211,6 +223,18 @@ def _call(source: str, name: str, n_ptrs: int, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _kernel(q, bf16_source: str, name: str) -> Tuple[str, str, str]:
+    """(source, C entry, counter prefix) of the kernel for q's dtype: the
+    bf16 source's entry `name`, or `name`_f32 of flash_attention_f32.cu."""
+    if q.dtype == torch.float32:
+        return "flash_attention_f32", name + "_f32", "f32_"
+    return bf16_source, name, ""
+
+
+def _count(fn, prefix: str, counter: str = "launches") -> None:
+    setattr(fn, prefix + counter, getattr(fn, prefix + counter) + 1)
+
+
 def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, H, KV, T, S, Dh = _check_fwd(q, k, v, kv_valid)
@@ -219,12 +243,13 @@ def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
     l = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     if T == 0:
         return o, m, l
+    source, entry, prefix = _kernel(q, "flash_attention_fwd", "flash_attention_fwd")
     with torch.cuda.device(q.device):
-        _call("flash_attention_fwd", "flash_attention_fwd", 7,
+        _call(source, entry, 7,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
               o.data_ptr(), m.data_ptr(), l.data_ptr(),
               B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
-    flash_attention.launches += 1
+    _count(flash_attention, prefix)
     return o, m, l
 
 
@@ -244,12 +269,13 @@ def flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tru
     if T == 0 or S == 0:
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
+    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_dq")
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd", "flash_attention_bwd_dq", 9,
+        _call(source, entry, 9,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
               l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dq.data_ptr(),
               B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, prefix)
     return dq
 
 
@@ -268,15 +294,16 @@ def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tr
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     part = torch.empty((2, B * H, S, Dh), dtype=k.dtype, device=k.device) if H > KV else None
+    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_dkv")
     with torch.cuda.device(q.device):
-        _call("flash_attention_bwd", "flash_attention_bwd_dkv", 11,
+        _call(source, entry, 11,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
               l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               None if part is None else part.data_ptr(),
               B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, prefix)
     if part is not None:
-        flash_attention_bwd_dkv.reduce_launches += 1
+        _count(flash_attention_bwd_dkv, prefix, "reduce_launches")
     return dk, dv
 
 
@@ -329,7 +356,7 @@ def flash_attention(q, k, v, kv_valid: Optional[torch.Tensor] = None, *,
     return (o, m, l) if return_stats else o
 
 
-flash_attention.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.reduce_launches = 0
+flash_attention.launches = flash_attention.f32_launches = 0
+flash_attention_bwd_dq.launches = flash_attention_bwd_dq.f32_launches = 0
+flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.f32_launches = 0
+flash_attention_bwd_dkv.reduce_launches = flash_attention_bwd_dkv.f32_reduce_launches = 0

@@ -16,6 +16,14 @@ Unlike optax, the update is applied in place: parameters and moments are
 overwritten, with no second copy of either on the card.  The moment
 arithmetic runs in f32 and is stored back in the parameter dtype.
 
+Gradient accumulation (`grad_accum_steps` k > 1) is optax's
+`MultiSteps(use_grad_mean=True)` around that chain (`step.py:108-110`): one
+accumulator per parameter, in the parameter dtype, holds the running mean
+acc + (g - acc) / (mini_step + 1) of the micro-step gradients; every k-th
+micro-step clips and applies AdamW (and the frozen mask) to the mean,
+advances the schedule's count and zeroes the accumulator; the others leave
+the parameters as they are.  The step counter counts micro-steps.
+
 Parameter names for the decay mask and `trainable_pattern` are the
 slash-joined paths of the JAX package's layer-stacked tree (e.g.
 `layers/moe/gate`): the port's per-layer list index is left out, so one
@@ -96,6 +104,8 @@ class OptState:
     mu: List[torch.Tensor]                   # first moments, one per leaf
     nu: List[torch.Tensor]                   # second moments
     count: int = 0                           # updates applied
+    acc: Optional[List[torch.Tensor]] = None  # gradient mean of the micro-steps (k > 1)
+    mini_step: int = 0                       # micro-steps in acc
 
 
 @dataclass
@@ -110,6 +120,7 @@ class AdamW:
     weight_decay: float = 0.0
     grad_clip: float = 1.0
     trainable_pattern: Optional[str] = None
+    grad_accum_steps: int = 1
     _pattern: Optional[re.Pattern] = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -121,8 +132,31 @@ class AdamW:
 
     def init(self, params) -> OptState:
         leaves = [t for _, t in named_leaves(params)]
+        acc = [torch.zeros_like(t) for t in leaves] if self.grad_accum_steps > 1 else None
         return OptState(mu=[torch.zeros_like(t) for t in leaves],
-                        nu=[torch.zeros_like(t) for t in leaves])
+                        nu=[torch.zeros_like(t) for t in leaves], acc=acc)
+
+    @torch.no_grad()
+    def update(self, params, grads: List[Optional[torch.Tensor]], state: OptState,
+               grad_norm: torch.Tensor) -> None:
+        """One micro-step, in place: with grad_accum_steps 1 the update
+        itself; otherwise the gradients join the accumulator's running mean
+        and every grad_accum_steps-th call applies the update to the mean
+        (optax's MultiSteps, use_grad_mean=True)."""
+        k = self.grad_accum_steps
+        if k == 1:
+            self.apply(params, grads, state, grad_norm)
+            return
+        n = state.mini_step
+        for acc, g in zip(state.acc, grads):
+            acc.add_((-acc if g is None else g - acc) / (n + 1))
+        if n < k - 1:
+            state.mini_step = n + 1
+            return
+        self.apply(params, list(state.acc), state, global_norm(state.acc))
+        for acc in state.acc:
+            acc.zero_()
+        state.mini_step = 0
 
     @torch.no_grad()
     def apply(self, params, grads: List[Optional[torch.Tensor]], state: OptState,
@@ -162,19 +196,20 @@ def make_optimizer(*, learning_rate: float = 1e-4, weight_decay: float = 0.0,
                    grad_accum_steps: int = 1) -> AdamW:
     """AdamW + warmup-cosine/-linear decay, as `make_optimizer` in the JAX
     package (`step.py:51-111`).  trainable_pattern: regex over parameter
-    names; parameters it does not match are frozen."""
-    if grad_accum_steps > 1:
-        raise NotImplementedError("grad_accum_steps > 1 comes with a later training slice")
+    names; parameters it does not match are frozen.  grad_accum_steps > 1
+    applies the update every that many micro-steps, to their mean."""
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     return AdamW(schedule=make_lr_schedule(learning_rate, warmup_steps, total_steps, schedule),
                  b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip,
-                 trainable_pattern=trainable_pattern)
+                 trainable_pattern=trainable_pattern, grad_accum_steps=grad_accum_steps)
 
 
 @dataclass
 class TrainState:
     params: Dict
     opt_state: OptState
-    step: int                                  # host counter of applied steps
+    step: int                                  # host counter of applied (micro-)steps
 
 
 def init_train_state(params: Dict, optimizer: AdamW) -> TrainState:
@@ -235,10 +270,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
                cfg: UniMoEAudioConfig, optimizer: AdamW, dispatch_mode: str = "dense",
                capacity: Optional[int] = None, remat: bool = True,
                use_flash: Optional[bool] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One step (`step.py:211-249`): loss and gradients, then the update in
-    place — unless the loss or the gradient norm is not finite, in which
-    case parameters, moments and the step count stay as they were
-    (`skipped` = 1).  The finite test reads one flag to the host per step."""
+    """One (micro-)step (`step.py:211-249`): loss and gradients, then the
+    optimizer's update in place — unless the loss or the gradient norm is
+    not finite, in which case parameters, moments, the accumulator, the
+    mini-step and the step count stay as they were (`skipped` = 1).  The
+    finite test reads one flag to the host per step."""
     aux_w = aux_weight_at_step(cfg, state.step)
     loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
                             dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
@@ -248,7 +284,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
     grad_norm = global_norm(grads)
     finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(grad_norm))
     if finite:
-        optimizer.apply(state.params, list(grads), state.opt_state, grad_norm)
+        optimizer.update(state.params, list(grads), state.opt_state, grad_norm)
         state.step += 1
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = grad_norm

@@ -1,11 +1,11 @@
-"""Training loop of the port: the steps, metrics and evaluation —
-counterpart of `unimoe_audio_tpu/train/trainer.py` for the paths this
-slice carries.  `Trainer.fit` (with `ckpt_dir=None`) is the entry point.
+"""Training loop of the port: the steps, metrics, evaluation, checkpoints
+and resume, and the inference export — counterpart of
+`unimoe_audio_tpu/train/trainer.py` for the paths this slice carries.
+`Trainer.fit` is the entry point.
 
 The trainer runs on the card (`device="cuda"`, the default) and raises
-without one; the tests pass `device="cpu"`.  Checkpoints, `save_pretrained`,
-vision batches, ring attention and gradient accumulation come with later
-slices and raise here.
+without one; the tests pass `device="cpu"`.  Vision batches and ring
+attention come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from ..config import UniMoEAudioConfig
+from ..core.bridge import params_to_numpy
+from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     train_step
 
@@ -27,11 +29,12 @@ from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer,
 @dataclass
 class TrainerConfig:
     """The JAX package's `TrainerConfig` (same names and defaults) less the
-    fields of paths not ported yet (checkpoint cadence, vision).  `ckpt_dir`,
-    `ring_axis` and `grad_accum_steps > 1` are kept so that a config asking
-    for them is refused with a message.  `dispatch_mode` is 'dense',
-    'packed' (per-expert slot count `dispatch_capacity`, None = all tokens)
-    or 'gmm'."""
+    fields of paths not ported yet (vision).  `ring_axis` is kept so that a
+    config asking for it is refused with a message.  `dispatch_mode` is
+    'dense', 'packed' (per-expert slot count `dispatch_capacity`, None = all
+    tokens) or 'gmm'.  `grad_accum_steps` > 1 applies the optimizer every
+    that many micro-steps, to their mean gradient; the step count, and with
+    it the log and save cadences, counts micro-steps."""
     learning_rate: float = 1e-4
     weight_decay: float = 0.0
     warmup_steps: int = 100
@@ -39,7 +42,9 @@ class TrainerConfig:
     schedule: str = "cosine"
     grad_clip: float = 1.0
     log_every: int = 10
+    save_every: int = 500
     ckpt_dir: Optional[str] = None
+    max_to_keep: int = 3
     remat: bool = True
     dispatch_mode: str = "dense"
     dispatch_capacity: Optional[int] = None
@@ -145,9 +150,8 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer runs on a CUDA card and none is available; "
                                "pass device='cpu' to train on the CPU")
-        for field_name, later in (("ckpt_dir", "checkpoints"), ("ring_axis", "ring attention")):
-            if getattr(tcfg, field_name) is not None:
-                raise NotImplementedError(f"{field_name}: {later} come with a later slice")
+        if tcfg.ring_axis is not None:
+            raise NotImplementedError("ring_axis: ring attention comes with a later slice")
         for name, t in named_leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"parameter {name} is on {t.device}, the trainer on "
@@ -167,8 +171,39 @@ class Trainer:
                 if self.optimizer.trainable(n))
             print(f"[trainer] trainable ({tcfg.trainable_pattern!r}): {sorted(on)}")
 
+    # -- checkpointing (`trainer.py:234-262`) -----------------------------
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint under ckpt_dir into the trainer's
+        state, in place; returns its step (0 when there is none)."""
+        if not self.tcfg.ckpt_dir:
+            return 0
+        step = latest_step(self.tcfg.ckpt_dir)
+        if step is None:
+            return 0
+        restore_checkpoint(self.tcfg.ckpt_dir, self.state, step)
+        print(f"resumed from checkpoint step {step}")
+        return int(step)
+
+    def save(self) -> None:
+        """Save the state under ckpt_dir at its step count (pruned to
+        max_to_keep steps)."""
+        if self.tcfg.ckpt_dir:
+            save_checkpoint(self.tcfg.ckpt_dir, self.state.step, self.state,
+                            max_to_keep=self.tcfg.max_to_keep)
+
     def save_pretrained(self, out_dir: str) -> None:
-        raise NotImplementedError("save_pretrained comes with the checkpoint slice")
+        """Export an inference directory (`model.jax.pkl` + `config.json`)
+        that both packages' `UniMoEAudio` load: {"params": the JAX package's
+        layer-stacked tree with numpy leaves, "config": cfg.to_dict()}.  bf16
+        leaves are written as f32, which holds them exactly (numpy has no
+        bf16); both loaders cast to their dtype."""
+        import pickle
+
+        os.makedirs(out_dir, exist_ok=True)
+        blob = {"params": params_to_numpy(self.state.params), "config": self.cfg.to_dict()}
+        with open(os.path.join(out_dir, "model.jax.pkl"), "wb") as f:
+            pickle.dump(blob, f, protocol=4)
+        self.cfg.save_json(os.path.join(out_dir, "config.json"))
 
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         if "pixel_values" in batch:
@@ -196,33 +231,42 @@ class Trainer:
 
     def fit(self, batches: Iterable[Dict[str, np.ndarray]], max_steps: Optional[int] = None,
             eval_batches: Optional[List[Dict[str, np.ndarray]]] = None) -> List[Dict[str, float]]:
-        """Run one step per batch (up to max_steps); every log_every steps
-        log and keep the metrics.  Returns the kept metrics."""
+        """Resume from the latest checkpoint (with ckpt_dir), then run one
+        step per batch, numbered from the resumed step; stop once the step
+        number reaches max_steps.  Every log_every steps log and keep the
+        metrics, every save_every steps and at the end save (with ckpt_dir).
+        The caller hands in the batches still to run.  Returns the kept
+        metrics."""
+        start = self.maybe_resume()
         history = []
         t0 = time.time()
         i = 0
         for i, batch in enumerate(batches):
-            if max_steps is not None and i >= max_steps:
+            step_no = start + i
+            if max_steps is not None and step_no >= max_steps:
                 break
             self.state, metrics = train_step(
                 self.state, self._place_batch(batch), self.tcfg.seed, cfg=self.cfg,
                 optimizer=self.optimizer, dispatch_mode=self.tcfg.dispatch_mode,
                 capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat)
-            if i % self.tcfg.log_every == 0:
+            if step_no % self.tcfg.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 if metrics["skipped"]:
-                    print(f"[warning] non-finite loss/grad at step {i} "
+                    print(f"[warning] non-finite loss/grad at step {step_no} "
                           f"(loss={metrics['loss']}) — update skipped")
                 metrics["steps_per_sec"] = (i + 1) / (time.time() - t0)
-                self.logger.log(i, metrics)
-                history.append({"step": i, **metrics})
+                self.logger.log(step_no, metrics)
+                history.append({"step": step_no, **metrics})
             if (self.tcfg.eval_every and eval_batches is not None
-                    and i > 0 and i % self.tcfg.eval_every == 0):
+                    and step_no > 0 and step_no % self.tcfg.eval_every == 0):
                 em = self.evaluate(eval_batches)
-                self.logger.log(i, em)
-                history.append({"step": i, **em})
+                self.logger.log(step_no, em)
+                history.append({"step": step_no, **em})
+            if self.tcfg.save_every and step_no > 0 and step_no % self.tcfg.save_every == 0:
+                self.save()
         if self.tcfg.eval_every and eval_batches is not None:
             em = self.evaluate(eval_batches)
-            self.logger.log(i, em)
-            history.append({"step": i, **em})
+            self.logger.log(start + i, em)
+            history.append({"step": start + i, **em})
+        self.save()
         return history
