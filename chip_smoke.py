@@ -9,8 +9,8 @@ failure:
 
 1. set-up: the card's name and power limit (nvidia-smi); the kernel sources
    unimoe_audio_torch/csrc/{flash_attention_fwd,flash_attention_bwd,
-   flash_attention_f32,grouped_gemm}.cu built with nvcc, one process per
-   source, in parallel;
+   flash_attention_f32,flash_attention_bwd_f32,grouped_gemm}.cu built with
+   nvcc, one process per source, in parallel;
 2. each hand-written kernel against its plain PyTorch version on the card,
    at the main paths' shapes plus edge cases: ragged, left-padded, S > T,
    non-causal, Dh 64 and the tile edges (T = S = 129; T 64 with S 300; for
@@ -22,10 +22,13 @@ failure:
    groups split over K5 chunks, for the grouped GEMMs (K4 in both tile
    configurations, K4t with an f32 and a bf16 dy, outputs filled with NaN
    before each launch, K5 launched twice and compared bit for bit).  The
-   f32 kernels of K1, K2 and K3 (csrc/flash_attention_f32.cu) against their
-   plain versions in f32 at the prefill and training shapes, their tile
-   edges (64 query rows, 32-key tiles), pads, S > T, T > S, non-causal, Dh
-   64 and H = KV, K2 and K3 launched twice and compared bit for bit.  A
+   f32 kernels of K1 (csrc/flash_attention_f32.cu), K2 and K3
+   (csrc/flash_attention_bwd_f32.cu) against their plain versions in f32 at
+   the prefill and training shapes, their tile edges (K1: 64 query rows,
+   32-key tiles; K2: 128 query rows, 32-key tiles; K3: 64 keys, 64-row query
+   tiles), pads, S > T with S - T starting mid-tile, T > S with dead rows,
+   non-causal, Dh 64, GQA 8:1 and H = KV, K2 and K3 launched twice and
+   compared bit for bit.  A
    small model's bf16 prefill, and its bf16 training loss and gradient
    (dense and gmm dispatch), are held against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
@@ -108,7 +111,9 @@ failure:
    at the training shape, against SDPA with a boolean mask and with
    is_causal=True; K4t with the step's bf16 dy and with an f32 dy; the f32
    K1 at the T2M prefill and training shapes and the f32 K2 and K3 at the
-   training shape, against SDPA in f32, bound by the CUDA cores' f32 rate): CUDA
+   training shape, against SDPA in f32, K1 bound by the CUDA cores' f32
+   rate, K2 and K3 by a third of the TF32 rate, with the CUDA cores' bound
+   printed beside it): CUDA
    events over back-to-back calls, and for the kernels and the library
    calls also the replay of a CUDA graph of the calls, each after a write
    that flushes the L2 (`graph_ms`).  A reading that implies more than
@@ -141,10 +146,12 @@ import numpy as np
 # its bytes over the first and its operations over the second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-# f32 on the CUDA cores (no tensor cores): the f32 kernels' peak; TF32 on
-# the tensor cores, the ceiling of any f32 library reading.
+# f32 on the CUDA cores (no tensor cores): the f32 forward's peak; TF32 on
+# the tensor cores, the ceiling of any f32 library reading; a third of it,
+# the f32 backward kernels' peak (three TF32 products per f32 product).
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # A kernel or library reading implying more than this share of either peak
 # is a fault of the measurement, and fails the run.
 RATE_LIMIT = 1.05
@@ -163,9 +170,11 @@ STATS_RTOL, STATS_ATOL = 1e-2, 1e-2
 # relative L2 error of the whole tensor.
 BWD_RTOL, BWD_ATOL = 2e-2, 2e-2
 BWD_REL_L2 = 1e-2
-# The f32 kernels (csrc/flash_attention_f32.cu) vs their plain versions in
-# f32: no rounding below f32 on either side, sums in other orders and exp's
-# last bits (the cuda cases of tests/test_torch_flash.py).
+# The f32 kernels vs their plain versions in f32: the forward
+# (csrc/flash_attention_f32.cu) rounds nothing below f32; the backward
+# (csrc/flash_attention_bwd_f32.cu) keeps about 21 bits a product (3xTF32);
+# sums in other orders and exp's last bits (the cuda cases of
+# tests/test_torch_flash.py).
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-4, 1e-5
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-4
 BWD_F32_REL_L2 = 1e-5
@@ -375,7 +384,7 @@ TTFA_TRIALS = 5
 STUDIO_SECONDS = 1.0
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_f32",
-                  "grouped_gemm")
+                  "flash_attention_bwd_f32", "grouped_gemm")
 GROUPED = ("grouped_gemm_gmm", "grouped_gemm_gmm_transposed", "grouped_gemm_tgmm")
 
 WORDS = ("warm analog synth pads drift over a slow hip hop beat with dusty vinyl "
@@ -1145,8 +1154,8 @@ def run_train_core(card: str) -> dict:
     _zero_launch_counts()
     h_two, _, m_two = _fit_marked(two, batch, 2)
     paths["train_accum_f32"] = _launch_counts()
-    want = {f"{k}_f32" if not k.endswith("reduce") else k.replace("_reduce", "_f32_reduce"): v
-            for k, v in per_step_bf16.items()}
+    # The f32 dk/dv kernel sums the GQA heads itself: no reduce launch.
+    want = {f"{k}_f32": v for k, v in per_step_bf16.items() if not k.endswith("reduce")}
     check(_per_step(paths["train_accum_f32"], 2) == want,
           f"train core: f32 launches {paths['train_accum_f32']} over 2 micro-steps, want {want} "
           f"a micro-step")
@@ -1706,13 +1715,16 @@ def time_flash_bwd(launches: dict, errs: dict, card: str):
 
 
 def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
-    """The f32 kernels (csrc/flash_attention_f32.cu), their plain versions
-    and SDPA in f32 (TF32 off) as the library call: K1 at the T2M prefill
+    """The f32 kernels (csrc/flash_attention_f32.cu and
+    csrc/flash_attention_bwd_f32.cu), their plain versions and SDPA in f32
+    (TF32 off) as the library call: K1 at the T2M prefill
     shape (its attention mask) and at the training shape, K2 and K3 at the
     training shape; CUDA events over back-to-back calls and graph replays
-    (`graph_ms`).  The bound takes the f32 rate of the CUDA cores
-    (PEAK_F32_FLOPS): the kernels use no tensor cores.  Returns the records
-    of the three kernels (K1's training-shape fields under train_shape)."""
+    (`graph_ms`).  K1's bound takes the f32 rate of the CUDA cores
+    (PEAK_F32_FLOPS), on which it runs; K2's and K3's the rate of their
+    3xTF32 products on the tensor cores (PEAK_3XTF32_FLOPS), with the CUDA
+    cores' bound beside it (`bound_ms_cuda_cores`).  Returns the records of
+    the three kernels (K1's training-shape fields under train_shape)."""
     import torch
     import torch.nn.functional as F
     from unimoe_audio_torch.config import TextMoEConfig
@@ -1722,10 +1734,11 @@ def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
     tc = TextMoEConfig()
     H, KV, Dh = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
     src = "unimoe_audio_torch/csrc/flash_attention_f32.cu"
+    bwd_src = "unimoe_audio_torch/csrc/flash_attention_bwd_f32.cu"
     rep = "unimoe_audio_tpu/ops/flash_attention.py:"
 
-    def bound(nbytes, flops):
-        t = (nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3)
+    def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
+        t = (nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3)
         return max(t), "bytes" if t[0] >= t[1] else "operations"
 
     def g(x):
@@ -1815,13 +1828,14 @@ def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
              max(errs["dk"], errs["dv"]))):
         ms, graph = times[name]
         flops, nbytes = 2 * Dh * pairs * n_products, in_bytes + out_bytes
-        check_rate(f"{name}, kernel", ms, nbytes, flops, PEAK_F32_FLOPS)
-        check_rate(f"{name}, kernel, graph", graph, nbytes, flops, PEAK_F32_FLOPS)
-        b, by = bound(nbytes, flops)
-        rec = {"name": name, "route": "cuda", "source": src,
+        check_rate(f"{name}, kernel", ms, nbytes, flops, PEAK_3XTF32_FLOPS)
+        check_rate(f"{name}, kernel, graph", graph, nbytes, flops, PEAK_3XTF32_FLOPS)
+        b, by = bound(nbytes, flops, PEAK_3XTF32_FLOPS)
+        b67, _ = bound(nbytes, flops)
+        rec = {"name": name, "route": "cuda", "source": bwd_src,
                "replaces": rep + ("150" if name.endswith("dq_f32") else "208"),
                "max_abs_err": err, "ms": ms, "plain_ms": plain[name], "bound_ms": b,
-               "bound_by": by, "library_ms": min(lib.values()),
+               "bound_by": by, "bound_ms_cuda_cores": b67, "library_ms": min(lib.values()),
                **{f"library_ms_{f}": x for f, x in lib.items()}, "device_ms_graph": graph,
                "shape": f"B={Bt} H={H} KV={KV} T=S={T} Dh={Dh} causal"}
         print(f"kernel timing [{card}]: {name} B={Bt} H={H} KV={KV} T=S={T} Dh={Dh} causal: "
@@ -1829,7 +1843,8 @@ def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
               f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain[name]:.4f} ms, sdpa f32 backward "
               f"(dq, dk, dv) attn_mask {lib['attn_mask']:.4f} ms, is_causal "
               f"{lib['is_causal']:.4f} ms, bound {b:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+              f"{flops / 1e9:.3f} GFLOP at {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, 3xTF32; "
+              f"{b67:.4f} ms at the CUDA cores' {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
         recs.append(rec)
     for rec in recs:
         print(json.dumps({"kernel": rec}), flush=True)
@@ -3789,8 +3804,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     stamp("training-shape kernel checks and the small training check")
     # The f32 kernels at the same shapes: the prefill and training shapes,
-    # tile edges (64 query rows, 32-key tiles), pads, S > T, T > S,
-    # non-causal, Dh 64, H = KV.
+    # tile edges (K1: 64 query rows, 32-key tiles; K2: 128 query rows,
+    # 32-key tiles; K3: 64 keys, 64-row query tiles), pads, S > T, T > S,
+    # non-causal, Dh 64, H = KV.  K2 and K3 also one row and one key past
+    # their tiles (129), S - T = 90 (K3's key tiles start their query range
+    # mid-tile), T > S with dead rows at Dh 64, GQA 8:1 over one kv head
+    # and 1:1 non-causal.
     f32 = torch.float32
     f32_errs = {"fwd": max(
         check_flash(8, 16, 2, 128, 128, 128, (0,) * 8, seed=0, dtype=f32),
@@ -3807,7 +3826,13 @@ def main() -> None:
         (2, 16, 2, 65, 65, 128, (0, 5), True, 16),
         (2, 16, 2, 100, 145, 64, (5, 0), True, 18),
         (2, 16, 2, 300, 200, 128, (0, 9), True, 20),
-        (2, 4, 4, 256, 256, 128, (0, 33), True, 21))]
+        (2, 4, 4, 256, 256, 128, (0, 33), True, 21),
+        (2, 16, 2, 129, 129, 128, (0, 5), True, 22),
+        (2, 16, 2, 64, 65, 128, (7, 0), True, 23),
+        (2, 16, 2, 200, 290, 128, (3, 0), True, 24),
+        (2, 16, 2, 160, 97, 64, (3, 0), True, 25),
+        (2, 8, 1, 129, 129, 64, (0, 7), True, 26),
+        (2, 2, 2, 65, 130, 128, (0, 3), False, 27))]
     f32_errs.update({lab: max(e[lab] for e in f32_bwd) for lab in ("dq", "dk", "dv")})
     torch.cuda.empty_cache()
     stamp("f32 kernel checks")

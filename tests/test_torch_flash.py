@@ -171,16 +171,23 @@ def test_backward_plain_bf16_rounds_as_jax(jx, B, H, KV, T, S, Dh, pad):
         torch.testing.assert_close(got, w, rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL)
 
 
-# The f32 kernels' tile edges (64 query rows and 32-key tiles for K1 and K2;
-# 32 keys and 64-row query tiles for K3): one row and one key past a tile,
-# S - T = 45 so that K3's key tiles start their query range in mid-tile,
-# T > S with dead rows, head_dim 64.
+# The f32 kernels' tile edges (K1: 64 query rows, 32-key tiles; K2: 128
+# query rows, 32-key tiles; K3: 64 keys, 64-row query tiles): one row and one
+# key past a tile (65, 129, S 65 over T 64), S - T = 45 and 90 so that K3's
+# key tiles start their query range in mid-tile, T > S with dead rows (also
+# at head_dim 64), head_dim 64, GQA 8:1 over one kv head and 1:1 (causal and
+# not).
 F32_EDGES = [
     # B, H, KV, T, S, Dh, pad, causal
     (1, 4, 2, 65, 65, 128, 0, True),
     (2, 4, 2, 100, 145, 64, 9, True),
     (1, 4, 4, 130, 97, 128, 3, True),
     (1, 8, 2, 96, 96, 64, 5, False),
+    (1, 4, 2, 129, 129, 128, 0, True),
+    (1, 8, 1, 64, 65, 64, 7, True),
+    (1, 4, 2, 100, 190, 128, 3, True),
+    (1, 4, 2, 160, 97, 64, 3, True),
+    (1, 2, 2, 65, 130, 128, 3, False),
 ]
 
 
@@ -212,6 +219,101 @@ def test_plain_f32_matches_jax_kernels(jx, B, H, KV, T, S, Dh, pad, causal):
     for got, w in zip((dq, dk, dv), want):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+# The f32 backward kernels' bar against their plain versions (chip_smoke's
+# BWD_F32_RTOL, BWD_F32_ATOL, BWD_F32_REL_L2): elementwise, and the relative
+# L2 error of the whole tensor.
+F32_BWD_RTOL, F32_BWD_ATOL = 1e-4, 1e-4
+F32_BWD_REL_L2 = 1e-5
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    on the int32 view, as `cvt.rna.tf32.f32` rounds."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_rz(x):
+    """x cut to TF32 toward zero (its low 13 mantissa bits dropped), as the
+    tensor core reads an f32 register given as a .tf32 operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, lo_round=_tf32_rz):
+    """a @ b as the f32 backward kernels form it: each operand split into
+    hi = tf32(x) (to nearest) and lo = x - hi read as TF32 (toward zero in
+    the kernels: `lo_round`), hi_a hi_b + (hi_a lo_b + lo_a hi_b), lo_a lo_b
+    dropped; the products of TF32 values are exact in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = lo_round(a - ah), lo_round(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+@pytest.mark.parametrize("lo_round", [_tf32_rz, _tf32], ids=["lo_toward_zero", "lo_to_nearest"])
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", [
+    (1, 4, 2, 512, 512, 128, 0, True), (2, 4, 2, 100, 145, 64, 9, True),
+    (1, 8, 1, 129, 129, 128, 3, True), (1, 2, 2, 65, 130, 64, 3, False)])
+def test_3xtf32_split_meets_the_f32_bar(B, H, KV, T, S, Dh, pad, causal, lo_round):
+    """The arithmetic of the f32 backward kernels on the CPU: dq, dk and dv
+    recomputed from the plain formulas with every product in 3xTF32 (the
+    split emulated on the int32 view, lo read toward zero as the kernels
+    read it, or rounded to nearest) meet the card's bar against the plain
+    f32 versions (rtol 1e-4, atol 1e-4, relative L2 1e-5), and TF32 alone
+    (one product of the rounded operands) does not."""
+    q, k, v, valid = (torch.tensor(a) for a in _inputs(B, H, KV, T, S, Dh, pad, seed=T + Dh))
+    do = torch.tensor(np.random.default_rng(S).standard_normal((B, H, T, Dh)).astype(np.float32))
+    o, m, l = flash_attention_reference(q, k, v, valid, causal, return_stats=True)
+    dvec = FA.softmax_residual_rowsum(do, o)
+    args = (q, k, v, do, m, l, dvec, valid, causal)
+    want = (FA.flash_attention_bwd_dq_reference(*args), *FA.flash_attention_bwd_dkv_reference(*args))
+
+    def grads(mm):
+        kk, vv = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
+        scale = Dh ** -0.5
+        allowed = FA._allowed(valid, T, S, causal)
+        s = mm(q, kk.transpose(-1, -2)) * scale
+        linv = 1.0 / l.reshape(B, H, T, 1).clamp_min(1e-30)
+        p = torch.where(allowed, torch.exp(s - m.reshape(B, H, T, 1)) * linv, 0.0)
+        dp = mm(do, vv.transpose(-1, -2))
+        ds = torch.where(allowed, p * (dp - dvec.reshape(B, H, T, 1)), 0.0)
+        dq = mm(ds, kk) * scale
+        dk = (mm(ds.transpose(-1, -2), q) * scale).reshape(B, KV, H // KV, S, Dh).sum(2)
+        dv = mm(p.transpose(-1, -2), do).reshape(B, KV, H // KV, S, Dh).sum(2)
+        return dq, dk, dv
+
+    def meets(got):
+        return all(bool(((g - w).abs() <= F32_BWD_ATOL + F32_BWD_RTOL * w.abs()).all())
+                   and ((g - w).norm() / w.norm()).item() <= F32_BWD_REL_L2
+                   for g, w in zip(got, want))
+
+    for g, w in zip(grads(lambda a, b: _mm_3xtf32(a, b, lo_round)), want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=F32_BWD_RTOL, atol=F32_BWD_ATOL)
+        assert ((g - w).norm() / w.norm()).item() <= F32_BWD_REL_L2
+    assert not meets(grads(lambda a, b: _tf32(a) @ _tf32(b)))
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """`_tf32` keeps 10 mantissa bits, rounds to nearest, breaks ties away
+    from zero, and leaves lo = x - hi exact below half a TF32 step; lo read
+    toward zero (`_tf32_rz`) stays within 2^-22 of x."""
+    one = 1.0
+    step = 2.0 ** -10
+    x = torch.tensor([one, one + step / 2, -(one + step / 2), one + step / 4,
+                      one + 3 * step / 4, 3.0, 1e-3], dtype=torch.float32)
+    got = _tf32(x)
+    assert got.tolist() == [one, one + step, -(one + step), one, one + step, 3.0,
+                            _tf32(torch.tensor([1e-3])).item()]
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    r = torch.tensor(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    hi = _tf32(r)
+    assert bool(((r - hi).abs() <= hi.abs() * 2.0 ** -11).all())
+    lo = _tf32(r - hi)
+    assert bool(((r - hi - lo).abs() <= r.abs() * 2.0 ** -21).all())
+    lz = _tf32_rz(r - hi)
+    assert bool(((r - hi - lz).abs() <= r.abs() * 2.0 ** -22).all())
+    assert bool((lz.abs() <= (r - hi).abs()).all())
 
 
 def test_gradcheck_f64():
@@ -451,21 +553,23 @@ def test_cuda_attention_backward_launches_both_kernels(cuda):
     assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and x.grad.abs().sum() > 0
 
 
-# The f32 kernels vs their plain versions on the card: both compute in f32
-# and differ in the order of their sums and in exp's last bits.
+# The f32 kernels vs their plain versions on the card: the forward computes
+# in f32, the backward in 3xTF32 (about 21 bits a product; F32_BWD_* above);
+# they differ in the order of their sums and in exp's last bits.
 F32_RTOL, F32_ATOL = 1e-4, 1e-5
-F32_BWD_RTOL, F32_BWD_ATOL = 1e-4, 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", F32_EDGES + [
     (4, 16, 2, 128, 128, 128, 0, True), (4, 16, 2, 2048, 2048, 128, 0, True)])
 def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
-    """K1, K2 and K3 in f32 (`csrc/flash_attention_f32.cu`) vs their plain
-    versions at the f32 kernels' tile edges, the T2M prefill shape and the
-    training shape: o, m, l, then dq, dk, dv from the kernel's residuals;
-    dead rows exactly 0; a second launch gives the same bits; the f32
-    counters count each launch and the bf16 ones none."""
+    """K1 (`csrc/flash_attention_f32.cu`), K2 and K3
+    (`csrc/flash_attention_bwd_f32.cu`) in f32 vs their plain versions at
+    the f32 kernels' tile edges, the T2M prefill shape and the training
+    shape: o, m, l, then dq, dk, dv from the kernel's residuals (also within
+    the relative L2 bar); dead rows exactly 0; a second launch gives the same
+    bits; the f32 counters count each launch, the bf16 ones none, and the
+    f32 dk/dv kernel launches no separate GQA sum."""
     q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + Dh)
     q, k, v = (torch.tensor(a, device=cuda) for a in (q, k, v))
     vt = torch.tensor(valid, device=cuda)
@@ -474,6 +578,7 @@ def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
     names = ("launches", "f32_launches")
     fns = (flash_attention, FA.flash_attention_bwd_dq, FA.flash_attention_bwd_dkv)
     before = [getattr(f, n) for f in fns for n in names]
+    reduces = FA.flash_attention_bwd_dkv.f32_reduce_launches
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
     dvec = FA.softmax_residual_rowsum(do, o)
     args = (q, k, v, do, m, l, dvec, vt, causal)
@@ -482,6 +587,7 @@ def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
     torch.cuda.synchronize()
     assert [getattr(f, n) for f in fns for n in names] == \
         [b + d for b, d in zip(before, (0, 1, 0, 2, 0, 2))]
+    assert FA.flash_attention_bwd_dkv.f32_reduce_launches == reduces
     ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
     torch.testing.assert_close(o, ro, rtol=F32_RTOL, atol=F32_ATOL)
     torch.testing.assert_close(m, rm, rtol=F32_RTOL, atol=F32_ATOL)
@@ -490,6 +596,7 @@ def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
     for a, b, w in zip(got, again, want):
         assert a.dtype == torch.float32 and torch.equal(a.view(torch.int32), b.view(torch.int32))
         torch.testing.assert_close(a, w, rtol=F32_BWD_RTOL, atol=F32_BWD_ATOL)
+        assert ((a - w).norm() / w.norm()).item() <= F32_BWD_REL_L2
     allowed = (vt[:, None, :] > 0) & torch.ones(T, S, dtype=torch.bool, device=cuda).tril(
         S - T if causal else S)
     dead = ~allowed.any(-1)[:, None].expand(B, H, T)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarrier rings, TMA tile
-// loads, cp.async, wgmma shared-memory descriptors for 128-byte swizzled
-// tiles, and the wgmma instructions the grouped GEMMs and the flash-attention
-// forward issue (operands from shared memory, or A from registers).
+// loads, cp.async (single copies and groups), wgmma shared-memory
+// descriptors for 128-byte swizzled tiles, the wgmma instructions the
+// grouped GEMMs and the flash-attention forward issue (operands from shared
+// memory, or A from registers), and the TF32 rounding and mma.sync of the
+// f32 flash-attention backward.
 //
 // Shared-memory tiles follow the layout TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16), the 16-byte chunk
@@ -89,6 +91,24 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared (L2 only); src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Closes this thread's cp.async group; cp_async_wait_group<N> waits until at
+// most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -321,5 +341,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
+// ---- mma.sync in TF32 -------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero;
+// the bits of an f32 whose low 13 mantissa bits are 0.  The rounding of
+// `cvt.rna.tf32.f32` for finite x, in two integer operations (half a TF32
+// step added to the magnitude's bits, which carries into the exponent where
+// it must, then the low bits cleared): ptxas expands the cvt into four, with
+// a guard for inf and NaN that finite operands do not need.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a b over one warp: a 16 x 8 (row-major), b 8 x 8 (column-major), d
+// 16 x 8 f32.  With g = lane / 4 and t = lane % 4: a = {(g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)}, b = {(t, g), (t + 4, g)}, d = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}, as (row, column).
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace hopper

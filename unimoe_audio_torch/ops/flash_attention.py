@@ -1,8 +1,9 @@
 """Causal GQA flash attention with exact gradients: the hand-written CUDA
 kernels `csrc/flash_attention_fwd.cu` (forward) and
 `csrc/flash_attention_bwd.cu` (dq; dk and dv) for bf16, and
-`csrc/flash_attention_f32.cu` (all three) for f32, their plain PyTorch
-versions, and the autograd function that joins them.
+`csrc/flash_attention_f32.cu` (forward) and `csrc/flash_attention_bwd_f32.cu`
+(dq; dk and dv) for f32, their plain PyTorch versions, and the autograd
+function that joins them.
 
 Replaces the Pallas TPU kernels of `unimoe_audio_tpu/ops/flash_attention.py`:
 `_flash_kernel` (:30-97, the forward, reached through `_flash_forward` and
@@ -18,10 +19,14 @@ T = S = 128, Dh = 128) a forward moves about 9 MB and does about 0.5 GFLOP,
 so it is bound by memory traffic and launch latency; at the training shape
 (B = 4, T = S = 2048) each kernel does 34-138 GFLOP on about 70 MB and is
 bound by the tensor cores.  The [T, S] matrices never reach device memory:
-the bf16 kernels keep their score tiles in registers (TMA-fed wgmma); the
-f32 kernels compute every product in f32 FMAs on the CUDA cores (TF32
-would keep 10 mantissa bits), as the JAX package's kernels compute in the
-input dtype; see the sources for the designs.
+the bf16 kernels keep their score tiles in registers (TMA-fed wgmma).  In
+f32, as the JAX package's kernels compute in the input dtype, the forward
+computes every product in f32 FMAs on the CUDA cores; the two backward
+kernels run each product on the tensor cores as three TF32 products
+(`mma.sync` m16n8k8: hi·hi + hi·lo + lo·hi of each operand split into
+hi = tf32(x) and lo = x - hi, which the tensor core reads as TF32; about
+21 bits a product where TF32 alone keeps 11), with the softmax recompute
+and dS in f32; see the sources for the designs.
 
 `flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
 the plain version and a CUDA tensor to the kernel, with no fallback between
@@ -32,7 +37,8 @@ launches: `flash_attention.launches`, `flash_attention_bwd_dq.launches`,
 `flash_attention_bwd_dkv.launches` and
 `flash_attention_bwd_dkv.reduce_launches` (the GQA sum of the per-head
 dk and dv, when H > KV) for bf16, and the same names with an `f32_`
-prefix (`flash_attention.f32_launches`, ...) for f32.
+prefix (`flash_attention.f32_launches`, ...) for f32, where the dk/dv
+kernel sums the heads itself and `f32_reduce_launches` stays 0.
 """
 
 from __future__ import annotations
@@ -161,18 +167,20 @@ def _check(q, k, v, kv_valid):
 
 
 # The dtypes the kernels take: bf16 (flash_attention_fwd.cu,
-# flash_attention_bwd.cu) and f32 (flash_attention_f32.cu).
+# flash_attention_bwd.cu) and f32 (flash_attention_f32.cu,
+# flash_attention_bwd_f32.cu).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
-# Rows of a CTA's tile by dtype: (K1's and K2's query rows, K3's keys).  The
-# grids are (B*H, ceil(T / rows)) for K1 and K2 and (B*H, ceil(S / keys))
-# for K3.
-BLOCK_ROWS = {torch.bfloat16: (128, 128), torch.float32: (64, 32)}
+# Rows of a CTA's tile by dtype and kernel: K1's and K2's query rows, K3's
+# keys.  The grids are (B*H, ceil(T / rows)) for K1 and K2 and
+# (B*H or, in f32, B*KV, ceil(S / keys)) for K3.
+BLOCK_ROWS = {torch.bfloat16: {"fwd": 128, "dq": 128, "dkv": 128},
+              torch.float32: {"fwd": 64, "dq": 128, "dkv": 64}}
 
 
 def _check_fwd(q, k, v, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    rows = BLOCK_ROWS[q.dtype][0]
+    rows = BLOCK_ROWS[q.dtype]["fwd"]
     if B * H >= 2 ** 31 or -(-T // rows) > 65535:
         raise ValueError(f"B*H={B * H}, T={T} exceed the forward kernel's grid limits "
                          f"(B*H < 2**31, ceil(T / {rows}) <= 65535)")
@@ -181,7 +189,7 @@ def _check_fwd(q, k, v, kv_valid):
 
 def _check_bwd(q, k, v, do, m, l, dvec, kv_valid):
     B, H, KV, T, S, Dh = _check(q, k, v, kv_valid)
-    rows, keys = BLOCK_ROWS[q.dtype]
+    rows, keys = BLOCK_ROWS[q.dtype]["dq"], BLOCK_ROWS[q.dtype]["dkv"]
     if B * H >= 2 ** 31 or max(-(-T // rows), -(-S // keys)) > 65535:
         raise ValueError(f"B*H={B * H}, T={T}, S={S} exceed the backward kernels' grid limits "
                          f"(B*H < 2**31, ceil(T / {rows}) and ceil(S / {keys}) <= 65535)")
@@ -223,11 +231,11 @@ def _call(source: str, name: str, n_ptrs: int, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _kernel(q, bf16_source: str, name: str) -> Tuple[str, str, str]:
+def _kernel(q, bf16_source: str, f32_source: str, name: str) -> Tuple[str, str, str]:
     """(source, C entry, counter prefix) of the kernel for q's dtype: the
-    bf16 source's entry `name`, or `name`_f32 of flash_attention_f32.cu."""
+    bf16 source's entry `name`, or `name`_f32 of the f32 source."""
     if q.dtype == torch.float32:
-        return "flash_attention_f32", name + "_f32", "f32_"
+        return f32_source, name + "_f32", "f32_"
     return bf16_source, name, ""
 
 
@@ -243,7 +251,8 @@ def _flash_forward_cuda(q, k, v, kv_valid, causal: bool
     l = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     if T == 0:
         return o, m, l
-    source, entry, prefix = _kernel(q, "flash_attention_fwd", "flash_attention_fwd")
+    source, entry, prefix = _kernel(q, "flash_attention_fwd", "flash_attention_f32",
+                                    "flash_attention_fwd")
     with torch.cuda.device(q.device):
         _call(source, entry, 7,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
@@ -269,7 +278,8 @@ def flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tru
     if T == 0 or S == 0:
         return torch.zeros_like(q)
     dq = torch.empty_like(q)
-    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_dq")
+    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_f32",
+                                    "flash_attention_bwd_dq")
     with torch.cuda.device(q.device):
         _call(source, entry, 9,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
@@ -282,9 +292,11 @@ def flash_attention_bwd_dq(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tru
 def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = True):
     """(dk, dv) [B, KV, S, Dh], GQA group-summed, from the same inputs as
     `flash_attention_bwd_dq`.  The kernel on a CUDA tensor, the plain
-    version on a CPU tensor.  On the card with H > KV the kernel writes
-    each query head's dk and dv into a [2, B*H, S, Dh] scratch tensor and
-    a second kernel sums each kv head's H / KV of them in head order."""
+    version on a CPU tensor.  On the card in bf16 with H > KV the kernel
+    writes each query head's dk and dv into a [2, B*H, S, Dh] scratch
+    tensor and a second kernel sums each kv head's H / KV of them in head
+    order; in f32 one kernel walks a kv head's query heads in head order
+    and writes the sums."""
     if not q.is_cuda:
         _cpu_only(q)
         return flash_attention_bwd_dkv_reference(q, k, v, do, m, l, dvec, kv_valid, causal)
@@ -293,14 +305,17 @@ def flash_attention_bwd_dkv(q, k, v, do, m, l, dvec, kv_valid, causal: bool = Tr
         return torch.zeros_like(k), torch.zeros_like(v)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    part = torch.empty((2, B * H, S, Dh), dtype=k.dtype, device=k.device) if H > KV else None
-    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_dkv")
+    source, entry, prefix = _kernel(q, "flash_attention_bwd", "flash_attention_bwd_f32",
+                                    "flash_attention_bwd_dkv")
+    f32 = q.dtype == torch.float32
+    part = (torch.empty((2, B * H, S, Dh), dtype=k.dtype, device=k.device)
+            if H > KV and not f32 else None)
+    scratch = () if f32 else (None if part is None else part.data_ptr(),)
     with torch.cuda.device(q.device):
-        _call(source, entry, 11,
+        _call(source, entry, 10 + len(scratch),
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
               l.data_ptr(), dvec.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              None if part is None else part.data_ptr(),
-              B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
+              *scratch, B, H, KV, T, S, Dh, int(causal), Dh ** -0.5)
     _count(flash_attention_bwd_dkv, prefix)
     if part is not None:
         _count(flash_attention_bwd_dkv, prefix, "reduce_launches")
