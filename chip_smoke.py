@@ -24,11 +24,10 @@ failure:
    before each launch, K5 launched twice and compared bit for bit).  The
    f32 kernels of K1 (csrc/flash_attention_f32.cu), K2 and K3
    (csrc/flash_attention_bwd_f32.cu) against their plain versions in f32 at
-   the prefill and training shapes, their tile edges (K1: 64 query rows,
-   32-key tiles; K2: 128 query rows, 32-key tiles; K3: 64 keys, 64-row query
-   tiles), pads, S > T with S - T starting mid-tile, T > S with dead rows,
-   non-causal, Dh 64, GQA 8:1 and H = KV, K2 and K3 launched twice and
-   compared bit for bit.  A
+   the prefill and training shapes, their tile edges (K1 and K2: 128 query
+   rows, 32-key tiles; K3: 64 keys, 64-row query tiles), pads, S > T with
+   S - T starting mid-tile, T > S with dead rows, non-causal, Dh 64, GQA 8:1
+   and H = KV, K1, K2 and K3 launched twice and compared bit for bit.  A
    small model's bf16 prefill, and its bf16 training loss and gradient
    (dense and gmm dispatch), are held against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
@@ -111,9 +110,9 @@ failure:
    at the training shape, against SDPA with a boolean mask and with
    is_causal=True; K4t with the step's bf16 dy and with an f32 dy; the f32
    K1 at the T2M prefill and training shapes and the f32 K2 and K3 at the
-   training shape, against SDPA in f32, K1 bound by the CUDA cores' f32
-   rate, K2 and K3 by a third of the TF32 rate, with the CUDA cores' bound
-   printed beside it): CUDA
+   training shape, against SDPA in f32, each bound by a third of the TF32
+   rate (their 3xTF32 products), with the CUDA cores' f32 bound printed
+   beside it): CUDA
    events over back-to-back calls, and for the kernels and the library
    calls also the replay of a CUDA graph of the calls, each after a write
    that flushes the L2 (`graph_ms`).  A reading that implies more than
@@ -146,9 +145,10 @@ import numpy as np
 # its bytes over the first and its operations over the second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-# f32 on the CUDA cores (no tensor cores): the f32 forward's peak; TF32 on
-# the tensor cores, the ceiling of any f32 library reading; a third of it,
-# the f32 backward kernels' peak (three TF32 products per f32 product).
+# f32 on the CUDA cores (no tensor cores), printed beside the f32 kernels'
+# bound; TF32 on the tensor cores, the ceiling of any f32 library reading; a
+# third of it, the peak of the f32 kernels K1-K3 (three TF32 products per
+# f32 product).
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
@@ -171,16 +171,17 @@ STATS_RTOL, STATS_ATOL = 1e-2, 1e-2
 BWD_RTOL, BWD_ATOL = 2e-2, 2e-2
 BWD_REL_L2 = 1e-2
 # The f32 kernels vs their plain versions in f32: the forward
-# (csrc/flash_attention_f32.cu) rounds nothing below f32; the backward
-# (csrc/flash_attention_bwd_f32.cu) keeps about 21 bits a product (3xTF32);
+# (csrc/flash_attention_f32.cu) and the backward
+# (csrc/flash_attention_bwd_f32.cu) keep about 21 bits a product (3xTF32);
 # sums in other orders and exp's last bits (the cuda cases of
 # tests/test_torch_flash.py).
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-4, 1e-5
 BWD_F32_RTOL, BWD_F32_ATOL = 1e-4, 1e-4
 BWD_F32_REL_L2 = 1e-5
 # Small-model prefill vs its f32 CPU run, relative L2 error of the final
-# hidden state over live rows: f32 on the card (TF32 off: summation order
-# only), and bf16 on the card, whose rounding also flips a few router
+# hidden state over live rows: f32 on the card (TF32 off; the f32 K1's
+# 3xTF32 products keep about 21 bits, and sums run in other orders), and
+# bf16 on the card, whose rounding also flips a few router
 # decisions (about 4e-2 through the plain bf16 path on the CPU); the flash
 # path must be no less accurate than the einsum path, within 25 %.
 PREFILL_F32_REL_L2 = 1e-3
@@ -288,7 +289,8 @@ TTS_SENTENCES = [
 # The DAC encode of the prompt, card vs CPU: the least share of equal codes.
 DAC_ENCODE_EQUAL_SHARE = 0.99
 # The 2-layer f32 voice-clone prefill, card vs CPU: the exact f32 path's
-# limit of the quantized reference check (summation order only).
+# limit of the quantized reference check (sums in other orders, and the f32
+# K1's 3xTF32 products, about 21 bits each).
 VOICE_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
 # Streaming T2M: 2 s at most, in chunks of 25 frames.
 STREAM_FRAMES = 100
@@ -312,9 +314,10 @@ VT2M_TOKENS = {"A": 128, "B": 120, "C": 16, "D": 144}
 VT2M_CAPTION_WORDS = (58, 74, 90, 106)
 VT2M_SECONDS = 5
 VT2M_MIN_SECONDS = 3
-# The reference checks, card vs CPU in f32 (TF32 off: summation order
-# only), relative L2: the tower at full width cut to VT2M_REF_DEPTH blocks
-# (so that it holds full-attention block 7) on video B, and a 2-layer
+# The reference checks, card vs CPU in f32 (TF32 off; sums in other orders,
+# and the f32 K1's 3xTF32 products, about 21 bits each), relative L2: the
+# tower at full width cut to VT2M_REF_DEPTH blocks (so that it holds
+# full-attention block 7) on video B, and a 2-layer
 # flagship-width VT2M prefill fed by that tower on videos B and C (codec
 # logits) — the exact f32 path's limit of the other reference checks.
 VT2M_REF_DEPTH = 8
@@ -516,9 +519,9 @@ def allowed_mask(valid, T, S, causal=True):
 
 def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None, dtype=None) -> float:
     """Kernel vs plain version, in bf16 (the default) or f32 (the f32
-    kernel, counted by its own counter); dead rows exactly 0.  Returns max
-    |err|.  The keys' validity is `pads` left pads per row, or the mask
-    `valid` [B, S] where it is given."""
+    kernel, counted by its own counter, launched twice for equal bits);
+    dead rows exactly 0.  Returns max |err|.  The keys' validity is `pads`
+    left pads per row, or the mask `valid` [B, S] where it is given."""
     import torch
     from unimoe_audio_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
@@ -533,9 +536,10 @@ def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None, dtype=N
     q, k, v, vt = flash_inputs(B, H, KV, T, S, Dh, valid, seed, dtype)
     counts = _launch_counts()
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
+    again = flash_attention(q, k, v, vt, causal=causal, return_stats=True) if f32 else None
     torch.cuda.synchronize()
     key = "flash_attention_fwd_f32" if f32 else "flash_attention_fwd"
-    check(_launch_counts()[key] == counts[key] + 1, f"check_flash: no {key} launch")
+    check(_launch_counts()[key] == counts[key] + 1 + f32, f"check_flash: no {key} launch")
     ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
     o32, r32 = o.float(), ro.float()
     name = (f"flash{' f32' if f32 else ''} B={B} H={H} KV={KV} T={T} S={S} Dh={Dh} "
@@ -546,13 +550,22 @@ def check_flash(B, H, KV, T, S, Dh, pads, seed, causal=True, valid=None, dtype=N
           f"{(o32 - r32).abs().max().item()}")
     check(bool(((m - rm).abs() <= satol + srtol * rm.abs()).all()), f"{name}: m differs")
     check(bool(((l - rl).abs() <= satol + srtol * rl.abs()).all()), f"{name}: l differs")
+    if f32:
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip((o, m, l), again)),
+              f"{name}: two launches on the same inputs differ")
     dead = ~allowed_mask(vt, T, S, causal).any(-1)                        # [B, T]
     dead_rows = int(dead.sum()) * H
-    check(bool((o32.abs().sum(-1)[dead[:, None, :].expand(B, H, T)] == 0).all()),
-          f"{name}: a dead row is not exactly 0")
+    dead_bht = dead[:, None, :].expand(B, H, T)
+    check(bool((o32.abs().sum(-1)[dead_bht] == 0).all())
+          and bool((m.view(B, H, T)[dead_bht] == -1e30).all())
+          and bool((l.view(B, H, T)[dead_bht] == 1e30).all()),
+          f"{name}: a dead row is not exactly 0 with m = -1e30 and l = 1e30")
     err = (o32 - r32).abs().max().item()
     print(f"kernel check: {name}: max|err| {err:.3e} (rtol {rtol}, atol {atol}); "
-          f"{dead_rows} dead rows exactly 0", flush=True)
+          f"{dead_rows} dead rows exactly 0 (m -1e30, l 1e30)"
+          + ("; a second launch bit-identical" if f32 else ""),
+          flush=True)
     return err
 
 
@@ -1720,11 +1733,11 @@ def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
     (TF32 off) as the library call: K1 at the T2M prefill
     shape (its attention mask) and at the training shape, K2 and K3 at the
     training shape; CUDA events over back-to-back calls and graph replays
-    (`graph_ms`).  K1's bound takes the f32 rate of the CUDA cores
-    (PEAK_F32_FLOPS), on which it runs; K2's and K3's the rate of their
-    3xTF32 products on the tensor cores (PEAK_3XTF32_FLOPS), with the CUDA
-    cores' bound beside it (`bound_ms_cuda_cores`).  Returns the records of
-    the three kernels (K1's training-shape fields under train_shape)."""
+    (`graph_ms`).  Each bound takes the rate of the kernels' 3xTF32
+    products on the tensor cores (PEAK_3XTF32_FLOPS), with the bound at the
+    CUDA cores' f32 rate beside it (`bound_ms_cuda_cores`).  Returns the
+    records of the three kernels (K1's training-shape fields under
+    train_shape)."""
     import torch
     import torch.nn.functional as F
     from unimoe_audio_torch.config import TextMoEConfig
@@ -1767,18 +1780,20 @@ def time_flash_f32(t2m_mask, errs: dict, card: str) -> list:
         for form, x in lib.items():
             check_rate(f"sdpa f32 ({form}) B={B} T={T}", x, nbytes, flops, PEAK_TF32_FLOPS)
         check_rate(f"flash_attention_fwd_f32 B={B} T={T}, kernel", ms, nbytes, flops,
-                   PEAK_F32_FLOPS)
+                   PEAK_3XTF32_FLOPS)
         check_rate(f"flash_attention_fwd_f32 B={B} T={T}, kernel, graph", graph, nbytes, flops,
-                   PEAK_F32_FLOPS)
-        b, by = bound(nbytes, flops)
+                   PEAK_3XTF32_FLOPS)
+        b, by = bound(nbytes, flops, PEAK_3XTF32_FLOPS)
+        b67, _ = bound(nbytes, flops)
         print(f"kernel timing [{card}]: flash_attention_fwd_f32 B={B} H={H} KV={KV} T=S={T} "
               f"Dh={Dh}: kernel {ms:.4f} ms (graph replay, L2 cold: {g(graph)}; "
               f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, sdpa f32 "
               + ", ".join(f"{f} {x:.4f} ms" for f, x in lib.items())
               + f", bound {b:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at "
+              f"{PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s, 3xTF32; {b67:.4f} ms at the CUDA cores' "
               f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
         return {"ms": ms, "device_ms_graph": graph, "plain_ms": plain, "bound_ms": b,
-                "bound_by": by, "library_ms": min(lib.values()),
+                "bound_by": by, "bound_ms_cuda_cores": b67, "library_ms": min(lib.values()),
                 **{f"library_ms_{f}": x for f, x in lib.items()}}
 
     B, T = t2m_mask.shape
@@ -3804,12 +3819,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     stamp("training-shape kernel checks and the small training check")
     # The f32 kernels at the same shapes: the prefill and training shapes,
-    # tile edges (K1: 64 query rows, 32-key tiles; K2: 128 query rows,
-    # 32-key tiles; K3: 64 keys, 64-row query tiles), pads, S > T, T > S,
-    # non-causal, Dh 64, H = KV.  K2 and K3 also one row and one key past
-    # their tiles (129), S - T = 90 (K3's key tiles start their query range
-    # mid-tile), T > S with dead rows at Dh 64, GQA 8:1 over one kv head
-    # and 1:1 non-causal.
+    # tile edges (K1 and K2: 128 query rows, 32-key tiles; K3: 64 keys,
+    # 64-row query tiles), pads, S > T, T > S, non-causal, Dh 64, H = KV.
+    # K1 also one row and one key past two row tiles (257), one row tile
+    # over ten key tiles with the last ragged (S 300), a second row tile of
+    # one row over 193 keys at Dh 64, GQA 8:1 over one kv head and H = KV;
+    # each K1 check launches it twice for equal bits.  K2 and K3 also one
+    # row and one key past their tiles (129), S - T = 90 (K3's key tiles
+    # start their query range mid-tile), T > S with dead rows at Dh 64, GQA
+    # 8:1 over one kv head and 1:1 non-causal.
     f32 = torch.float32
     f32_errs = {"fwd": max(
         check_flash(8, 16, 2, 128, 128, 128, (0,) * 8, seed=0, dtype=f32),
@@ -3818,6 +3836,11 @@ def main() -> None:
         check_flash(2, 16, 2, 129, 129, 128, (0, 5), seed=4, dtype=f32),
         check_flash(2, 16, 2, 64, 300, 128, (7, 0), seed=6, dtype=f32),
         check_flash(2, 16, 2, 192, 192, 128, (0, 5), seed=8, causal=False, dtype=f32),
+        check_flash(2, 16, 2, 257, 257, 128, (0, 9), seed=30, dtype=f32),
+        check_flash(2, 16, 2, 128, 300, 128, (5, 0), seed=31, dtype=f32),
+        check_flash(2, 16, 2, 129, 193, 64, (0, 4), seed=32, dtype=f32),
+        check_flash(2, 8, 1, 129, 129, 128, (0, 7), seed=33, dtype=f32),
+        check_flash(2, 4, 4, 200, 200, 128, (3, 0), seed=34, dtype=f32),
         check_flash(TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, seed=9, dtype=f32))}
     f32_bwd = [check_flash_bwd(*a, dtype=f32) for a in (
         (TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128, (0,) * TRAIN_B, True, 10),

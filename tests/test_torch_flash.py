@@ -171,8 +171,8 @@ def test_backward_plain_bf16_rounds_as_jax(jx, B, H, KV, T, S, Dh, pad):
         torch.testing.assert_close(got, w, rtol=BF16_BWD_RTOL, atol=BF16_BWD_ATOL)
 
 
-# The f32 kernels' tile edges (K1: 64 query rows, 32-key tiles; K2: 128
-# query rows, 32-key tiles; K3: 64 keys, 64-row query tiles): one row and one
+# The f32 kernels' tile edges (K1 and K2: 128 query rows, 32-key tiles; K3:
+# 64 keys, 64-row query tiles; K1's own in K1_F32_EDGES below): one row and one
 # key past a tile (65, 129, S 65 over T 64), S - T = 45 and 90 so that K3's
 # key tiles start their query range in mid-tile, T > S with dead rows (also
 # at head_dim 64), head_dim 64, GQA 8:1 over one kv head and 1:1 (causal and
@@ -292,6 +292,48 @@ def test_3xtf32_split_meets_the_f32_bar(B, H, KV, T, S, Dh, pad, causal, lo_roun
         torch.testing.assert_close(g, w, rtol=F32_BWD_RTOL, atol=F32_BWD_ATOL)
         assert ((g - w).norm() / w.norm()).item() <= F32_BWD_REL_L2
     assert not meets(grads(lambda a, b: _tf32(a) @ _tf32(b)))
+
+
+# The f32 forward kernel's bar beyond F32_RTOL / F32_ATOL (below): the
+# relative L2 error of o.
+F32_FWD_REL_L2 = 1e-5
+
+
+@pytest.mark.parametrize("lo_round", [_tf32_rz, _tf32], ids=["lo_toward_zero", "lo_to_nearest"])
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", [
+    (1, 4, 2, 512, 512, 128, 0, True), (2, 4, 2, 100, 145, 64, 9, True),
+    (1, 8, 1, 129, 129, 128, 3, True), (1, 2, 2, 65, 130, 64, 3, False)])
+def test_3xtf32_forward_meets_the_f32_bar(B, H, KV, T, S, Dh, pad, causal, lo_round):
+    """The arithmetic of the f32 forward kernel on the CPU: o, m and l
+    recomputed with S = Q K^T and P V in 3xTF32 (the softmax taken exactly,
+    in f32) meet the card's bar against the plain f32 version (rtol 1e-4,
+    atol 1e-5, and o's relative L2 1e-5), and TF32 alone does not."""
+    q, k, v, valid = (torch.tensor(a) for a in _inputs(B, H, KV, T, S, Dh, pad, seed=T + Dh))
+    want = flash_attention_reference(q, k, v, valid, causal, return_stats=True)
+
+    def forward(mm):
+        kk, vv = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
+        allowed = FA._allowed(valid, T, S, causal)
+        live = allowed.any(-1, keepdim=True)
+        s = torch.where(allowed, mm(q, kk.transpose(-1, -2)) * Dh ** -0.5, FA.NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(allowed, torch.exp(s - m), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = torch.where(live, mm(p, vv) / l.clamp_min(1e-30), 0.0)
+        l = torch.where(live, l, -FA.NEG_INF)
+        return o, m.reshape(B * H, T), l.reshape(B * H, T)
+
+    def meets(got):
+        return all(bool(((g - w).abs() <= F32_ATOL + F32_RTOL * w.abs()).all())
+                   for g, w in zip(got, want)) \
+            and ((got[0] - want[0]).norm() / want[0].norm()).item() <= F32_FWD_REL_L2
+
+    got = forward(lambda a, b: _mm_3xtf32(a, b, lo_round))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=F32_RTOL, atol=F32_ATOL)
+    assert ((got[0] - want[0]).norm() / want[0].norm()).item() <= F32_FWD_REL_L2
+    assert not meets(forward(lambda a, b: _tf32(a) @ _tf32(b)))
 
 
 def test_tf32_rounding_is_round_to_nearest_away():
@@ -553,23 +595,38 @@ def test_cuda_attention_backward_launches_both_kernels(cuda):
     assert x.grad is not None and bool(torch.isfinite(x.grad).all()) and x.grad.abs().sum() > 0
 
 
-# The f32 kernels vs their plain versions on the card: the forward computes
-# in f32, the backward in 3xTF32 (about 21 bits a product; F32_BWD_* above);
-# they differ in the order of their sums and in exp's last bits.
+# The f32 kernels vs their plain versions on the card: both the forward and
+# the backward run their products in 3xTF32 (about 21 bits a product;
+# F32_FWD_REL_L2 and F32_BWD_* above); they differ in the order of their
+# sums and in exp's last bits.
 F32_RTOL, F32_ATOL = 1e-4, 1e-5
+
+# K1's own tile edges in f32 (128 query rows, 32-key tiles): one row and one
+# key past two row tiles, one row tile over ten key tiles with the last
+# ragged, a second row tile of one row at Dh 64, GQA 8:1 over one kv head
+# and H = KV.
+K1_F32_EDGES = [
+    # B, H, KV, T, S, Dh, pad, causal
+    (1, 4, 2, 257, 257, 128, 0, True),
+    (1, 4, 2, 128, 300, 128, 7, True),
+    (1, 4, 2, 129, 193, 64, 5, True),
+    (1, 8, 1, 129, 129, 128, 3, True),
+    (1, 4, 4, 200, 200, 128, 9, True),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", F32_EDGES + [
+@pytest.mark.parametrize("B,H,KV,T,S,Dh,pad,causal", F32_EDGES + K1_F32_EDGES + [
     (4, 16, 2, 128, 128, 128, 0, True), (4, 16, 2, 2048, 2048, 128, 0, True)])
 def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
     """K1 (`csrc/flash_attention_f32.cu`), K2 and K3
     (`csrc/flash_attention_bwd_f32.cu`) in f32 vs their plain versions at
     the f32 kernels' tile edges, the T2M prefill shape and the training
-    shape: o, m, l, then dq, dk, dv from the kernel's residuals (also within
-    the relative L2 bar); dead rows exactly 0; a second launch gives the same
-    bits; the f32 counters count each launch, the bf16 ones none, and the
-    f32 dk/dv kernel launches no separate GQA sum."""
+    shape: o, m, l (o also within the relative L2 bar), then dq, dk, dv from
+    the kernel's residuals (also within the relative L2 bar); dead rows
+    exactly 0; a second launch of each kernel gives the same bits; the f32
+    counters count each launch, the bf16 ones none, and the f32 dk/dv
+    kernel launches no separate GQA sum."""
     q, k, v, valid = _inputs(B, H, KV, T, S, Dh, pad, seed=T + S + Dh)
     q, k, v = (torch.tensor(a, device=cuda) for a in (q, k, v))
     vt = torch.tensor(valid, device=cuda)
@@ -580,16 +637,20 @@ def test_f32_kernels_match_plain(cuda, B, H, KV, T, S, Dh, pad, causal):
     before = [getattr(f, n) for f in fns for n in names]
     reduces = FA.flash_attention_bwd_dkv.f32_reduce_launches
     o, m, l = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
+    fwd_again = flash_attention(q, k, v, vt, causal=causal, return_stats=True)
     dvec = FA.softmax_residual_rowsum(do, o)
     args = (q, k, v, do, m, l, dvec, vt, causal)
     got = (FA.flash_attention_bwd_dq(*args), *FA.flash_attention_bwd_dkv(*args))
     again = (FA.flash_attention_bwd_dq(*args), *FA.flash_attention_bwd_dkv(*args))
     torch.cuda.synchronize()
     assert [getattr(f, n) for f in fns for n in names] == \
-        [b + d for b, d in zip(before, (0, 1, 0, 2, 0, 2))]
+        [b + d for b, d in zip(before, (0, 2, 0, 2, 0, 2))]
     assert FA.flash_attention_bwd_dkv.f32_reduce_launches == reduces
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((o, m, l), fwd_again))
     ro, rm, rl = flash_attention_reference(q, k, v, vt, causal, return_stats=True)
     torch.testing.assert_close(o, ro, rtol=F32_RTOL, atol=F32_ATOL)
+    assert ((o - ro).norm() / ro.norm()).item() <= F32_FWD_REL_L2
     torch.testing.assert_close(m, rm, rtol=F32_RTOL, atol=F32_ATOL)
     torch.testing.assert_close(l, rl, rtol=F32_RTOL, atol=F32_ATOL)
     want = (FA.flash_attention_bwd_dq_reference(*args), *FA.flash_attention_bwd_dkv_reference(*args))

@@ -21,12 +21,12 @@ so it is bound by memory traffic and launch latency; at the training shape
 bound by the tensor cores.  The [T, S] matrices never reach device memory:
 the bf16 kernels keep their score tiles in registers (TMA-fed wgmma).  In
 f32, as the JAX package's kernels compute in the input dtype, the forward
-computes every product in f32 FMAs on the CUDA cores; the two backward
-kernels run each product on the tensor cores as three TF32 products
-(`mma.sync` m16n8k8: hi·hi + hi·lo + lo·hi of each operand split into
-hi = tf32(x) and lo = x - hi, which the tensor core reads as TF32; about
-21 bits a product where TF32 alone keeps 11), with the softmax recompute
-and dS in f32; see the sources for the designs.
+and the two backward kernels run each product on the tensor cores as three
+TF32 products (`mma.sync` m16n8k8: hi·hi + hi·lo + lo·hi of each operand
+split into hi = tf32(x) and lo = x - hi, which the tensor core reads as
+TF32; about 21 bits a product where TF32 alone keeps 11, the building
+blocks of `csrc/flash_f32_tf32.cuh`), with the mask, the online softmax
+(or its recompute) and dS in f32; see the sources for the designs.
 
 `flash_attention` goes through `FlashAttention`, which takes a CPU tensor to
 the plain version and a CUDA tensor to the kernel, with no fallback between
@@ -175,7 +175,7 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # keys.  The grids are (B*H, ceil(T / rows)) for K1 and K2 and
 # (B*H or, in f32, B*KV, ceil(S / keys)) for K3.
 BLOCK_ROWS = {torch.bfloat16: {"fwd": 128, "dq": 128, "dkv": 128},
-              torch.float32: {"fwd": 64, "dq": 128, "dkv": 64}}
+              torch.float32: {"fwd": 128, "dq": 128, "dkv": 64}}
 
 
 def _check_fwd(q, k, v, kv_valid):
