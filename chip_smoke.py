@@ -29,7 +29,9 @@ failure:
    S - T starting mid-tile, T > S with dead rows, non-causal, Dh 64, GQA 8:1
    and H = KV, K1, K2 and K3 launched twice and compared bit for bit.  A
    small model's bf16 prefill, and its bf16 training loss and gradient
-   (dense and gmm dispatch), are held against their f32 CPU runs;
+   (dense and gmm dispatch; then with the tiny vision tower on an image
+   batch, with prefix tuning, whose K1 runs over S = T + 10 keys, and with
+   LoRA), are held against their f32 CPU runs;
 3. the paths through the user's entry points, each with the launch
    counters zeroed just before it and read just after:
    - text to music: `UniMoEAudio.text_to_music` at the full width and
@@ -105,6 +107,20 @@ failure:
      straight-through mixer (bf16, beside the closed-form mixer's step
      time) and `save_pretrained` loaded by the port's `UniMoEAudio` (prefill
      codec logits bit for bit);
+   - vision training: `Trainer.fit` at the flagship width cut to 2 layers
+     with the 32-block tower, bf16, on a batch made by the port's data path
+     (two 448 x 448 images through `expand_image_tokens`,
+     `preprocess_supervised` and `video_to_patches`, two text samples
+     through `ConversationDataset`, `Collator`, `prefetch`): the tower
+     trains inside the step; then one step with the tower frozen by
+     `trainable_pattern` and one with `train_vision=False`;
+   - PEFT at the flagship width cut to 2 layers, bf16, on the training
+     batch: one step each of LoRA, prefix tuning (K1 over T + 10 keys) and
+     P-tuning, only the adapters moving; `merge_lora` and a greedy
+     `text_to_music` on the merged model; an f32 witness, card vs CPU, of
+     greedy decoding with the prefix in the cache and with soft prompts;
+     dense→MoE surgery of a dense flagship-width model and one step of the
+     result; expert shards split and merged at ep 2, 4 and 8;
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take (K1 also
    at the training shape, against SDPA with a boolean mask and with
@@ -222,6 +238,29 @@ TRAIN_CORE_K = 2
 TRAIN_RESUME_VS_FLOOR = 4.0
 TRAIN_ACCUM_REL = 1e-3
 TRAIN_MIXER_STEPS = 2
+# Vision training (`run_train_vision`): the flagship width cut to
+# TRAIN_VISION_LAYERS decoder layers with the full 32-block tower, bf16,
+# remat on; a batch of two image samples (seeded TRAIN_VISION_IMAGE x
+# TRAIN_VISION_IMAGE numpy images: grid 1 x 32 x 32, 256 merged tokens
+# each) and two text-only samples, made only by the port's data path;
+# one warm-up and TRAIN_VISION_STEPS timed steps with the tower in the step.
+TRAIN_VISION_LAYERS = 2
+TRAIN_VISION_IMAGE = 448
+TRAIN_VISION_STEPS = 3
+# PEFT (`run_peft`): the flagship width cut to PEFT_LAYERS layers, bf16,
+# the train probe's batch: one LoRA step (rank PEFT_LORA_RANK, alpha
+# PEFT_LORA_ALPHA), one prefix-tuning and one P-tuning step (10 virtual
+# tokens each); the merged LoRA model's greedy text_to_music; the f32
+# witness, card vs CPU, greedy, PEFT_WITNESS_FRAMES frames with the prefix
+# in the cache and with P-tuning's soft prompts: the first decode step's
+# codec logits within PEFT_REF_REL_L2 and at least SERVE_REF_EQUAL_SHARE
+# equal frames; surgery of a dense flagship-width model (F 11008 into
+# experts of 2752 and 1376) and one step of the result; expert shards split
+# and merged at each of PEFT_EP_SIZES, bit for bit.
+PEFT_LAYERS = 2
+PEFT_LORA_RANK, PEFT_LORA_ALPHA = 16, 32.0
+PEFT_WITNESS_FRAMES = 32
+PEFT_EP_SIZES = (2, 4, 8)
 # Extra T2M prefills timed after the main call.
 PREFILL_REPEATS = 3
 # Grouped GEMMs (K4, K4t, K5) vs their plain versions in bf16: both multiply
@@ -385,6 +424,9 @@ SPEC_SECONDS, SPEC_LEN, SPEC_DRAFT_LAYERS = 2.0, 4, 9
 TTFA_TRIALS = 5
 #   The studio: one POST /api/generate of STUDIO_SECONDS of music.
 STUDIO_SECONDS = 1.0
+# The PEFT f32 witness (`run_peft`): the exact f32 path's limit, as the
+# voice-clone and VT2M witnesses hold theirs.
+PEFT_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_f32",
                   "flash_attention_bwd_f32", "grouped_gemm")
@@ -709,6 +751,27 @@ def check_small_prefill() -> None:
           f"{PREFILL_BF16_REL_L2}, and flash <= {PREFILL_FLASH_VS_EINSUM} x einsum)", flush=True)
 
 
+def _small_batch(cfg, B: int, T: int, start: int):
+    """The small training checks' batch, B 4 x T: left pads (0, 100, 17,
+    64), codec placeholders from position `start`, codec labels from there
+    on.  A label is predicted from the row before it, so it is kept only
+    where that row is live too: a fully padded row is 0 through flash and a
+    uniform average through the einsum path, by design."""
+    tc, C = cfg.text_config, cfg.codec_channels
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, tc.vocab_size - 8, size=(B, T))
+    ids[:, start:] = cfg.codec_placeholder_value
+    mask = np.ones((B, T), np.int64)
+    for b, p in enumerate((0, 100, 17, 64)):
+        mask[b, :p] = 0
+    codec = rng.integers(0, cfg.codec_eos_value, size=(B, T, C))
+    live = (mask == 1) & np.concatenate([np.zeros((B, 1), bool), mask[:, :-1] == 1], 1)
+    labels = np.where(live[..., None] & (np.arange(T) >= start)[None, :, None], codec, -100)
+    return {"input_ids": ids, "codec_input_ids": codec, "attention_mask": mask,
+            "codec_labels": labels,
+            "aux_balance_weight": np.where(labels[..., 0] != -100, 10.0, 1.0).astype(np.float32)}
+
+
 def check_small_training() -> None:
     """A 2-layer model with head_dim 128 (input jitter off: the CPU and the
     card draw different noise), one `loss_fn` value and gradient with remat
@@ -726,22 +789,7 @@ def check_small_training() -> None:
                            vocab_size=512, input_jitter_noise=0.0)
     tc = cfg.text_config
     cpu = M.init_model_params(cfg, seed=1, dtype=torch.float32, device="cpu")
-    B, T, C = 4, 128, cfg.codec_channels
-    rng = np.random.default_rng(0)
-    ids = rng.integers(0, tc.vocab_size - 8, size=(B, T))
-    ids[:, 8:] = cfg.codec_placeholder_value
-    mask = np.ones((B, T), np.int64)
-    for b, p in enumerate((0, 100, 17, 64)):
-        mask[b, :p] = 0
-    codec = rng.integers(0, cfg.codec_eos_value, size=(B, T, C))
-    # A label is predicted from the row before it, so it is kept only where
-    # that row is live too: a fully padded row is 0 through flash and a
-    # uniform average through the einsum path, by design.
-    live = (mask == 1) & np.concatenate([np.zeros((B, 1), bool), mask[:, :-1] == 1], 1)
-    labels = np.where(live[..., None] & (np.arange(T) >= 8)[None, :, None], codec, -100)
-    batch = {"input_ids": ids, "codec_input_ids": codec, "attention_mask": mask,
-             "codec_labels": labels,
-             "aux_balance_weight": np.where(labels[..., 0] != -100, 10.0, 1.0).astype(np.float32)}
+    batch = _small_batch(cfg, 4, 128, start=8)
 
     def loss_and_grad(device, dtype, use_flash, dispatch_mode="dense"):
         params = _to(cpu, device=device, dtype=dtype)
@@ -793,6 +841,123 @@ def check_small_training() -> None:
     print(f"reference check: the same through gmm dispatch: loss relative error {g_loss:.3e}, "
           f"gradient relative L2 {g_grad:.3e} (limit {TRAIN_GMM_VS_DENSE} x dense {f_grad:.3e}); "
           f"grouped launches {g_launch}", flush=True)
+
+
+def check_small_vision_peft_training() -> None:
+    """check_small_training's 2-layer model (head_dim 128, input jitter
+    off, B 4 x T 128 with left pads) with the tiny vision tower: one
+    `loss_fn` value and gradient with remat on, in bf16 on the card through
+    the flash kernels, each held against the f32 run on the CPU at
+    TRAIN_LOSS_REL / TRAIN_GRAD_REL_L2: an image batch prepared as
+    `Trainer._prepare_vision_batch` does with train_vision (two images,
+    grids 1 x 8 x 8 and 1 x 4 x 8; the tower's leaves in the gradient);
+    prefix tuning (10 virtual tokens: K1, K2 and K3 launched exactly 2L, L
+    and L times, every K1 over S = T + 10 keys); LoRA on the four attention
+    projections (b drawn, so that every LoRA leaf has a gradient; their
+    gradient held on its own too)."""
+    import types
+
+    import torch
+    from unimoe_audio_torch.config import tiny_test_config
+    from unimoe_audio_torch.models import model as M
+    from unimoe_audio_torch.ops import flash_attention as FA
+    from unimoe_audio_torch.train import lora as LO
+    from unimoe_audio_torch.train import peft as PE
+    from unimoe_audio_torch.train import step as TS
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = tiny_test_config(hidden_size=512, num_attention_heads=4, num_key_value_heads=2,
+                           vocab_size=512, input_jitter_noise=0.0, with_vision=True)
+    tc, vcfg = cfg.text_config, cfg.vision_config
+    L = tc.num_hidden_layers
+    B, T = 4, 128
+    base = M.init_model_params(cfg, seed=1, dtype=torch.float32, device="cpu", with_vision=True)
+    text = _small_batch(cfg, B, T, start=40)
+
+    # The image rows: row 0 (no pads) and row 2 (17 pads), each a vision span
+    # ahead of the codec placeholders.
+    grids = np.array([[1, 8, 8], [1, 4, 8]])
+    m2 = vcfg.spatial_merge_size ** 2
+    img = {k: v.copy() for k, v in text.items()}
+    for b, start, grid in ((0, 1, grids[0]), (2, 19, grids[1])):
+        n = int(grid.prod()) // m2
+        img["input_ids"][b, start] = cfg.vision_start_token_id
+        img["input_ids"][b, start + 1:start + 1 + n] = cfg.image_token_id
+        img["input_ids"][b, start + 1 + n] = cfg.vision_end_token_id
+    patch_dim = vcfg.in_channels * vcfg.temporal_patch_size * vcfg.patch_size ** 2
+    img["pixel_values"] = np.random.default_rng(1).normal(
+        size=(int(grids.prod(1).sum()), patch_dim)).astype(np.float32)
+    img["image_grid_thw"] = grids
+    host = types.SimpleNamespace(cfg=cfg, tcfg=TrainerConfig(), device=torch.device("cpu"),
+                                 state=types.SimpleNamespace(params=base))
+    img = Trainer._prepare_vision_batch(host, img)
+
+    prefix = {**base, "peft": PE.init_prefix_tuning(torch.Generator().manual_seed(2), cfg,
+                                                    device="cpu")}
+    lora = LO.add_lora(base, 3, rank=8, alpha=16.0)
+    gen = torch.Generator().manual_seed(4)
+    for lp in lora["layers"]:
+        for name in LO.DEFAULT_TARGETS:
+            b_ = lp["attn"][name]["lora_b"]
+            lp["attn"][name]["lora_b"] = torch.randn(b_.shape, generator=gen) * 0.02
+
+    shapes = []
+    check_fwd = FA._check_fwd
+
+    def recorded(q, k, v, kv_valid):
+        shapes.append((q.shape[2], k.shape[2]))
+        return check_fwd(q, k, v, kv_valid)
+
+    def loss_and_grad(tree, batch, device, dtype):
+        params = _to(tree, device=device, dtype=dtype)
+        TS.init_train_state(params, TS.make_optimizer())
+        tb = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+        loss, _ = TS.loss_fn(params, cfg, tb, 0, 0.025, remat=True)
+        named = list(TS.named_leaves(params))
+        grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+        flat = [(n, (torch.zeros_like(t) if g is None else g).float().flatten().cpu())
+                for (n, t), g in zip(named, grads)]
+        check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                 for _, g in flat),
+              f"small vision/PEFT training {device} {dtype}: non-finite loss or gradient")
+        return loss.item(), flat
+
+    lines = []
+    for label, tree, batch in (("image batch", base, img), ("prefix tuning", prefix, text),
+                               ("LoRA", lora, text)):
+        ref_loss, ref = loss_and_grad(tree, batch, "cpu", torch.float32)
+        before = (FA.flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+                  FA.flash_attention_bwd_dkv.launches)
+        shapes.clear()
+        FA._check_fwd = recorded
+        try:
+            loss, got = loss_and_grad(tree, batch, "cuda", torch.bfloat16)
+        finally:
+            FA._check_fwd = check_fwd
+        after = (FA.flash_attention.launches, FA.flash_attention_bwd_dq.launches,
+                 FA.flash_attention_bwd_dkv.launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        check(launched == (2 * L, L, L),
+              f"small {label} training did not go through the flash kernels: {launched}")
+        S = T + (PE.N_VIRTUAL_TOKENS if label == "prefix tuning" else 0)
+        check(shapes == [(T, S)] * (2 * L), f"small {label} training: K1 (T, S) {shapes}")
+        rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+        rel_grad = _rel(torch.cat([g for _, g in got]), torch.cat([g for _, g in ref]))
+        check(rel_loss < TRAIN_LOSS_REL and rel_grad < TRAIN_GRAD_REL_L2,
+              f"small {label} training, bf16 card vs f32 CPU: loss {rel_loss}, gradient "
+              f"{rel_grad} (limits {TRAIN_LOSS_REL}, {TRAIN_GRAD_REL_L2})")
+        part = {"image batch": "vision/", "prefix tuning": "peft/", "LoRA": "lora"}[label]
+        sub = [i for i, (n, _) in enumerate(ref) if part in n]
+        sub_rel = _rel(torch.cat([got[i][1] for i in sub]), torch.cat([ref[i][1] for i in sub]))
+        check(all(got[i][1].abs().max() > 0 for i in sub) and sub_rel < TRAIN_GRAD_REL_L2,
+              f"small {label} training: the adapter's or tower's gradient, relative L2 "
+              f"{sub_rel} (limit {TRAIN_GRAD_REL_L2}), or a zero leaf")
+        lines.append(f"{label}: loss {ref_loss:.5f} (f32), relative error {rel_loss:.3e}; "
+                     f"gradient relative L2 {rel_grad:.3e}, of its {len(sub)} "
+                     f"{part.strip('/')} leaves {sub_rel:.3e}; K1 (T, S) {shapes[0]}")
+    print(f"reference check: 2-layer training loss and gradient with the tower and the "
+          f"adapters, bf16 card through K1/K2/K3 ({2 * L}, {L}, {L} launches each) vs f32 CPU "
+          f"(limits {TRAIN_LOSS_REL}, {TRAIN_GRAD_REL_L2}): " + "; ".join(lines), flush=True)
 
 
 def _launch_counts():
@@ -975,6 +1140,11 @@ def _fit_marked(trainer, batch, n: int, **kw):
     """trainer.fit over n copies of batch; returns (history, the host time
     before fit, (time, launch counts) as each batch was taken and at the
     end, each after a synchronise)."""
+    return _fit_marked_iter(trainer, (batch for _ in range(n)), **kw)
+
+
+def _fit_marked_iter(trainer, source, **kw):
+    """_fit_marked over the batches of an iterable."""
     import torch
 
     marks = []
@@ -984,7 +1154,7 @@ def _fit_marked(trainer, batch, n: int, **kw):
         marks.append((time.perf_counter(), _launch_counts()))
 
     def batches():
-        for _ in range(n):
+        for batch in source:
             mark()
             yield batch
 
@@ -1215,6 +1385,332 @@ def run_train_core(card: str) -> dict:
     del tr
     torch.cuda.empty_cache()
     return paths
+
+def _moved(a, b) -> bool:
+    """Whether a tensor of list a differs from its partner in list b."""
+    import torch
+
+    return any(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_train_vision(card: str) -> dict:
+    """Vision training through `Trainer.fit` (TRAIN_VISION_* above): the
+    flagship width cut to TRAIN_VISION_LAYERS decoder layers with the full
+    32-block tower, bf16, remat on.  The batch comes only through the
+    port's data path: two image samples (`expand_image_tokens`,
+    `preprocess_supervised`, patches from `apps/video.video_to_patches` on
+    seeded numpy images), two text-only samples from a `ConversationDataset`
+    over a list of dicts, `Collator(aux_balance_weight=10)` and `prefetch`.
+    One warm-up and TRAIN_VISION_STEPS timed steps with train_vision (the
+    tower in the step, K1/K2/K3 in the decoder): finite losses, the tower's
+    patch embed moved.  Then one step with trainable_pattern
+    r"^(?!vision)" (the tower bit-unchanged, embed_tokens moved) and one
+    with train_vision=False (the tower bit-unchanged, the decoder moved).
+    Returns the launch counts of the timed run."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.apps.video import video_to_patches
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.train import data as D
+    from unimoe_audio_torch.train.step import named_leaves
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    L = TRAIN_VISION_LAYERS
+    cfg = UniMoEAudioConfig(text_config=dataclasses.replace(TextMoEConfig(),
+                                                             num_hidden_layers=L))
+    vcfg = cfg.vision_config
+    tok = D.SimpleTokenizer(vocab_size=cfg.text_config.vocab_size, special={
+        "<|vision_start|>": cfg.vision_start_token_id, "<|vision_end|>": cfg.vision_end_token_id,
+        "<|image_pad|>": cfg.image_token_id})
+    rng = np.random.default_rng(5)
+    m2 = vcfg.spatial_merge_size ** 2
+    samples, grids = [], []
+    for i in range(2):
+        image = rng.uniform(0, 255, size=(1, 3, TRAIN_VISION_IMAGE, TRAIN_VISION_IMAGE))
+        patches, grid = video_to_patches(image.astype(np.float32), patch_size=vcfg.patch_size,
+                                         temporal_patch_size=vcfg.temporal_patch_size,
+                                         merge_size=vcfg.spatial_merge_size)
+        conv = D.expand_image_tokens([{"from": "human", "value": caption(12 + 4 * i)},
+                                      {"from": "gpt", "value": caption(20 + 4 * i)}],
+                                     int(grid.prod()) // m2)
+        sample = D.preprocess_supervised(conv, tok, image_token_index=cfg.image_token_id,
+                                         has_image=True, model_max_length=4096)
+        sample.update(pixel_values=patches, image_grid_thw=grid[None])
+        samples.append(sample)
+        grids.append(grid.tolist())
+    rows = [{"conversations": [{"from": "human", "value": caption(30 + 6 * i)},
+                               {"from": "gpt", "value": caption(40 + 6 * i)}]} for i in range(2)]
+    dataset = D.ConversationDataset(rows, tok, image_token_index=cfg.image_token_id,
+                                    vision_config=vcfg)
+    samples += [dataset[0], dataset[1]]
+    collator = D.Collator(pad_token_id=tok.pad_token_id, aux_balance_weight=10.0)
+    n_steps = 1 + TRAIN_VISION_STEPS
+    batch = collator(samples)
+    B, T = batch["input_ids"].shape
+    n_img = int((batch["input_ids"] == cfg.image_token_id).sum())
+    check(grids == [[1, 32, 32]] * 2 and n_img == 512,
+          f"vision training batch: grids {grids}, {n_img} image tokens")
+
+    params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda", with_vision=True)
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    n_tower = sum(t.numel() for _, t in named_leaves(params["vision"]))
+    pe0 = params["vision"]["patch_embed"].clone()
+    tkw = dict(learning_rate=1e-4, total_steps=100, log_every=1, remat=True)
+    trainer = Trainer(cfg, params, TrainerConfig(warmup_steps=1, **tkw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    history, _, marks = _fit_marked_iter(
+        trainer, D.prefetch(collator(samples) for _ in range(n_steps)))
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = [{k: b[1][k] - a[1][k] for k in a[1] if b[1][k] - a[1][k]}
+                for a, b in zip(marks, marks[1:])]
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv_reduce": L}
+    check(all(p == want for p in per_step), f"vision training launches per step {per_step}, "
+          f"want {want}")
+    losses = [h["loss"] for h in history]
+    check(len(losses) == n_steps and all(np.isfinite(losses))
+          and not any(h["skipped"] for h in history), f"vision training losses {losses}")
+    check(not torch.equal(params["vision"]["patch_embed"], pe0),
+          "vision training: the tower's patch embed did not move")
+    step_s = _durations(marks)[1:]
+    med = float(np.median(step_s))
+    print(f"train vision [{card}]: {L} decoder layers at flagship width with the 32-block "
+          f"tower, {n_params / 1e9:.3f} B params ({n_tower / 1e9:.3f} B in the tower), bf16, "
+          f"remat on; B {B} x T {T} (2 images of grid 1x32x32, {n_img} image tokens, 2 text "
+          f"samples; ConversationDataset, Collator, prefetch); losses "
+          f"{[round(x, 4) for x in losses]}; step times (s) {[round(x, 4) for x in step_s]}, "
+          f"median {med:.4f} s; warm-up step {marks[1][0] - marks[0][0]:.2f} s; peak memory "
+          f"allocated {peak_gb:.2f} GB; launches per step {per_step[0]}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+    def one_step(**extra):
+        tower = [t.clone() for _, t in named_leaves(params["vision"])]
+        emb, q = params["embed_tokens"].clone(), params["layers"][0]["attn"]["q_proj"]["w"].clone()
+        tr = Trainer(cfg, params, TrainerConfig(warmup_steps=0, **tkw, **extra))
+        hist = tr.fit([collator(samples)])
+        check(np.isfinite(hist[0]["loss"]), f"vision training {extra}: loss {hist[0]['loss']}")
+        still = not _moved([t for _, t in named_leaves(params["vision"])], tower)
+        moved = (not torch.equal(params["embed_tokens"], emb),
+                 not torch.equal(params["layers"][0]["attn"]["q_proj"]["w"], q))
+        del tr
+        torch.cuda.empty_cache()
+        return still, moved
+
+    still, (emb_moved, _) = one_step(trainable_pattern=r"^(?!vision)")
+    check(still and emb_moved, f"vision training, pattern ^(?!vision): tower unchanged {still}, "
+          f"embed_tokens moved {emb_moved}")
+    still_f, (_, q_moved) = one_step(train_vision=False)
+    check(still_f and q_moved, f"vision training, train_vision=False: tower unchanged {still_f},"
+          f" decoder moved {q_moved}")
+    print(f"train vision [{card}]: one step with trainable_pattern ^(?!vision): the tower "
+          f"bit-unchanged, embed_tokens moved; one step with train_vision=False (the tower's "
+          f"features fused outside the step): the tower bit-unchanged, the decoder moved",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_peft(card: str) -> dict:
+    """PEFT, surgery and resharding at the flagship width (PEFT_* above):
+    one LoRA step (trainable "lora": only LoRA leaves move, the base stays
+    bit-unchanged), one prefix-tuning step (every K1 over S = T + 10 keys)
+    and one P-tuning step (T + 10 queries), trainable "peft", bf16 on the
+    train probe's batch; the LoRA merged into the base and a short greedy
+    text_to_music on it; the f32 witness, card vs CPU, with the prefix in
+    the cache and with P-tuning's soft prompts; surgery of a dense model and
+    one step of the result; expert shards split and merged.  Returns the
+    launch counts of the three adapter steps."""
+    import copy
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.ops import flash_attention as FA
+    from unimoe_audio_torch.train import peft as PE
+    from unimoe_audio_torch.train.lora import add_lora, merge_lora
+    from unimoe_audio_torch.train.resharding import merge_expert_shards, split_expert_shards
+    from unimoe_audio_torch.train.step import named_leaves
+    from unimoe_audio_torch.train.surgery import moeify_dense_params
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    L = PEFT_LAYERS
+    tc = dataclasses.replace(TextMoEConfig(), num_hidden_layers=L)
+    cfg = UniMoEAudioConfig(text_config=tc, vision_config=None)
+    batch = probe_batch(cfg)
+    n_virtual = PE.N_VIRTUAL_TOKENS
+    tkw = dict(learning_rate=1e-4, warmup_steps=0, total_steps=100, log_every=1, remat=True)
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv_reduce": L}
+    base = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    base_names = [n for n, _ in named_leaves(base)]
+    frozen = [t.clone() for _, t in named_leaves(base)]
+    shapes = []
+    check_fwd = FA._check_fwd
+
+    def recorded(q, k, v, kv_valid):
+        shapes.append((q.shape[2], k.shape[2]))
+        return check_fwd(q, k, v, kv_valid)
+
+    def adapter_step(params, pattern, label):
+        before = [t.clone() for n, t in named_leaves(params) if pattern in n]
+        tr = Trainer(cfg, params, TrainerConfig(trainable_pattern=pattern, **tkw))
+        counts = _launch_counts()
+        shapes.clear()
+        FA._check_fwd = recorded
+        try:
+            hist, _, marks = _fit_marked(tr, batch, 1)
+        finally:
+            FA._check_fwd = check_fwd
+        got = {k: v - counts[k] for k, v in _launch_counts().items() if v - counts[k]}
+        check(got == per_step, f"{label}: launches {got}, want {per_step}")
+        check(np.isfinite(hist[0]["loss"]) and not hist[0]["skipped"],
+              f"{label}: loss {hist[0]['loss']}")
+        check(not _moved([t for n, t in named_leaves(params) if n in base_names], frozen),
+              f"{label}: a base parameter moved under trainable_pattern {pattern!r}")
+        after = [t for n, t in named_leaves(params) if pattern in n]
+        n_moved = sum(not torch.equal(a, b) for a, b in zip(after, before))
+        check(n_moved > 0, f"{label}: no adapter leaf moved")
+        del tr
+        torch.cuda.empty_cache()
+        return hist[0]["loss"], _durations(marks)[0], n_moved, len(before), list(shapes)
+
+    _zero_launch_counts()
+    lora = add_lora(base, 1, rank=PEFT_LORA_RANK, alpha=PEFT_LORA_ALPHA)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prefix = {**base, "peft": PE.init_prefix_tuning(gen, cfg, device="cuda")}
+    ptuning = {**base, "peft": PE.init_p_tuning(gen, cfg, device="cuda")}
+    results = {label: adapter_step(p, pattern, label) for label, p, pattern in (
+        ("LoRA", lora, "lora"), ("prefix tuning", prefix, "peft"), ("P-tuning", ptuning, "peft"))}
+    launches = _launch_counts()
+    T = TRAIN_T
+    check(results["prefix tuning"][4] == [(T, T + n_virtual)] * (2 * L)
+          and results["P-tuning"][4] == [(T + n_virtual, T + n_virtual)] * (2 * L)
+          and results["LoRA"][4] == [(T, T)] * (2 * L),
+          f"PEFT: K1 (T, S) {[r[4] for r in results.values()]}")
+    print(f"train peft [{card}]: {L} layers at flagship width, bf16, B {TRAIN_B} x T {T}, remat "
+          f"on, one step each (trainable lora / peft; the base bit-unchanged): " + "; ".join(
+              f"{k}: loss {r[0]:.5f}, step {r[1]:.4f} s, {r[2]} of {r[3]} adapter leaves moved, "
+              f"K1 (T, S) {r[4][0]}" for k, r in results.items())
+          + f"; launches per step {per_step}", flush=True)
+    del prefix, ptuning
+    torch.cuda.empty_cache()
+
+    # The merged LoRA model serves.
+    with tempfile.TemporaryDirectory() as out_dir:
+        model = UniMoEAudio(allow_random=True, config=cfg, device="cuda", dtype=torch.bfloat16)
+        model.params = merge_lora(lora)
+        check(all("lora_a" not in lp["attn"]["q_proj"] for lp in model.params["layers"]),
+              "merge_lora left a factor")
+        t0 = time.perf_counter()
+        paths = model.text_to_music(caption(58), output_dir=out_dir, seed=0, do_sample=False,
+                                    max_audio_seconds=1.0, min_audio_seconds=0.5)
+        merged_s = time.perf_counter() - t0
+        frames = model.last_timings["lengths"][0]
+        _check_wavs(paths, [frames], model.dac.config.hop_length, model.dac.config.sample_rate,
+                    "merged LoRA text_to_music")
+    print(f"train peft [{card}]: merge_lora, then greedy text_to_music on the merged model "
+          f"(bf16, T_text {model.last_timings['T_text']}): {frames} frames in {merged_s:.2f} s",
+          flush=True)
+    del lora, base, frozen
+    torch.cuda.empty_cache()
+
+    # The f32 witness, card vs CPU.
+    f32 = init_model_params(cfg, seed=3, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    adapters = {"prefix": PE.init_prefix_tuning(gen, cfg, device="cuda"),
+                "ptuning": PE.init_p_tuning(gen, cfg, device="cuda")}
+    text = caption(58)
+    # PEFT_WITNESS_FRAMES audio frames: the budget's last max_delay + 1 frames
+    # flush the delay pattern (half a frame keeps int(seconds * 50) exact).
+    seconds = (PEFT_WITNESS_FRAMES + cfg.max_delay + 1.5) / 50
+    lines = []
+    for mode, peft in adapters.items():
+        runs = []
+        for device in ("cuda", "cpu"):
+            ref = copy.copy(model)
+            ref.device, ref.dac = torch.device(device), None
+            ref.params = {**f32, "peft": peft} if device == "cuda" else \
+                _to({**f32, "peft": peft}, device="cpu")
+            with tempfile.TemporaryDirectory() as out_dir, first_decode_logits() as logits:
+                ref.text_to_music(text, output_dir=out_dir, seed=0, do_sample=False,
+                                  max_audio_seconds=seconds, min_audio_seconds=seconds)
+            runs.append((ref.last_codes[0], ref.last_timings["T_text"], logits[0]))
+            del ref
+        (card_codes, T_text, card_logits), (cpu_codes, _, cpu_logits) = runs
+        err = _rel(card_logits, cpu_logits)
+        share = _equal_frame_share([(card_codes, len(card_codes), cpu_codes, len(cpu_codes))], 0)
+        check(err < PEFT_REF_REL_L2 and share >= SERVE_REF_EQUAL_SHARE
+              and len(card_codes) == len(cpu_codes) == PEFT_WITNESS_FRAMES,
+              f"PEFT f32 witness ({mode}): first decode logits relative L2 {err}, equal frames "
+              f"{share}, frames {len(card_codes)} / {len(cpu_codes)}")
+        lines.append(f"{mode}: T_text {T_text}, first decode step's codec logits relative L2 "
+                     f"{err:.3e}, {len(card_codes)} frames, equal {share:.4f}")
+    print(f"reference check [{card}]: PEFT f32 witness, {L} layers at flagship width, greedy "
+          f"text_to_music, card vs CPU (limits {PEFT_REF_REL_L2} and {SERVE_REF_EQUAL_SHARE} "
+          f"equal frames): " + "; ".join(lines), flush=True)
+    del f32, adapters, model
+    torch.cuda.empty_cache()
+
+    # Surgery: a dense flagship-width model into DCMoE experts, one step.
+    dense = init_model_params(cfg, seed=5, dtype=torch.bfloat16, device="cuda")
+    D, F = tc.hidden_size, tc.intermediate_size
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for lp in dense["layers"]:
+        del lp["moe"]
+        lp["mlp"] = {k: torch.randn(*shape, generator=gen, device="cuda").mul_(
+                         shape[0] ** -0.5).to(torch.bfloat16)
+                     for k, shape in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D)))}
+    t0 = time.perf_counter()
+    moe = moeify_dense_params(dense, tc, moe_copy="all")
+    torch.cuda.synchronize()
+    surgery_s = time.perf_counter() - t0
+    Fd, Fs = tc.dynamic_intermediate_size, tc.shared_intermediate_size
+    ok = all("mlp" in lp and "moe" not in lp for lp in dense["layers"])
+    for lp, mp in zip(dense["layers"], moe["layers"]):
+        m = mp["moe"]
+        ok &= m["gate"].dtype == torch.float32 and m["gate"].shape == (D, tc.num_experts)
+        for e in range(tc.mlp_dynamic_expert_num):
+            off = (e * Fd) % F
+            ok &= torch.equal(m["dynamic"]["up"][e], lp["mlp"]["up"][:, off:off + Fd])
+            ok &= torch.equal(m["dynamic"]["down"][e], lp["mlp"]["down"][off:off + Fd])
+        ok &= all(torch.equal(m["fixed"]["gate"][j], lp["mlp"]["gate"][:, :Fs])
+                  for j in range(tc.mlp_fixed_expert_num))
+    check(bool(ok), "surgery: expert slices, the f32 gate or the untouched input differ")
+    del dense
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, moe, TrainerConfig(**tkw))
+    counts = _launch_counts()
+    hist, _, marks = _fit_marked(tr, batch, 1)
+    got = {k: v - counts[k] for k, v in _launch_counts().items() if v - counts[k]}
+    check(got == per_step and np.isfinite(hist[0]["loss"]),
+          f"surgered model's step: launches {got}, loss {hist[0]['loss']}")
+    _set_launch_counts(counts)
+    del tr
+    splits = {}
+    for ep in PEFT_EP_SIZES:
+        shards = split_expert_shards(moe, ep)
+        back = merge_expert_shards(shards)
+        splits[ep] = all(torch.equal(b[k], lp["moe"]["dynamic"][k])
+                         for b, lp in zip(back, moe["layers"]) for k in b)
+        check(len(shards) == ep and splits[ep], f"expert shards at ep {ep} do not round-trip")
+    print(f"train peft [{card}]: surgery of a dense {L}-layer flagship-width model (F {F} into "
+          f"{tc.mlp_dynamic_expert_num} dynamic experts of {Fd} at rotating offsets, "
+          f"{tc.mlp_fixed_expert_num} fixed of {Fs}, a fresh f32 gate) in {surgery_s:.2f} s; "
+          f"one step of the result: loss {hist[0]['loss']:.5f}, {_durations(marks)[0]:.4f} s; "
+          f"expert shards split and merged bit for bit at ep {list(splits)}", flush=True)
+    del moe
+    torch.cuda.empty_cache()
+    return launches
+
 
 def run_slice(card: str, out_dir: str):
     """The flagship text-to-music path, wavs into out_dir; returns
@@ -3816,8 +4312,9 @@ def main() -> None:
     check_flash_bwd(2, 4, 4, 256, 256, 128, (0, 33), True, seed=21)
     grouped_errs = check_grouped_all()
     check_small_training()
+    check_small_vision_peft_training()
     torch.cuda.empty_cache()
-    stamp("training-shape kernel checks and the small training check")
+    stamp("training-shape kernel checks and the small training checks")
     # The f32 kernels at the same shapes: the prefill and training shapes,
     # tile edges (K1 and K2: 128 query rows, 32-key tiles; K3: 64 keys,
     # 64-row query tiles), pads, S > T, T > S, non-causal, Dh 64, H = KV.
@@ -3869,6 +4366,10 @@ def main() -> None:
     stamp("gmm training")
     core_launches = run_train_core(card)
     stamp("the training core (resume, accumulation, mixer, export)")
+    vision_train_launches = run_train_vision(card)
+    stamp("vision training")
+    peft_launches = run_peft(card)
+    stamp("PEFT, surgery and resharding")
     f32_recs = time_flash_f32(t2m_mask, f32_errs, card)
     torch.cuda.empty_cache()
     stamp("f32 kernel timing")
@@ -3879,7 +4380,8 @@ def main() -> None:
     paths = {"t2m": t2m_launches, "tts": tts_launches, "t2m_stream": stream_launches,
              "vt2m": vt2m_launches, **serving_launches, "t2m_gmm": gmm_t2m_launches,
              **quant_launches,
-             "train": train_launches, "train_gmm": gmm_train_launches, **core_launches}
+             "train": train_launches, "train_gmm": gmm_train_launches, **core_launches,
+             "train_vision": vision_train_launches, "train_peft": peft_launches}
     for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -3890,6 +4392,10 @@ def main() -> None:
             rec["launches_by_config"] = {
                 c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}
                 for c in ("small", "large")}
+    for path in ("train_vision", "train_peft"):
+        check(all(paths[path][k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                                  "flash_attention_bwd_dkv")),
+              f"K1, K2 or K3 not launched on the {path} path: {paths[path]}")
     check(all(r["launches"] > 0 for r in f32_recs),
           f"an f32 kernel was not launched on any path: {[r['name'] for r in f32_recs]}")
     check(all(r["launches"] > 0 for r in grouped_recs),

@@ -94,8 +94,8 @@ def test_default_device_is_cuda(tmp_path, capsys):
 def test_unported_options_raise():
     """A directory without weights raises FileNotFoundError, as in the JAX
     package; without a model_path random weights must be asked for;
-    unknown serving modes and cache types are errors; PEFT params come with
-    a later slice."""
+    unknown serving modes and cache types are errors; PEFT params load
+    (tests/test_torch_peft.py generates with them)."""
     with pytest.raises(FileNotFoundError):
         UniMoEAudio("/nonexistent", allow_random=True, device="cpu")
     with pytest.raises(ValueError):
@@ -104,9 +104,11 @@ def test_unported_options_raise():
         UniMoEAudio(allow_random=True, device="cpu", serving_mode="int3")
     with pytest.raises(ValueError):
         UniMoEAudio(allow_random=True, device="cpu", kv_cache_dtype="fp8")
-    cfg = tiny_test_config()
-    with pytest.raises(NotImplementedError, match="PEFT"):
-        params_from_jax({"peft": {}, "layers": {}}, cfg, "cpu")
+    cfg = tiny_test_config(num_hidden_layers=1)
+    tree = {"peft": {"prompt": {"embed": np.ones((2, 3), np.float32)}},
+            "layers": {"input_layernorm": np.ones((1, 4), np.float32)}}
+    got = params_from_jax(tree, cfg, "cpu")
+    assert torch.equal(got["peft"]["prompt"]["embed"], torch.ones(2, 3))
 
 
 def test_port_imports_no_jax():

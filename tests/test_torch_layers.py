@@ -144,6 +144,5 @@ def test_unported_modes_raise(setup):
     cfg, _, tp = setup
     x = torch.zeros(1, 1, cfg.hidden_size)
     cos = sin = torch.zeros(1, 1, cfg.head_dim)
-    for kw in ({"prefix_kv": (1, 1)}, {"ring": (1, 1)}):
-        with pytest.raises(NotImplementedError):
-            TL.attention(tp, x, cos, sin, cfg, **kw)
+    with pytest.raises(NotImplementedError):
+        TL.attention(tp, x, cos, sin, cfg, ring=(1, 1))

@@ -344,8 +344,10 @@ def test_trainer_fit_gmm_matches_jax(setup):
 
 def test_trainer_defaults_to_cuda_and_refuses_later_slices(setup):
     """Without a card the trainer refuses the default device; ring
-    attention and vision batches (later slices) raise.  Checkpoints, gradient
-    accumulation and save_pretrained run: tests/test_torch_train_core.py."""
+    attention (a later slice) raises, and so does an image batch for a model
+    without a vision tower.  Checkpoints, gradient accumulation and
+    save_pretrained run: tests/test_torch_train_core.py; vision batches:
+    tests/test_torch_train_vision.py."""
     cfg, _, tree = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -353,8 +355,9 @@ def test_trainer_defaults_to_cuda_and_refuses_later_slices(setup):
     with pytest.raises(NotImplementedError):
         Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(ring_axis="seq"), device="cpu")
     tr = Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tr.fit([{**_batch(cfg, seed=0), "pixel_values": np.zeros((4, 8), np.float32)}])
+    with pytest.raises(ValueError, match="vision tower"):
+        tr.fit([{**_batch(cfg, seed=0), "pixel_values": np.zeros((4, 8), np.float32),
+                 "image_grid_thw": np.array([[1, 2, 2]])}])
 
 
 def test_collator_matches_jax():

@@ -31,6 +31,7 @@ from .config import UniMoEAudioConfig, tiny_test_config
 from .generate.loop import _sync, generate, generate_chunked, pad_buffer
 from .models.model import align_codec_ids, init_model_params
 from .tokenizer import SimpleTokenizer
+from .train.peft import prefix_kv, virtual_embeds
 
 SERVING_MODES = (False, True, "int8", "int4", "int4-gptq")
 
@@ -406,10 +407,37 @@ class UniMoEAudio:
         with rebuild_codec [T, C] its decode is written once per stream as
         `rebuild_{save_name}_{i}.wav`.  Keeps the per-stream codes [T_i, C]
         in `self.last_codes` and fills `self.last_timings` with the device-
-        synchronised seconds of the prefill, the decode and the DAC."""
+        synchronised seconds of the prefill, the decode and the DAC.
+
+        PEFT adapters in `params["peft"]` act here as in training
+        (`api.py:430-460`): prefix tuning's keys and values go into the
+        cache ahead of the prompt; prompt and P-tuning prepend n soft tokens
+        to every row (id 0, mask 1), carried through the loop's
+        visual_embeds scatter; with explicit vision positions they are
+        refused."""
         cfg = self.config
         max_tokens = max_tokens if max_tokens is not None else self.MAX_TOKENS
         min_tokens = min_tokens if min_tokens is not None else self.MIN_TOKENS
+        peft_prefix = None
+        if "peft" in self.params:
+            peft_prefix = prefix_kv(self.params["peft"], cfg)
+            virt = virtual_embeds(self.params["peft"])
+            if virt is not None:
+                assert prefill_position_ids is None, (
+                    "soft-prompt adapters with explicit vision positions are not supported yet")
+                n, R = virt.shape[0], input_ids.shape[0]
+                input_ids = np.concatenate([np.zeros((R, n), input_ids.dtype), input_ids], 1)
+                attention_mask = np.concatenate(
+                    [np.ones((R, n), attention_mask.dtype), attention_mask], 1)
+                ve = torch.zeros(*input_ids.shape, virt.shape[-1], dtype=torch.float32,
+                                 device=self.device)
+                vm = torch.zeros(input_ids.shape, dtype=torch.int32, device=self.device)
+                ve[:, :n] = virt.float()
+                vm[:, :n] = 1
+                if visual_embeds is not None:
+                    ve[:, n:] = torch.as_tensor(visual_embeds, device=self.device).float()
+                    vm[:, n:] = torch.as_tensor(visual_mask, device=self.device)
+                visual_embeds, visual_mask = ve, vm
         batch_size = input_ids.shape[0] // 2
         prefill, prefill_steps = dl.prepare_audio_prompt(
             [None] * batch_size, num_channels=cfg.codec_channels,
@@ -442,7 +470,7 @@ class UniMoEAudio:
             temperature=temperature, top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
             eos_prob_mul_factor=eos_prob_mul_factor, do_sample=do_sample, timings=timings,
             decode_emit=decode_emit, max_tokens_vec=max_tokens_vec, sample_seeds=sample_seeds,
-            **kw,
+            prefix_kv=peft_prefix, **kw,
         )
         codes = res.codes.cpu().numpy()
         lengths = res.lengths.cpu().numpy()

@@ -10,7 +10,7 @@ the request batcher (`--requests`) or through the continuous slot server
 
 Runs on the first CUDA card; `--cpu` runs on the CPU.  Expert and tensor
 parallel serving (`--ep-size`, `--tp-size` above 1) and the multihost
-arguments come with the parallel slice (ROADMAP §1 item 8).
+arguments come with the parallel slice (ROADMAP §1 item 3).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ def build_server(model_path: Optional[str], *, ep_size: int = 1, tp_size: int = 
     if ep_size * tp_size > 1:
         raise NotImplementedError(
             f"ep_size={ep_size}, tp_size={tp_size}: serving on a device mesh comes with the "
-            "parallel slice (ROADMAP §1 item 8); the port serves on one card")
+            "parallel slice (ROADMAP §1 item 3); the port serves on one card")
     return UniMoEAudio(
         model_path, allow_random=allow_random, config=config, tokenizer=tokenizer,
         max_tokens=max_tokens, min_tokens=min_tokens, serving_mode=quantize,

@@ -87,9 +87,9 @@ def params_from_jax(tree: Dict, cfg: UniMoEAudioConfig, device="cuda",
     `layers` as a list of per-layer dicts.  dtype=None keeps each leaf's
     dtype; otherwise floating leaves are cast to dtype.  The vision tower
     (`"vision"`, its blocks a list in both packages) is copied as it is,
-    QTensor leaves included."""
-    if "peft" in tree:
-        raise NotImplementedError("PEFT params come with the PEFT slice")
+    QTensor leaves included.  So are a dense model's `layers.mlp`, LoRA
+    factors (`lora_a [L, din, r]`, `lora_b [L, r, dout]`, `lora_scale [L]`,
+    one layer's slice per dict) and the PEFT adapters (`"peft"`)."""
     out = to_torch({k: v for k, v in tree.items() if k != "layers"}, device, dtype)
     stacked = to_torch(tree["layers"], device, dtype, "/layers")
     L = stacked["input_layernorm"].shape[0]

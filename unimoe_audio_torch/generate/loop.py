@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import UniMoEAudioConfig
-from ..models.layers import KVCache
+from ..models.layers import KVCache, quantize_kv
 from ..models.model import (
     calculate_input_embedding,
     codec_embedding,
@@ -101,6 +101,7 @@ def generate(
     decode_start=None,                                    # [B] first valid decode slot
     start_step: Optional[int] = None,
     seed_step_offset=None,                                # [B]
+    prefix_kv=None,                                       # ([L, n, KV, Dh], same)
 ):
     """Prefill + decode loop (`generate_jit`, `loop.py:66-453`).  Resumes
     from `resume_state` (skipping the prefill) and pauses at `stop_at`, so
@@ -139,7 +140,15 @@ def generate(
     not); decode_start [B] masks cache slots below it for the sample's
     decode steps (a row admitted into a running batch has an unwritten
     gap there); start_step overrides min(prefill_steps) - 1 as the decode
-    origin."""
+    origin.
+
+    prefix_kv (prefix tuning, `train/peft.prefix_kv`): the learned keys and
+    values go into cache slots [0, n) of every row, in the cache's dtype
+    (quantized on write into an int8 cache), always attendable; the prompt
+    takes slots [n, n + T_text) and every position shifts by n.  The
+    prefill then runs at cache_position n, through the cache arithmetic,
+    not flash: the fresh window would miss the prefix (`loop.py:136-142,
+    195-243`)."""
     tc = cfg.text_config
     dev = input_ids.device
     B2, T_text = input_ids.shape
@@ -149,7 +158,8 @@ def generate(
     eos, pad = cfg.codec_eos_value, cfg.codec_pad_value
     delay = torch.tensor(cfg.codec_delay_pattern, dtype=torch.int32, device=dev)
     max_delay = cfg.max_delay
-    T_total = cache_len if cache_len is not None else T_text + max_tokens + 2
+    n_pre = 0 if prefix_kv is None else prefix_kv[0].shape[1]
+    T_total = cache_len if cache_len is not None else n_pre + T_text + max_tokens + 2
     steps_np = np.asarray(prefill_steps, dtype=np.int64).reshape(-1)
     prefill_steps_t = torch.as_tensor(steps_np, device=dev)
 
@@ -189,15 +199,28 @@ def generate(
         cache = KVCache.create(tc.num_hidden_layers, B2, T_total, tc.num_key_value_heads,
                                tc.head_dim, device=dev,
                                dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
+        if n_pre:
+            shape = (tc.num_hidden_layers, n_pre, B2) + tuple(prefix_kv[0].shape[2:])
+            pk, pv = (t[:, :, None].expand(shape) for t in prefix_kv)
+            if cache.quantized:
+                (qk, sk), (qv, sv) = quantize_kv(pk), quantize_kv(pv)
+                cache.k[:, :n_pre], cache.v[:, :n_pre] = qk, qv
+                cache.k_scale[:, :n_pre], cache.v_scale[:, :n_pre] = sk, sv
+            else:
+                cache.k[:, :n_pre] = pk.to(cache.k.dtype)
+                cache.v[:, :n_pre] = pv.to(cache.v.dtype)
+            position_ids = position_ids + n_pre
         kv_valid = torch.cat(
-            [attention_mask, torch.zeros(B2, T_total - T_text, dtype=torch.int32, device=dev)],
-            dim=-1)
-        # The prefill writes cache slots [0, T_text), so attending over the
-        # fresh window equals attending over the cache: flash is exact here.
-        prefill_flash = T_text >= 128 and input_ids.is_cuda and not tc.has_sliding_layers
+            [torch.ones(B2, n_pre, dtype=torch.int32, device=dev), attention_mask,
+             torch.zeros(B2, T_total - n_pre - T_text, dtype=torch.int32, device=dev)], dim=-1)
+        # Without a prefix the prefill writes cache slots [0, T_text), so
+        # attending over the fresh window equals attending over the cache:
+        # flash is exact there.
+        prefill_flash = (T_text >= 128 and n_pre == 0 and input_ids.is_cuda
+                         and not tc.has_sliding_layers)
         text_model_forward(
             params, inputs_embeds, position_ids, tc,
-            kv_cache=cache, cache_position=0, kv_valid_mask=kv_valid,
+            kv_cache=cache, cache_position=n_pre, kv_valid_mask=kv_valid,
             padding_token_mask=attention_mask,
             use_flash=True if prefill_flash else None,
             dispatch_mode=dispatch_mode, capacity=prefill_capacity,
@@ -211,7 +234,8 @@ def generate(
             finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
             guidance_loss=torch.zeros((), dtype=torch.float32, device=dev),
             guidance_count=torch.zeros((), dtype=torch.int32, device=dev),
-            pos_base=decode_position_base(attention_mask.sum(dim=-1), T_text, rope_deltas),
+            pos_base=decode_position_base(attention_mask.sum(dim=-1), T_text,
+                                          rope_deltas) + n_pre,
         )
         if timings is not None:
             _sync(dev)
@@ -221,14 +245,15 @@ def generate(
         assert state.cache.k.shape[1] == T_total, "resume cache length must match cache_len"
         if rope_deltas is not None:
             state.pos_base = decode_position_base(attention_mask.sum(dim=-1), T_text,
-                                                  rope_deltas)
+                                                  rope_deltas) + n_pre
 
     if timings is not None:
         _sync(dev)
         t1 = time.perf_counter()
     stop_step = max_tokens if stop_at is None else min(stop_at, max_tokens)
     key_idx = torch.arange(T_total, device=dev)[None, :]
-    text_valid = F.pad(attention_mask, (0, T_total - T_text), value=1)
+    # Prefix slots are always attendable.
+    text_valid = F.pad(attention_mask, (n_pre, T_total - n_pre - T_text), value=1)
     ch = torch.arange(C, device=dev)[None, :, None]
     ch_weight = torch.where(torch.arange(C, device=dev) == 0, 3.0, 1.0)[None, :]   # [1, C]
 
@@ -237,7 +262,7 @@ def generate(
         dec_step = s.dec_step
         current_step = dec_step + 1
         rel = dec_step - start_step
-        cache_pos = T_text + rel
+        cache_pos = n_pre + T_text + rel
 
         tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
         emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
@@ -245,7 +270,7 @@ def generate(
         decode_ok = key_idx <= cache_pos
         if dstart_2B is not None:
             decode_ok = decode_ok & (key_idx >= dstart_2B)
-        kv_valid = torch.where(key_idx < T_text, text_valid, decode_ok.to(torch.int32))
+        kv_valid = torch.where(key_idx < n_pre + T_text, text_valid, decode_ok.to(torch.int32))
         out = text_model_forward(
             params, emb, position_ids, tc,
             kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
@@ -376,9 +401,11 @@ def generate_chunked(
     return_state = kwargs.pop("return_state", False)
     start = kwargs.get("start_step")
     start = int(np.min(np.asarray(prefill_steps))) - 1 if start is None else int(start)
+    pkv = kwargs.get("prefix_kv")
+    n_pre = 0 if pkv is None else pkv[0].shape[1]
 
     def bucket(n_frames: int) -> int:
-        return -(-(T_text + n_frames + 2) // chunk_frames) * chunk_frames
+        return -(-(n_pre + T_text + n_frames + 2) // chunk_frames) * chunk_frames
 
     state = None
     stop = start + chunk_frames

@@ -164,10 +164,15 @@ def attention(
     cache_scales: the int8 cache's per-layer (k_scale, v_scale); they scale
     the f32 scores and the probabilities (`layers.py:236-258, 360-388`).
 
+    prefix_kv: per-layer prefix-tuning (k, v), each [n, KV, Dh], post-RoPE
+    (`train/peft.py`).  In the no-cache path they go ahead of the fresh
+    keys and values, attendable by every row: the window is n + T keys, the
+    query row t sits at key n + t, and flash runs with S = n + T
+    (`layers.py:191-203`).  With a cache they are ignored: the generate loop
+    writes them into slots [0, n).
+
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
-    if prefix_kv is not None:
-        raise NotImplementedError("prefix-tuning KV comes with the PEFT slice")
     if ring is not None:
         raise NotImplementedError("ring attention comes with the parallel slice")
 
@@ -180,6 +185,15 @@ def attention(
     k = (proj_matmul(x, params["k_proj"]) + params["k_proj"]["b"]).reshape(B, T, KV, Dh)
     v = (proj_matmul(x, params["v_proj"]) + params["v_proj"]["b"]).reshape(B, T, KV, Dh)
     q, k = apply_rope(q, k, cos, sin)
+
+    if prefix_kv is not None and cache_kv is None:
+        pk, pv = prefix_kv
+        n_pre = pk.shape[0]
+        k = torch.cat([pk[None].to(k.dtype).expand(B, n_pre, KV, Dh), k], dim=1)
+        v = torch.cat([pv[None].to(v.dtype).expand(B, n_pre, KV, Dh), v], dim=1)
+        if kv_valid_mask is not None:
+            kv_valid_mask = torch.cat([torch.ones(B, n_pre, dtype=kv_valid_mask.dtype,
+                                                  device=kv_valid_mask.device), kv_valid_mask], 1)
 
     if decode_emit:
         assert T == 1 and cache_kv is not None and kv_valid_mask is not None
@@ -218,9 +232,10 @@ def attention(
     if use_flash and T > 1 and causal:
         from ..ops.flash_attention import flash_attention
 
+        S_win = k.shape[1]                       # T, or n + T with prefix keys
         window_valid = (
-            kv_valid_mask[:, :T].to(torch.int32).contiguous() if kv_valid_mask is not None
-            else torch.ones(B, T, dtype=torch.int32, device=x.device))
+            kv_valid_mask[:, :S_win].to(torch.int32).contiguous() if kv_valid_mask is not None
+            else torch.ones(B, S_win, dtype=torch.int32, device=x.device))
         out = flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), window_valid, causal=True,

@@ -70,6 +70,7 @@ def text_model_forward(
     capacity: Optional[int] = None,
     output_moe_inputs: bool = False,
     decode_emit: Optional[bool] = None,
+    prefix_kv=None,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
     the final RMSNorm (`model.py:55-266`).
@@ -94,6 +95,9 @@ def text_model_forward(
     commit included (`model.py:225-241`).  `output_moe_inputs` returns each
     layer's DCMoE block input (the post-attention RMSNorm output) in f32,
     the calibration statistic of GPTQ (`model.py:193-197`).
+
+    prefix_kv: prefix-tuning (k, v), each [L, n, KV, Dh]; layer i attends
+    over its slice ahead of its keys (no-cache path, `model.py:144-162`).
     """
     if cfg.has_sliding_layers:
         raise NotImplementedError("sliding-window layers are not ported yet")
@@ -110,7 +114,7 @@ def text_model_forward(
         slots = torch.arange(kv_cache.k.shape[1], device=kv_valid_mask.device)
         layer_mask = kv_valid_mask * (slots[None, :] != cache_position).to(kv_valid_mask.dtype)
 
-    def layer(i: int, lp: Dict, h: torch.Tensor):
+    def layer(i: int, lp: Dict, h: torch.Tensor, pre_k=None, pre_v=None):
         residual = h
         hn = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
         attn_out, new_kv = attention(
@@ -121,6 +125,7 @@ def text_model_forward(
             kv_valid_mask=layer_mask,
             use_flash=use_flash,
             decode_emit=decode_emit,
+            prefix_kv=(pre_k, pre_v) if pre_k is not None else None,
         )
         if decode_emit:
             # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot).
@@ -145,10 +150,11 @@ def text_model_forward(
     h = inputs_embeds
     aux, top_k, moe_inputs = [], [], []
     for i, lp in enumerate(params["layers"]):
+        pre = (prefix_kv[0][i], prefix_kv[1][i]) if prefix_kv is not None else ()
         if remat and torch.is_grad_enabled():
-            h, aux_i, top_k_i, moe_in = checkpoint(layer, i, lp, h, use_reentrant=False)
+            h, aux_i, top_k_i, moe_in = checkpoint(layer, i, lp, h, *pre, use_reentrant=False)
         else:
-            h, aux_i, top_k_i, moe_in = layer(i, lp, h)
+            h, aux_i, top_k_i, moe_in = layer(i, lp, h, *pre)
         aux.append(aux_i)
         top_k.append(top_k_i)
         moe_inputs.append(moe_in)
@@ -336,6 +342,7 @@ def model_forward(
     use_flash: Optional[bool] = None,
     dispatch_mode: str = "dense",
     capacity: Optional[int] = None,
+    prefix_kv=None,                                      # ([L, n, KV, Dh], same)
 ) -> ModelOutput:
     """Full-model forward without a cache — the training / eval path
     (`model.py:432-567`): input embedding with the codec scatter, the
@@ -343,7 +350,10 @@ def model_forward(
     summed over channels, the optional text-label CE, plus
     aux_loss_weight · mean(aux).  Image and video patches go through the
     vision tower (`params["vision"]`) and its features replace the
-    embeddings of the image and video token slots, in reading order."""
+    embeddings of the image and video token slots, in reading order.
+    With prefix_kv (prefix tuning) the learned keys take positions [0, n),
+    so every position id, explicit ones included, shifts by n
+    (`model.py:496-501`)."""
     tc = cfg.text_config
     B, T = input_ids.shape
     if attention_mask is None:
@@ -360,6 +370,8 @@ def model_forward(
         pos = torch.cumsum(attention_mask, dim=-1) - 1
         pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
         position_ids = pos[None].expand(3, B, T)
+    if prefix_kv is not None:
+        position_ids = position_ids + prefix_kv[0].shape[1]
     abw = None
     if aux_balance_weight is not None:
         abw = attention_mask * aux_balance_weight
@@ -368,7 +380,8 @@ def model_forward(
         params, inputs_embeds, position_ids, tc,
         kv_valid_mask=attention_mask, padding_token_mask=attention_mask,
         aux_balance_weight=abw, training=training, seed=seed, remat=remat,
-        use_flash=use_flash, dispatch_mode=dispatch_mode, capacity=capacity)
+        use_flash=use_flash, dispatch_mode=dispatch_mode, capacity=capacity,
+        prefix_kv=prefix_kv)
     hidden = out.last_hidden_state
 
     logits = None

@@ -125,10 +125,14 @@ def matmul(x: torch.Tensor, w: WeightLike) -> torch.Tensor:
 
 
 def proj_matmul(x: torch.Tensor, proj: Dict) -> torch.Tensor:
-    """x @ proj["w"] (LoRA deltas come with the PEFT slice)."""
+    """x @ proj["w"], plus the LoRA delta (x·a)·b·scale where the dict holds
+    lora_a / lora_b / lora_scale (`train/lora.py`; `quant.py:94-101`), over a
+    raw or quantized base, in x's dtype."""
+    y = matmul(x, proj["w"])
     if "lora_a" in proj:
-        raise NotImplementedError("LoRA projections come with the PEFT slice")
-    return matmul(x, proj["w"])
+        delta = (x @ proj["lora_a"].to(x.dtype)) @ proj["lora_b"].to(x.dtype)
+        y = y + delta * proj["lora_scale"].to(x.dtype)
+    return y
 
 
 def act_quant_int8(x: torch.Tensor):

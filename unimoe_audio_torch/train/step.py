@@ -40,7 +40,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from ..config import UniMoEAudioConfig
-from ..models.model import fold_seed, model_forward
+from ..models.model import (calculate_input_embedding, fold_seed, model_forward,
+                            scatter_vision_features)
+from ..models.vision import vision_tower_apply
+from .peft import prefix_kv, prepend_virtual_tokens, virtual_embeds
 
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
@@ -233,23 +236,49 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
             remat: bool = True,
             use_flash: Optional[bool] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss and its metrics (`step.py:124-208`); `seed` stands
-    for the JAX rng key; dispatch_mode and capacity go to the DCMoE blocks."""
-    if any(k.startswith("vision_") or k in ("pixel_values", "image_grid_thw") for k in batch):
-        raise NotImplementedError("vision training comes with the training slice (ROADMAP §1 item 7)")
+    for the JAX rng key; dispatch_mode and capacity go to the DCMoE blocks.
+
+    A batch with `vision_patches` (and the index arrays of
+    `Trainer._prepare_vision_batch`) runs the vision tower inside the
+    differentiated step, so the tower trains: the j-th image token of the
+    flattened batch takes feats[j] (`step.py:139-161`).  With
+    `params["peft"]` the adapters act after that: prompt and P-tuning
+    prepend their soft tokens to the embeddings, prefix tuning hands every
+    layer its keys and values (`step.py:162-181`)."""
+    inputs_embeds = batch.get("inputs_embeds")
+    prefix = None
+    if "vision_patches" in batch:
+        feats = vision_tower_apply(
+            params["vision"], batch["vision_patches"], batch["vision_pos"],
+            batch["vision_win_ids"], batch["vision_sample_ids"], batch["vision_widx"],
+            batch["vision_reverse"], cfg.vision_config)
+        emb = calculate_input_embedding(params, batch["input_ids"],
+                                        batch.get("codec_input_ids"),
+                                        cfg.codec_placeholder_value)
+        inputs_embeds = scatter_vision_features(emb, batch["input_ids"], feats,
+                                                cfg.image_token_id)
     if "peft" in params:
-        raise NotImplementedError("PEFT adapters come with the PEFT slice")
+        peft = params["peft"]
+        virt = virtual_embeds(peft)
+        if virt is not None:
+            if inputs_embeds is None:
+                inputs_embeds = calculate_input_embedding(
+                    params, batch["input_ids"], batch.get("codec_input_ids"),
+                    cfg.codec_placeholder_value)
+            batch, inputs_embeds = prepend_virtual_tokens(batch, inputs_embeds, virt)
+        prefix = prefix_kv(peft, cfg)
     out = model_forward(
         params, cfg, batch["input_ids"],
         codec_input_ids=batch.get("codec_input_ids"),
         attention_mask=batch.get("attention_mask"),
         position_ids=batch.get("position_ids"),
-        inputs_embeds=batch.get("inputs_embeds"),
+        inputs_embeds=inputs_embeds,
         codec_labels=batch.get("codec_labels"),
         labels=batch.get("labels"),
         aux_balance_weight=batch.get("aux_balance_weight"),
         aux_loss_weight=aux_weight,
         training=True, seed=seed, remat=remat, use_flash=use_flash,
-        dispatch_mode=dispatch_mode, capacity=capacity)
+        dispatch_mode=dispatch_mode, capacity=capacity, prefix_kv=prefix)
     zero = torch.zeros((), dtype=torch.float32, device=out.aux_loss.device)
     metrics = {
         "loss": out.loss,

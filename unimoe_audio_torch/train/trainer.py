@@ -4,8 +4,8 @@ and resume, and the inference export — counterpart of
 `Trainer.fit` is the entry point.
 
 The trainer runs on the card (`device="cuda"`, the default) and raises
-without one; the tests pass `device="cpu"`.  Vision batches and ring
-attention come with later slices and raise here.
+without one; the tests pass `device="cpu"`.  Ring attention comes with the
+parallel slice and raises here.
 """
 
 from __future__ import annotations
@@ -22,15 +22,20 @@ import torch
 from ..config import UniMoEAudioConfig
 from ..core.bridge import params_to_numpy
 from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from ..models.model import calculate_input_embedding, get_rope_index
+from ..models.vision import vision_forward, vision_indices
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     train_step
 
 
 @dataclass
 class TrainerConfig:
-    """The JAX package's `TrainerConfig` (same names and defaults) less the
-    fields of paths not ported yet (vision).  `ring_axis` is kept so that a
-    config asking for it is refused with a message.  `dispatch_mode` is
+    """The JAX package's `TrainerConfig` (same names and defaults).
+    `ring_axis` is kept so that a config asking for it is refused with a
+    message.  `train_vision` runs the vision tower inside the step, so it
+    trains (False: its features are fused outside the step and the tower
+    stays as it is); `vision_bucket` pads the merged vision tokens of a
+    batch to a multiple of it.  `dispatch_mode` is
     'dense', 'packed' (per-expert slot count `dispatch_capacity`, None = all
     tokens) or 'gmm'.  `grad_accum_steps` > 1 applies the optimizer every
     that many micro-steps, to their mean gradient; the step count, and with
@@ -52,6 +57,8 @@ class TrainerConfig:
     grad_accum_steps: int = 1
     eval_every: int = 0
     trainable_pattern: Optional[str] = None
+    train_vision: bool = True
+    vision_bucket: int = 64
     ring_axis: Optional[str] = None
 
 
@@ -205,10 +212,64 @@ class Trainer:
             pickle.dump(blob, f, protocol=4)
         self.cfg.save_json(os.path.join(out_dir, "config.json"))
 
+    # -- vision batches (`trainer.py:264-336`) ----------------------------
+    def _prepare_vision_batch(self, batch: Dict) -> Dict:
+        """A batch with pixel_values and image_grid_thw made ready for the
+        step.  train_vision: the host index arrays of `vision_indices`, the
+        merged tokens padded to a multiple of vision_bucket (padding patches
+        0), for the tower that runs inside the step.  Otherwise the tower
+        runs here, without gradient, and its features replace the image
+        tokens' embeddings in `inputs_embeds`.  Both add the mRoPE
+        `position_ids` of `get_rope_index`."""
+        if "pixel_values" not in batch:
+            return batch
+        vcfg = self.cfg.vision_config
+        if vcfg is None or "vision" not in self.state.params:
+            raise ValueError("an image batch needs a model with a vision tower")
+        batch = dict(batch)
+        pv = batch.pop("pixel_values")
+        grid = np.asarray(batch.pop("image_grid_thw"))
+        ids = np.asarray(batch["input_ids"])
+        if self.tcfg.train_vision:
+            pv = np.asarray(pv)
+            m2 = vcfg.spatial_merge_size ** 2
+            n_merged = pv.shape[0] // m2
+            bucket = max(self.tcfg.vision_bucket, 1)
+            pad_to = -(-n_merged // bucket) * bucket
+            idx = vision_indices(grid, vcfg, pad_merged_to=pad_to)
+            if pad_to > n_merged:
+                pv = np.concatenate(
+                    [pv, np.zeros(((pad_to - n_merged) * m2, pv.shape[1]), pv.dtype)])
+            batch["vision_patches"] = pv
+            for k in ("pos", "win_ids", "sample_ids", "widx", "reverse"):
+                batch[f"vision_{k}"] = idx[k]
+            assert int((ids == self.cfg.image_token_id).sum()) == n_merged, (
+                "image tokens != merged vision features")
+        else:
+            params = self.state.params
+            with torch.no_grad():
+                feats = vision_forward(params["vision"], torch.as_tensor(pv, device=self.device),
+                                       grid, vcfg)
+                ids_t = torch.as_tensor(ids, device=self.device)
+                codec = batch.get("codec_input_ids")
+                emb = calculate_input_embedding(
+                    params, ids_t, None if codec is None else torch.as_tensor(
+                        np.asarray(codec), device=self.device),
+                    self.cfg.codec_placeholder_value)
+                vmask = ids_t == self.cfg.image_token_id
+                n_slots = int(vmask.sum())
+                assert n_slots == feats.shape[0], (
+                    f"image tokens {n_slots} != features {feats.shape[0]}")
+                emb[vmask] = feats.to(emb.dtype)
+            batch["inputs_embeds"] = emb
+        pos, _ = get_rope_index(ids, self.cfg, image_grid_thw=grid,
+                                attention_mask=batch.get("attention_mask"))
+        batch["position_ids"] = pos
+        return batch
+
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        if "pixel_values" in batch:
-            raise NotImplementedError("vision batches come with the training slice (ROADMAP §1 item 7)")
-        return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+        return {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
@@ -220,7 +281,8 @@ class Trainer:
         for j, batch in enumerate(eval_batches):
             if max_batches is not None and j >= max_batches:
                 break
-            _, m = loss_fn(self.state.params, self.cfg, self._place_batch(batch), 0,
+            batch = self._place_batch(self._prepare_vision_batch(batch))
+            _, m = loss_fn(self.state.params, self.cfg, batch, 0,
                            aux_weight_at_step(self.cfg, self.state.step),
                            dispatch_mode=self.tcfg.dispatch_mode,
                            capacity=self.tcfg.dispatch_capacity, remat=False)
@@ -245,8 +307,9 @@ class Trainer:
             step_no = start + i
             if max_steps is not None and step_no >= max_steps:
                 break
+            batch = self._place_batch(self._prepare_vision_batch(batch))
             self.state, metrics = train_step(
-                self.state, self._place_batch(batch), self.tcfg.seed, cfg=self.cfg,
+                self.state, batch, self.tcfg.seed, cfg=self.cfg,
                 optimizer=self.optimizer, dispatch_mode=self.tcfg.dispatch_mode,
                 capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat)
             if step_no % self.tcfg.log_every == 0:
