@@ -79,7 +79,8 @@ failure:
      against greedy `text_to_music(decode_emit=False)`;
      `serve.measure_ttfa`; and the studio's HTTP server on 127.0.0.1 (one
      POST /api/generate, a GET of its wav);
-   - the same model and captions through `generate_chunked(...,
+   - the same model cut to its first 12 layers (a view of the same
+     tensors) and the same captions through `generate_chunked(...,
      dispatch_mode="gmm")` (the grouped GEMMs in the prefill and in every
      decode step), then short dense and gmm runs in turns, and one of
      each under torch.profiler (launches, device time and device-to-host
@@ -121,6 +122,19 @@ failure:
      greedy decoding with the prefix in the cache and with soft prompts;
      dense→MoE surgery of a dense flagship-width model and one step of the
      result; expert shards split and merged at ep 2, 4 and 8;
+   - the offload trainers: at the flagship width cut to 2 layers, f32, B 2
+     x T 256, three steps each of `Trainer`, `OffloadTrainer` and
+     `StreamTrainer` held against each other (jitter on, the same seeds),
+     int8 moments against f32 moments, an int8 run resumed from its
+     checkpoint against a straight one, a NaN batch skipped, and the
+     stream trainer's `evaluate` card vs CPU; then the 36-layer flagship,
+     bf16, B 4 x T 2048, through `OffloadTrainer` (f32 moments in
+     page-locked host memory) and `StreamTrainer` (int8 moments, two
+     micro-batches a step), one warm-up and two timed steps each, and the
+     stream trainer again at 4 layers: its peak device memory grows with
+     depth by no more than the boundary activations;
+   - sliding-window layers: a 2-layer flagship-width f32 model with one
+     sliding layer (window 64), greedy `generate` card vs CPU, no flash;
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take (K1 also
    at the training shape, against SDPA with a boolean mask and with
@@ -145,6 +159,7 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -152,6 +167,7 @@ import sys
 import tempfile
 import time
 import wave
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -261,6 +277,65 @@ PEFT_LAYERS = 2
 PEFT_LORA_RANK, PEFT_LORA_ALPHA = 16, 32.0
 PEFT_WITNESS_FRAMES = 32
 PEFT_EP_SIZES = (2, 4, 8)
+# The offload and stream trainers.  `check_small_offload_stream`: the
+# flagship width cut to OFFLOAD_SMALL_LAYERS layers, f32 (so the f32 K1-K3
+# launch), B OFFLOAD_SMALL_B x T OFFLOAD_SMALL_T, input jitter on, the same
+# seeds, OFFLOAD_SMALL_STEPS steps each of `Trainer`, `OffloadTrainer` (f32
+# moments) and `StreamTrainer` (f32 moments, lm_head trained): losses within
+# OFFLOAD_LOSS_RTOL, gradient norms within OFFLOAD_GNORM_RTOL, parameters
+# within OFFLOAD_PARAM_ATOL (the JAX package's stream-against-offload test,
+# tests/test_stream.py:45-78) — the k_proj biases, whose gradient is zero up
+# to rounding (softmax ignores a per-query shift of the scores), within
+# 2 x the summed lr, as in tests/test_torch_train.py.  Two f32 stream runs
+# are the path's floor: where they agree bit for bit, int8 moments' first
+# step must equal the f32 step bit for bit (zero moments) and an int8 run of
+# 2 steps + save + a new trainer from the checkpoint + 2 steps must equal 4
+# straight; otherwise each difference may be TRAIN_ACCUM_REL of its updates
+# (relative L2).
+# The int8 run's second update against the f32 run's, leaf by leaf: the
+# largest element's difference within INT8_STEP_ELEMENT of the leaf's
+# largest f32 move (the JAX test's bound, tests/test_qmoment.py:98-133),
+# the relative L2 within INT8_STEP_DRIFT (tools/int8_moment_drift.py reads
+# about 0.035 at flagship width in the JAX package and the port alike) and,
+# in the leaf that moves most, at least INT8_STEP_DRIFT_MIN: int8 moments
+# that are not quantized at all read 0.  The stream trainer on the card
+# against the CPU, `evaluate` with input jitter off: loss within
+# OFFLOAD_CPU_LOSS_REL; the same forward with bf16 weights on the card is
+# the control that must fail it.
+OFFLOAD_SMALL_LAYERS = 2
+OFFLOAD_SMALL_B, OFFLOAD_SMALL_T = 2, 256
+OFFLOAD_SMALL_STEPS = 3
+OFFLOAD_LOSS_RTOL, OFFLOAD_GNORM_RTOL, OFFLOAD_PARAM_ATOL = 2e-5, 1e-3, 5e-5
+OFFLOAD_CPU_LOSS_REL = 1e-4
+INT8_STEP_ELEMENT = 0.25
+INT8_STEP_DRIFT = 0.1
+INT8_STEP_DRIFT_MIN = 5e-3
+# The 36-layer flagship through the offload trainers (`run_train_offload`,
+# `run_train_stream`): bf16, dense dispatch, the train probe's batch, AdamW
+# lr 1e-4, one warm-up and DEEP_TIMED_STEPS timed steps.  OffloadTrainer:
+# f32 moments in host memory, remat.  StreamTrainer: int8 moments,
+# DEEP_MICRO micro-batches a step, lm_head frozen (the JAX bench probe's
+# configuration, bench.py:131-196); then the same at STREAM_SHALLOW_LAYERS
+# layers for one step, whose peak is all that is read: the peak device
+# memory may grow with depth by at most DEPTH_MARGIN x the extra layers'
+# [B, T, D] bf16 boundary activations.
+DEEP_TIMED_STEPS = 2
+DEEP_MICRO = 2
+STREAM_SHALLOW_LAYERS = 4
+DEPTH_MARGIN = 1.25
+# The sliding-window witness (`check_sliding_window`): SLIDING_LAYER_TYPES
+# at flagship width, f32, window SLIDING_WINDOW; a greedy prefill of
+# SLIDING_T_TEXT tokens and SLIDING_FRAMES frames, card vs CPU: the first
+# decode step's codec logits within SLIDING_REL_L2, every frame equal, no
+# K1 launch (flash is off for such a model).
+SLIDING_LAYER_TYPES = ("sliding_attention", "full_attention")
+SLIDING_WINDOW = 64
+SLIDING_T_TEXT = 160
+SLIDING_FRAMES = 32
+SLIDING_REL_L2 = 1e-5
+# The flagship gmm serving run's depth: a view of the first GMM_SERVING_LAYERS
+# of the model's 36 layers (the serving path's width and captions).
+GMM_SERVING_LAYERS = 12
 # Extra T2M prefills timed after the main call.
 PREFILL_REPEATS = 3
 # Grouped GEMMs (K4, K4t, K5) vs their plain versions in bf16: both multiply
@@ -358,9 +433,22 @@ VT2M_MIN_SECONDS = 3
 # tower at full width cut to VT2M_REF_DEPTH blocks (so that it holds
 # full-attention block 7) on video B, and a 2-layer
 # flagship-width VT2M prefill fed by that tower on videos B and C (codec
-# logits) — the exact f32 path's limit of the other reference checks.
+# logits) — the exact f32 path's limit of the other reference checks.  The
+# prefill's two runs take the same routing: the CPU routes every token as
+# the card did (its top-p counts, and its mixer decided from the card's
+# router logits), and its own router logits are held to the same limit.
+# Eight routed experts, a top-p count and a near-set cut (the eval mixer's
+# 2 x router_jitter_noise) make discrete decisions that a 1e-6 difference
+# flips where a token sits on a boundary; the development tokenizer's word
+# ids come from the per-process salted hash(), so each run feeds other ids
+# (tools/vt2m_router_sweep.py: which salts flip a decision, their margins,
+# and an f64 witness).  The tokens that the CPU's own logits would route
+# otherwise are counted and printed: a count or an expert set that differs,
+# or a routing weight that moves by more than ROUTE_WEIGHT_JUMP (the
+# near-set cut's jumps; continuous moves are about 1e-6).
 VT2M_REF_DEPTH = 8
 VT2M_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
+ROUTE_WEIGHT_JUMP = 1e-3
 # The int8 serving phase's short VT2M call: videos A and C, 1 s.
 VT2M_INT8_VIDEOS = ("A", "C")
 VT2M_INT8_SECONDS = 1
@@ -1003,12 +1091,12 @@ def _zero_launch_counts() -> None:
     _set_launch_counts(dict.fromkeys(_launch_counts(), 0))
 
 
-def probe_batch(cfg) -> dict:
+def probe_batch(cfg, seed: int = 0, B: int = TRAIN_B, T: int = TRAIN_T) -> dict:
     """The JAX package's train probe batch (`bench.py:85-128`): B TRAIN_B x
     T TRAIN_T codec placeholders, codec ids from seed 0 and the same ids as
-    labels."""
-    B, T, C = TRAIN_B, TRAIN_T, cfg.codec_channels
-    codec = np.random.default_rng(0).integers(0, cfg.codec_eos_value, size=(B, T, C))
+    labels (another seed or shape where given)."""
+    C = cfg.codec_channels
+    codec = np.random.default_rng(seed).integers(0, cfg.codec_eos_value, size=(B, T, C))
     return {"input_ids": np.full((B, T), cfg.codec_placeholder_value, np.int32),
             "codec_input_ids": codec.astype(np.int32),
             "attention_mask": np.ones((B, T), np.int32),
@@ -1712,6 +1800,444 @@ def run_peft(card: str) -> dict:
     return launches
 
 
+def _meminfo() -> str:
+    """Host memory from /proc/meminfo: MemTotal and MemAvailable."""
+    vals = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            vals[key] = int(rest.split()[0]) * 1024
+    return (f"host MemTotal {vals['MemTotal'] / 1e9:.1f} GB, MemAvailable "
+            f"{vals['MemAvailable'] / 1e9:.1f} GB")
+
+
+def _pcie_rates(nbytes: int = 1 << 30, reps: int = 3) -> str:
+    """Host-to-device and device-to-host copy rates of a page-locked
+    `HostArena` buffer (the trainers' host memory), CUDA events, the best of
+    `reps`."""
+    import torch
+    from unimoe_audio_torch.train.offload import HostArena
+
+    arena = HostArena([((nbytes,), torch.uint8)], "cuda")
+    host, dev = arena.tensors[0], torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    best = {}
+    for name, (dst, src) in (("h2d", (dev, host)), ("d2h", (host, dev))):
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            best[name] = max(best.get(name, 0.0), nbytes / (a.elapsed_time(b) / 1e3) / 1e9)
+    arena.close()
+    del arena, host, dev
+    return f"page-locked copies of {nbytes / 1e9:.2f} GB: h2d {best['h2d']:.1f} GB/s, d2h " \
+           f"{best['d2h']:.1f} GB/s"
+
+
+def _snapshot(trainer) -> list:
+    """A copy of the stream trainer's whole model on the card, in
+    `named_leaves` order."""
+    from unimoe_audio_torch.train.step import named_leaves
+
+    return [t for _, t in named_leaves(trainer.full_params("cuda"))]
+
+
+def _params_close(got, want, names, lr_sum: float) -> tuple:
+    """(max |diff| outside the k_proj biases, max |diff| of the k_proj
+    biases, whether each is within its limit)."""
+    rest = bias = 0.0
+    for n, a, b in zip(names, got, want):
+        d = (a.float() - b.float()).abs().max().item()
+        if n.endswith("k_proj/b"):
+            bias = max(bias, d)
+        else:
+            rest = max(rest, d)
+    return rest, bias, rest <= OFFLOAD_PARAM_ATOL and bias <= 2 * lr_sum + OFFLOAD_PARAM_ATOL
+
+
+def check_small_offload_stream(card: str) -> None:
+    """The offload and stream trainers against `Trainer`, each other, the
+    CPU and themselves (OFFLOAD_* above)."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.train.offload import OffloadAdamW, OffloadTrainer
+    from unimoe_audio_torch.train.step import make_lr_schedule, named_leaves, train_step
+    from unimoe_audio_torch.train.stream import StreamTrainer
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    L, S, seed = OFFLOAD_SMALL_LAYERS, OFFLOAD_SMALL_STEPS, 7
+    tc = dataclasses.replace(TextMoEConfig(), num_hidden_layers=L)
+    cfg = UniMoEAudioConfig(text_config=tc, vision_config=None)
+    f32 = torch.float32
+    lr, wd, total = 1e-4, 0.1, 100
+    sched = make_lr_schedule(lr, 0, total)
+    lr_sum = sum(sched(c) for c in range(S))
+    batches = [probe_batch(cfg, seed=s, B=OFFLOAD_SMALL_B, T=OFFLOAD_SMALL_T)
+               for s in range(S + 1)]
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+
+    def params(c=cfg):
+        return init_model_params(c, seed=0, dtype=f32, device="cuda")
+
+    def stream(moment="float32"):
+        return StreamTrainer(cfg, params(), learning_rate=sched, weight_decay=wd,
+                             train_lm_head=True, moment_dtype=moment)
+
+    # The f32 stream run: the metrics, the parameters before and after each
+    # step; a NaN batch after it.  A second run is the path's floor.
+    hist, snaps = [], []
+    st = stream()
+    p0 = _snapshot(st)
+    names = [n for n, _ in named_leaves(st.full_params("meta"))]
+    _zero_launch_counts()
+    for b in batches[:S]:
+        hist.append(st.train_step(b, seed))
+        snaps.append(_snapshot(st))
+    launches = _launch_counts()
+    want = {"flash_attention_fwd_f32": 2 * L, "flash_attention_bwd_dq_f32": L,
+            "flash_attention_bwd_dkv_f32": L}
+    check(_per_step(launches, S) == want,
+          f"offload check: stream launches {launches} over {S} steps, want {want} a step")
+    bad = dict(batches[0])
+    bad["aux_balance_weight"] = np.full((OFFLOAD_SMALL_B, OFFLOAD_SMALL_T), np.nan, np.float32)
+    before = [t.clone() for t in st.layers_host[0] + st.mu[0]]
+    m_bad = st.train_step(bad, seed)
+    check(m_bad["skipped"] == 1.0 and st.step == S and all(
+        torch.equal(a, b) for a, b in zip(before, st.layers_host[0] + st.mu[0])),
+        f"offload check: a NaN batch was not skipped: {m_bad}, step {st.step}")
+    pinned_small = st.pinned_bytes
+    st.close()
+    del st, before
+    again = stream()
+    floor = []
+    for i, b in enumerate(batches[:S]):
+        again.train_step(b, seed)
+        if i in (0, S - 1):
+            floor.append(_leaf_diff(_snapshot(again), snaps[i]))
+    again.close()
+    del again
+    deterministic = all(f[1] == 0 for f in floor)
+    t_stream = time.perf_counter() - t_start
+
+    # OffloadTrainer and Trainer, the same steps.
+    others = {}
+    ot = OffloadTrainer(cfg, params(), OffloadAdamW(learning_rate=sched, weight_decay=wd))
+    others["offload"] = ([ot.train_step(b, seed) for b in batches[:S]],
+                         [t.detach() for _, t in named_leaves(ot.state.params)])
+    pinned_offload = ot.pinned_bytes
+    ot.close()
+    del ot
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, params(), TrainerConfig(learning_rate=lr, weight_decay=wd, warmup_steps=0,
+                                               total_steps=total))
+    th = []
+    for b in batches[:S]:
+        tr.state, m = train_step(tr.state, tr._place_batch(b), seed, cfg=cfg,
+                                 optimizer=tr.optimizer, remat=True)
+        th.append({k: float(v) for k, v in m.items()})
+    others["trainer"] = (th, [t.detach() for _, t in named_leaves(tr.state.params)])
+    del tr, th
+    torch.cuda.empty_cache()
+    lines = []
+    for name, (oh, op) in others.items():
+        loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(oh, hist))
+        gn = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"] for a, b in zip(oh, hist))
+        rest, bias, ok = _params_close(op, snaps[-1], names, lr_sum)
+        check(loss <= OFFLOAD_LOSS_RTOL and gn <= OFFLOAD_GNORM_RTOL and ok
+              and not any(h["skipped"] for h in oh),
+              f"offload check: {name} vs stream: loss {loss}, grad norm {gn}, parameters "
+              f"{rest} (k_proj biases {bias})")
+        lines.append(f"{name}: losses relative {loss:.2e}, grad norms {gn:.2e}, parameters max "
+                     f"|diff| {rest:.2e} (k_proj biases {bias:.2e})")
+    del others
+    t_others = time.perf_counter() - t_start - t_stream
+    print(f"offload check [{card}]: {L} layers at flagship width, f32, B {OFFLOAD_SMALL_B} x "
+          f"T {OFFLOAD_SMALL_T}, input jitter on, {S} steps: stream losses "
+          f"{[round(h['loss'], 6) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; against the stream trainer (limits "
+          f"{OFFLOAD_LOSS_RTOL}, {OFFLOAD_GNORM_RTOL}, {OFFLOAD_PARAM_ATOL}): " + "; ".join(lines)
+          + f"; f32 launches a step {_per_step(launches, S)}; a NaN batch skipped; pinned host "
+          f"memory: stream {pinned_small / 1e9:.2f} GB, offload {pinned_offload / 1e9:.2f} GB; "
+          f"the two stream runs {t_stream:.1f} s, offload and Trainer {t_others:.1f} s",
+          flush=True)
+
+    # int8 moments: step 1 against f32, step 2's update, resume.
+    t0 = time.perf_counter()
+    s8 = stream("int8")
+    s8.train_step(batches[0], seed)
+    d1 = _leaf_diff(_snapshot(s8), snaps[0])
+    d1_rel = d1[2] / max(_leaf_diff(snaps[0], p0)[2], 1e-30)
+    s8.train_step(batches[1], seed)
+    p2 = _snapshot(s8)
+    drift, worst = {}, ("", 0.0)
+    for n, a8, a32, p1 in zip(names, p2, snaps[1], snaps[0]):
+        u32, u8 = a32 - p1, a8 - p1
+        if u32.abs().max() > 0:
+            drift[n] = max(drift.get(n, 0.0), float((u8 - u32).norm() / u32.norm()))
+            el = float((u8 - u32).abs().max() / u32.abs().max())
+            worst = max(worst, (n, el), key=lambda x: x[1])
+    del p2, snaps, p0
+    with tempfile.TemporaryDirectory() as ck:
+        t1 = time.perf_counter()
+        s8.save(ck)
+        save_s = time.perf_counter() - t1
+        ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+        p_ck = _snapshot(s8)
+        for b in batches[2:S + 1]:
+            s8.train_step(b, seed)
+        straight = _snapshot(s8)
+        s8.close()
+        del s8
+        t1 = time.perf_counter()
+        resumed = StreamTrainer(cfg, restore_dir=ck, learning_rate=sched, weight_decay=wd,
+                                train_lm_head=True, moment_dtype="int8", param_dtype=f32)
+        restore_s = time.perf_counter() - t1
+    for b in batches[2:S + 1]:
+        resumed.train_step(b, seed)
+    res = _leaf_diff(_snapshot(resumed), straight)
+    res_rel = res[2] / max(_leaf_diff(straight, p_ck)[2], 1e-30)
+    resumed.close()
+    del resumed, straight, p_ck
+    if deterministic:
+        check(d1[1] == 0 and res[1] == 0,
+              f"int8 moments: first step differs from f32 in {d1[1]} elements, the resumed "
+              f"run from the straight one in {res[1]} (deterministic path)")
+    else:
+        check(d1_rel <= TRAIN_ACCUM_REL and res_rel <= TRAIN_ACCUM_REL,
+              f"int8 moments: first step vs f32 {d1_rel:.3e} of the update, resumed vs straight "
+              f"{res_rel:.3e} of the last two updates (limit {TRAIN_ACCUM_REL}; floors {floor})")
+    worst_l2 = max(drift.items(), key=lambda x: x[1])
+    check(INT8_STEP_DRIFT_MIN <= worst_l2[1] < INT8_STEP_DRIFT and worst[1] < INT8_STEP_ELEMENT,
+          f"int8 moments: second update's relative L2 by leaf {drift}, largest element's "
+          f"difference {worst}")
+    t_int8 = time.perf_counter() - t0
+
+    # Card against the CPU, jitter off: the loss of one forward pass.
+    t0 = time.perf_counter()
+    ncfg = dataclasses.replace(cfg, text_config=dataclasses.replace(tc, input_jitter_noise=0.0))
+    evals = []
+    p = params(ncfg)
+    for device, w in (("cuda", p), ("cpu", _to(p, device="cpu")),
+                      ("cuda", _to(p, dtype=torch.bfloat16))):
+        t = StreamTrainer(ncfg, w, device=device)
+        evals.append(t.evaluate([batches[0]])["eval_loss"])
+        t.close()
+        del t, w
+    del p
+    loss_rel, bf16_rel = (abs(e - evals[1]) / abs(evals[1]) for e in (evals[0], evals[2]))
+    check(loss_rel <= OFFLOAD_CPU_LOSS_REL < bf16_rel,
+          f"stream trainer card vs CPU: loss relative {loss_rel}, the bf16 control {bf16_rel} "
+          f"(limit {OFFLOAD_CPU_LOSS_REL}: f32 within, bf16 past it)")
+    torch.cuda.empty_cache()
+    print(f"offload check [{card}]: int8 moments: first step vs f32 {d1[1]} elements differ "
+          f"(max {d1[0]:.3e}, relative L2 {d1_rel:.3e} of the update); second update against "
+          f"f32's, relative L2 per leaf at most {worst_l2[1]:.4f} ({worst_l2[0]}; limits "
+          f"{INT8_STEP_DRIFT_MIN} to {INT8_STEP_DRIFT}), largest element's difference over the "
+          f"leaf's largest f32 move {worst[1]:.3f} ({worst[0]}; limit {INT8_STEP_ELEMENT}); 2 steps + save ({ck_bytes / 1e9:.2f} GB in "
+          f"{save_s:.2f} s) + restore ({restore_s:.2f} s) + 2 steps vs 4 straight: {res[1]} "
+          f"elements differ (max {res[0]:.3e}, relative L2 {res_rel:.3e} of the last two "
+          f"updates); two f32 runs differ in {[f[1] for f in floor]} elements"
+          f"{' (bit-equal: deterministic path)' if deterministic else ''}; {t_int8:.1f} s; "
+          f"stream trainer card vs CPU, f32, jitter off, `evaluate`: loss {evals[0]:.6f} vs "
+          f"{evals[1]:.6f}, relative {loss_rel:.3e} (limit {OFFLOAD_CPU_LOSS_REL}); the bf16 "
+          f"control on the card {evals[2]:.6f}, relative {bf16_rel:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_train_offload(card: str) -> dict:
+    """`OffloadTrainer` on the 36-layer flagship (DEEP_* above), f32 moments
+    in host memory.  Returns the launch counts of its steps."""
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.train.offload import OffloadAdamW, OffloadTrainer
+
+    cfg = UniMoEAudioConfig(text_config=TextMoEConfig(), vision_config=None)
+    L = cfg.text_config.num_hidden_layers
+    torch.cuda.empty_cache()
+    print(f"train offload [{card}]: before: {_meminfo()}; {_pcie_rates()}", flush=True)
+    t0 = time.perf_counter()
+    params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    tr = OffloadTrainer(cfg, params, OffloadAdamW(learning_rate=1e-4), remat=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mem = _meminfo()
+    batch = probe_batch(cfg)
+    n = 1 + DEEP_TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    hist, step_s = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist.append(tr.train_step(batch, 0))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "flash_attention_bwd_dkv_reduce": L}
+    check(_per_step(launches, n) == want, f"train offload: launches {launches} over {n} steps, "
+          f"want {want} a step")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and not any(h["skipped"] for h in hist),
+          f"train offload: losses {losses}, skipped {[h['skipped'] for h in hist]}")
+    med = float(np.median(step_s[1:]))
+    print(f"train offload [{card}]: OffloadTrainer, {L} layers ({n_params / 1e9:.3f} B params, "
+          f"bf16 on the card), f32 moments in host memory ({tr.pinned_bytes / 1e9:.2f} GB "
+          f"pinned), dense, remat, B {TRAIN_B} x T {TRAIN_T}, lr 1e-4: set-up {setup_s:.1f} s "
+          f"({mem}); losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}; step times (s) "
+          f"{[round(x, 3) for x in step_s]} (the first a warm-up), median timed {med:.3f} s, "
+          f"{TRAIN_B * TRAIN_T / med:.1f} tokens/s; peak memory allocated {peak_gb:.2f} GB; "
+          f"launches per step {_per_step(launches, n)}", flush=True)
+    tr.close()
+    del tr, params
+    torch.cuda.empty_cache()
+    print(f"train offload [{card}]: after release: {_meminfo()}", flush=True)
+    return launches
+
+
+def _stream_deep(card: str, layers: int, n: int):
+    """StreamTrainer at `layers` layers of the flagship (DEEP_* above), n
+    steps, the first a warm-up: (launch counts, peak GB, median timed step
+    seconds (the warm-up's where n is 1), the printed line)."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.train.stream import StreamTrainer
+
+    cfg = UniMoEAudioConfig(text_config=dataclasses.replace(
+        TextMoEConfig(), num_hidden_layers=layers), vision_config=None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    st = StreamTrainer(cfg, seed=0, learning_rate=1e-4, moment_dtype="int8")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    micro = [probe_batch(cfg, seed=s) for s in range(DEEP_MICRO)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    hist, step_s = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist.append(st.train_step(micro, 0))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    g = DEEP_MICRO
+    want = {"flash_attention_fwd": 2 * layers * g, "flash_attention_bwd_dq": layers * g,
+            "flash_attention_bwd_dkv": layers * g, "flash_attention_bwd_dkv_reduce": layers * g}
+    check(_per_step(launches, n) == want, f"train stream ({layers} layers): launches {launches} "
+          f"over {n} steps, want {want} a step")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and not any(h["skipped"] for h in hist) and st.step == n,
+          f"train stream ({layers} layers): losses {losses}, skipped "
+          f"{[h['skipped'] for h in hist]}, applied {st.step}")
+    med = float(np.median(step_s[1:] or step_s))
+    line = (f"train stream [{card}]: StreamTrainer, {layers} layers, bf16, int8 moments, {g} "
+            f"micro-batches of B {TRAIN_B} x T {TRAIN_T} a step, lm_head frozen, lr 1e-4: "
+            f"{st.pinned_bytes / 1e9:.2f} GB pinned, set-up {setup_s:.1f} s ({_meminfo()}); "
+            f"losses {[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(h['grad_norm'], 3) for h in hist]}; step times (s) "
+            f"{[round(x, 3) for x in step_s]} (the first a warm-up), median timed {med:.3f} s, "
+            f"{g * TRAIN_B * TRAIN_T / med:.1f} tokens/s; peak memory allocated {peak_gb:.3f} "
+            f"GB; launches per step {_per_step(launches, n)}") if n > 1 else (
+            f"train stream [{card}]: StreamTrainer, {layers} layers, the same, one step (for its "
+            f"peak memory): {st.pinned_bytes / 1e9:.2f} GB pinned, set-up {setup_s:.1f} s; loss "
+            f"{losses[0]:.4f}, grad norm {hist[0]['grad_norm']:.3f}, {step_s[0]:.3f} s (a "
+            f"warm-up); peak memory allocated {peak_gb:.3f} GB; launches {launches}")
+    st.close()
+    del st
+    torch.cuda.empty_cache()
+    return launches, peak_gb, med, line
+
+
+def run_train_stream(card: str) -> dict:
+    """`StreamTrainer` on the 36-layer flagship and at STREAM_SHALLOW_LAYERS
+    layers (DEEP_* above): the device memory's growth with depth.  Returns
+    the launch counts of the 36-layer steps."""
+    from unimoe_audio_torch.config import TextMoEConfig
+
+    tc = TextMoEConfig()
+    L = tc.num_hidden_layers
+    launches, peak, _, line = _stream_deep(card, L, 1 + DEEP_TIMED_STEPS)
+    print(line, flush=True)
+    _, peak_s, _, line_s = _stream_deep(card, STREAM_SHALLOW_LAYERS, 1)
+    print(line_s, flush=True)
+    boundary_gb = TRAIN_B * TRAIN_T * tc.hidden_size * 2 / 1e9
+    limit = (L - STREAM_SHALLOW_LAYERS) * boundary_gb * DEPTH_MARGIN
+    check(peak - peak_s <= limit, f"train stream: peak memory {peak:.3f} GB at {L} layers vs "
+          f"{peak_s:.3f} GB at {STREAM_SHALLOW_LAYERS}: grows by more than {limit:.3f} GB")
+    print(f"train stream [{card}]: peak memory allocated {peak:.3f} GB at {L} layers, "
+          f"{peak_s:.3f} GB at {STREAM_SHALLOW_LAYERS}: +{peak - peak_s:.3f} GB (limit "
+          f"{limit:.3f} GB: {DEPTH_MARGIN} x {L - STREAM_SHALLOW_LAYERS} boundary activations of "
+          f"{boundary_gb * 1e3:.1f} MB)", flush=True)
+    return launches
+
+
+def check_sliding_window(card: str) -> None:
+    """The sliding-window witness (SLIDING_* above): greedy `generate` of a
+    2-layer flagship-width f32 model with one sliding layer, card vs CPU."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.generate.loop import generate, pad_buffer
+    from unimoe_audio_torch.models.model import init_model_params
+
+    tc = dataclasses.replace(TextMoEConfig(), num_hidden_layers=len(SLIDING_LAYER_TYPES),
+                             use_sliding_window=True, sliding_window=SLIDING_WINDOW,
+                             layer_types=SLIDING_LAYER_TYPES)
+    cfg = UniMoEAudioConfig(text_config=tc, vision_config=None)
+    params = init_model_params(cfg, seed=9, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(9)
+    B = 2
+    ids = rng.integers(0, tc.vocab_size - 8, size=(2 * B, SLIDING_T_TEXT))
+    mask = np.ones_like(ids)
+    mask[0, :20] = 0
+    prefill, steps = dl.prepare_audio_prompt(
+        [None] * B, num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
+        delay_pattern=cfg.codec_delay_pattern)
+    runs = []
+    counts = _launch_counts()
+    for device in ("cuda", "cpu"):
+        p = params if device == "cuda" else _to(params, device="cpu")
+        with torch.inference_mode(), first_decode_logits() as logits:
+            res = generate(p, cfg, torch.as_tensor(ids, device=device),
+                           torch.as_tensor(mask, device=device), None,
+                           pad_buffer(torch.as_tensor(prefill, device=device), SLIDING_FRAMES),
+                           steps, torch.Generator(device=device).manual_seed(0),
+                           max_tokens=SLIDING_FRAMES, min_tokens=SLIDING_FRAMES, cfg_scale=3.0,
+                           temperature=1.0, top_p=1.0, cfg_filter_top_k=45,
+                           eos_prob_mul_factor=1.0, do_sample=False)
+        runs.append((res.codes.cpu(), res.lengths.cpu(), logits[0]))
+        del p
+    k1 = {k: v - counts[k] for k, v in _launch_counts().items()
+          if k.startswith("flash_attention_fwd") and v != counts[k]}
+    err = _rel(runs[0][2], runs[1][2])
+    equal = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    check(err <= SLIDING_REL_L2 and equal and not k1,
+          f"sliding-window witness: first decode logits relative L2 {err}, frames equal "
+          f"{equal}, K1 launches {k1}")
+    print(f"reference check [{card}]: sliding-window witness, layers {SLIDING_LAYER_TYPES} at "
+          f"flagship width, window {SLIDING_WINDOW}, f32, greedy prefill of {SLIDING_T_TEXT} "
+          f"tokens (one row left-padded by 20) and {SLIDING_FRAMES} frames, card vs CPU: first "
+          f"decode step's codec logits relative L2 {err:.3e} (limit {SLIDING_REL_L2}), frames "
+          f"equal, no K1 launch", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
 def run_slice(card: str, out_dir: str):
     """The flagship text-to-music path, wavs into out_dir; returns
     (model, prompts, launch counts)."""
@@ -1918,7 +2444,7 @@ def check_voice_clone_reference(flag_cfg, ids, mask, flat_codec, card: str) -> N
     pos = np.where(mask == 0, 1, np.cumsum(mask, -1) - 1)
     live = torch.as_tensor(mask, dtype=torch.bool)
 
-    def run(device):
+    def run(device, replay=None):
         params = cpu if device == "cpu" else gpu
         t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
         cache = KVCache.create(tc.num_hidden_layers, B, T + 2, tc.num_key_value_heads,
@@ -2789,13 +3315,58 @@ def run_vt2m(model, card: str, out_dir: str):
     return launches, rec
 
 
+@contextlib.contextmanager
+def router_tape(tape: list, replay: list | None = None):
+    """Taps the DCMoE router's eval-path decisions, in call order (one call
+    a layer): each call's [router logits, top-p counts] (CPU copies) go to
+    `tape`.  With `replay` (another run's tape, same call order), each call
+    takes the replayed counts and decides its mixer (experts, near-sets,
+    weights) from the replayed logits, so that both runs route every token
+    alike; its own logits are still taped."""
+    from unimoe_audio_torch.moe import router as R
+
+    select, mixer = R.dynamic_expert_selection, R.sparse_expert_mixer_eval
+
+    def tapped_select(logits, top_p):
+        k = select(logits, top_p)
+        tape.append([logits.float().cpu(), k.cpu()])
+        return k if replay is None else replay[len(tape) - 1][1].to(k.device)
+
+    def tapped_mixer(scores, top_k, *, jitter_eps):
+        if replay is not None:
+            scores = replay[len(tape) - 1][0].to(scores.device, scores.dtype)
+        return mixer(scores, top_k, jitter_eps=jitter_eps)
+
+    R.dynamic_expert_selection, R.sparse_expert_mixer_eval = tapped_select, tapped_mixer
+    try:
+        yield tape
+    finally:
+        R.dynamic_expert_selection, R.sparse_expert_mixer_eval = select, mixer
+
+
+def route_flips(tape_a: list, tape_b: list, tc) -> list:
+    """Per tape entry (layer), a [S] bool: the tokens that b's own logits
+    route otherwise than a's: another top-p count or expert set, or a
+    routing weight that moves by more than ROUTE_WEIGHT_JUMP."""
+    from unimoe_audio_torch.moe import router as R
+
+    out = []
+    for (la, ka), (lb, kb) in zip(tape_a, tape_b):
+        (wa, ma), (wb, mb) = (R.sparse_expert_mixer_eval(x, k, jitter_eps=tc.router_jitter_noise)
+                              for x, k in ((la, ka), (lb, kb)))
+        out.append((ka != kb) | (ma != mb).any(-1)
+                   | ((wa - wb).abs() > ROUTE_WEIGHT_JUMP).any(-1))
+    return out
+
+
 def check_vt2m_reference(flag_cfg, captured: dict, card: str) -> None:
     """Card vs CPU in f32, with the same (card-made) weights: the tower at
     full width cut to VT2M_REF_DEPTH blocks on video B (ragged windows;
     block 7 takes full attention), and a 2-layer flagship-width VT2M
     prefill fed by that tower on the CFG pairs of videos B and C from the
-    VT2M batch (their ids, mask, video slots and mRoPE positions): features
-    and codec logits over live rows within VT2M_REF_REL_L2."""
+    VT2M batch (their ids, mask, video slots and mRoPE positions): features,
+    and codec and router logits over live rows under the card's routing
+    (`router_tape`), within VT2M_REF_REL_L2."""
     import dataclasses
 
     import torch
@@ -2836,7 +3407,7 @@ def check_vt2m_reference(flag_cfg, captured: dict, card: str) -> None:
     B, T = ids.shape
     live = torch.as_tensor(mask, dtype=torch.bool)
 
-    def run(device):
+    def run(device, replay=None):
         params = cpu if device == "cpu" else gpu
         t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
         emb = M.calculate_input_embedding(params, t(ids), None, cfg.codec_placeholder_value)
@@ -2847,18 +3418,30 @@ def check_vt2m_reference(flag_cfg, captured: dict, card: str) -> None:
         cache = KVCache.create(tc.num_hidden_layers, B, T + 2, tc.num_key_value_heads,
                                tc.head_dim, dtype=torch.float32, device=device)
         kv_valid = np.concatenate([mask, np.zeros((B, 2), mask.dtype)], -1)
-        out = M.text_model_forward(params, emb, t(pos), tc, kv_cache=cache, cache_position=0,
-                                   kv_valid_mask=t(kv_valid, torch.int32),
-                                   padding_token_mask=t(mask, torch.int32))
-        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+        tape: list = []
+        with router_tape(tape, replay):
+            out = M.text_model_forward(params, emb, t(pos), tc, kv_cache=cache, cache_position=0,
+                                       kv_valid_mask=t(kv_valid, torch.int32),
+                                       padding_token_mask=t(mask, torch.int32))
+        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live], tape
 
     with torch.inference_mode():
-        err = _rel(run("cuda"), run("cpu"))
+        got, card_tape = run("cuda")
+        want, cpu_tape = run("cpu", replay=card_tape)
+    err = _rel(got, want)
+    rows = live.reshape(-1)
+    router_err = max(_rel(a[rows], b[rows]) for (a, _), (b, _) in zip(card_tape, cpu_tape))
+    flips = [int(f[rows].sum()) for f in route_flips(card_tape, cpu_tape, tc)]
     print(f"reference check [{card}]: 2-layer flagship-width VT2M prefill, f32, fed by the "
           f"{VT2M_REF_DEPTH}-block tower, the CFG pairs of videos B and C (T {T}, "
-          f"{int(vmask.sum())} video slots, 3-D mRoPE positions), card vs CPU, codec logits "
-          f"relative L2 {err:.3e} (limit {VT2M_REF_REL_L2})", flush=True)
-    check(err < VT2M_REF_REL_L2, f"VT2M prefill, card vs CPU: relative L2 {err}")
+          f"{int(vmask.sum())} video slots, 3-D mRoPE positions; ids crc32 "
+          f"{zlib.crc32(np.ascontiguousarray(ids, np.int64).tobytes()):08x}, PYTHONHASHSEED "
+          f"{os.environ.get('PYTHONHASHSEED', 'random')}), card vs CPU under the card's routing: "
+          f"codec logits relative L2 {err:.3e}, router logits {router_err:.3e} (limit "
+          f"{VT2M_REF_REL_L2} each); live tokens the CPU's own router logits would route "
+          f"otherwise, by layer: {flips} of {int(rows.sum())}", flush=True)
+    check(err < VT2M_REF_REL_L2 and router_err < VT2M_REF_REL_L2,
+          f"VT2M prefill, card vs CPU: relative L2 {err} (router logits {router_err})")
     del gpu, cpu, tower
     torch.cuda.empty_cache()
 
@@ -3411,19 +3994,34 @@ def run_serving_apps(model, card: str, out_dir: str, stamp=lambda phase: None):
             **ref_launches}, rec
 
 
+def layer_view(model, n_layers: int):
+    """A shallow copy of a `UniMoEAudio` that runs the first n_layers of its
+    decoder (the same tensors, the config's depth cut to match)."""
+    import dataclasses
+
+    view = copy.copy(model)
+    view.config = dataclasses.replace(model.config, text_config=dataclasses.replace(
+        model.config.text_config, num_hidden_layers=n_layers))
+    view.params = {**model.params, "layers": model.params["layers"][:n_layers]}
+    return view
+
+
 def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
-    """The flagship model of the text-to-music slice through
+    """The flagship model of the text-to-music slice, cut to its first
+    GMM_SERVING_LAYERS layers (`layer_view`), through
     `generate_chunked(..., dispatch_mode="gmm")`: GMM_SERVING_FRAMES frames
     for the same captions, the codes decoded to wavs.  Checks the codes, the
-    wavs, and 3 x 36 K4 launches per prefill and per decode step (no K4t, no
-    K5), in the configuration `gmm_config` picks for each; compares the
-    decode's ms per frame with dense dispatch in turns, and the
+    wavs, and 3 x GMM_SERVING_LAYERS K4 launches per prefill and per decode
+    step (no K4t, no K5), in the configuration `gmm_config` picks for each;
+    compares the decode's ms per frame with dense dispatch in turns, and the
     device-to-host reads per decode step.  Returns the launch counts of the
     run."""
     import torch
     from unimoe_audio_torch.codec import delay as dl
     from unimoe_audio_torch.ops import grouped_gemm as GG
 
+    depth = model.config.text_config.num_hidden_layers
+    model = layer_view(model, GMM_SERVING_LAYERS)
     cfg = model.config
     L = cfg.text_config.num_hidden_layers
     torch.cuda.synchronize()
@@ -3479,7 +4077,8 @@ def run_gmm_serving(model, prompts, card: str, out_dir: str) -> dict:
               f"{p['launches']:.0f} launches per step, {p['reads']:.3f} device-to-host reads "
               f"per step; top kernels (ms, count) {p['top_kernels']}; top host operators "
               f"(self ms, count) {p['top_host']}", flush=True)
-    print(f"gmm serving [{card}]: {len(audios)} requests ({len(prompts)} CFG rows), "
+    print(f"gmm serving [{card}]: the first {L} of the model's {depth} layers; "
+          f"{len(audios)} requests ({len(prompts)} CFG rows), "
           f"{res.steps} decode steps, frames {lengths.tolist()}; prefill {t['prefill_s'] * 1e3:.2f} ms; decode "
           f"{t['decode_s'] * 1e3 / res.steps:.2f} ms/frame; K4 launches "
           f"{launches['grouped_gemm_gmm']} = 3 x {L} x (1 + {res.steps}), by configuration "
@@ -4370,6 +4969,14 @@ def main() -> None:
     stamp("vision training")
     peft_launches = run_peft(card)
     stamp("PEFT, surgery and resharding")
+    check_small_offload_stream(card)
+    stamp("the offload and stream trainers against Trainer, each other and the CPU")
+    offload_launches = run_train_offload(card)
+    stamp("OffloadTrainer at 36 layers")
+    train_stream_launches = run_train_stream(card)
+    stamp("StreamTrainer at 36 and 4 layers")
+    check_sliding_window(card)
+    stamp("the sliding-window witness")
     f32_recs = time_flash_f32(t2m_mask, f32_errs, card)
     torch.cuda.empty_cache()
     stamp("f32 kernel timing")
@@ -4381,7 +4988,8 @@ def main() -> None:
              "vt2m": vt2m_launches, **serving_launches, "t2m_gmm": gmm_t2m_launches,
              **quant_launches,
              "train": train_launches, "train_gmm": gmm_train_launches, **core_launches,
-             "train_vision": vision_train_launches, "train_peft": peft_launches}
+             "train_vision": vision_train_launches, "train_peft": peft_launches,
+             "train_offload": offload_launches, "train_stream": train_stream_launches}
     for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -4392,7 +5000,8 @@ def main() -> None:
             rec["launches_by_config"] = {
                 c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}
                 for c in ("small", "large")}
-    for path in ("train_vision", "train_peft"):
+            rec["t2m_gmm_layers"] = GMM_SERVING_LAYERS          # the gmm serving run's depth
+    for path in ("train_vision", "train_peft", "train_offload", "train_stream"):
         check(all(paths[path][k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
                                                   "flash_attention_bwd_dkv")),
               f"K1, K2 or K3 not launched on the {path} path: {paths[path]}")

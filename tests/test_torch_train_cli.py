@@ -4,8 +4,11 @@ on the CPU (`--cpu`): on the sample arrow dataset with images, from a
 and eval losses equal the JAX package's CLI's on the same directory; it runs
 `--initialize` (dense→MoE surgery) on a dense model.jax.pkl and
 `--peft_mode lora` (only the adapters move); without `--cpu` it asks for a
-card; the offload and mesh flags raise NotImplementedError naming their
-slice."""
+card; the mesh flags raise NotImplementedError naming their slice.
+`--param_offload` (the stream trainer) on a text-only dataset: its
+metrics.jsonl losses equal the JAX CLI's with f32 moments, int8 moments and
+two micro-batches a step; it resumes from OUT/stream_ckpt; PEFT and image
+samples exit as the JAX CLI does."""
 
 import json
 import os
@@ -157,5 +160,98 @@ def test_cli_needs_a_card_without_cpu(dirs, tmp_path):
     (["--multihost"], "parallel"), (["--coordinator-address", "localhost:1"], "parallel"),
     (["--num-processes", "2"], "parallel"), (["--process-id", "0"], "parallel")])
 def test_cli_refuses_unported_flags(flags, slice_name):
+    """The mesh and multihost flags raise NotImplementedError naming the
+    parallel slice; the offload flags, ported, pass."""
+    argv = ["--model_name_or_path", "m", "--data_path", "d", "--cpu", *flags]
+    if slice_name == "offload":
+        assert TCLI.refuse_unported(TCLI.build_parser().parse_args(argv)) is None
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
-        TCLI.main(["--model_name_or_path", "m", "--data_path", "d", "--cpu", *flags])
+        TCLI.main(argv)
+
+
+@pytest.fixture(scope="module")
+def text_dirs(tmp_path_factory):
+    """A text-only sample dataset (10 rows) and a model directory: the tiny
+    config without a tower, input jitter off, f32 weights in model.jax.pkl."""
+    root = tmp_path_factory.mktemp("stream_cli")
+    data = str(root / "ds")
+    build_sample_dataset(data, n=10, with_images=False)
+    cfg = tiny_test_config(input_jitter_noise=0.0)
+    model = str(root / "model")
+    os.makedirs(model)
+    cfg.save_json(os.path.join(model, "config.json"))
+    tree = params_to_numpy(init_model_params(cfg, seed=0, dtype=torch.float32, device="cpu"))
+    with open(os.path.join(model, "model.jax.pkl"), "wb") as f:
+        pickle.dump({"params": tree, "config": cfg.to_dict()}, f)
+    return model, data
+
+
+def _stream_argv(model, data, out, *extra):
+    return ["--model_name_or_path", model, "--data_path", data, "--output_dir", out,
+            "--param_offload", "--per_device_train_batch_size", "2", "--max_steps", "2",
+            "--logging_steps", "1", "--save_steps", "0", "--model_max_length", "64",
+            "--learning_rate", "1e-3", *extra]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--eval_ratio", "0.2", "--eval_steps", "1"],
+    ["--moment_dtype", "int8"],
+    ["--gradient_accumulation_steps", "2", "--eval_ratio", "0.2", "--eval_steps", "2"]],
+    ids=["f32", "int8", "accum2"])
+def test_cli_param_offload_matches_jax_cli(text_dirs, tmp_path, monkeypatch, extra):
+    """Both CLIs with --param_offload on the same directories: the same rows
+    (2 applied steps, evals), losses within LOSS_RTOL.  With int8 moments the
+    two steps' losses see no quantized moment yet (the first update reads
+    zero moments), so they too agree to LOSS_RTOL; the stochastic rounding's
+    draws differ between the packages from there on."""
+    model, data = text_dirs
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    assert TCLI.main(_stream_argv(model, data, out_t, "--cpu", *extra)) == 0
+    one = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a: one)
+    assert JCLI.main(_stream_argv(model, data, out_j, *extra)) == 0
+    got, want = _rows(out_t), _rows(out_j)
+    assert [r["step"] for r in got] == [r["step"] for r in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in ("loss", "codec_loss", "aux_loss", "grad_norm", "eval_loss", "eval_aux_loss"):
+            if k in w:
+                np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL, err_msg=k)
+    assert sum("loss" in r for r in got) == 2
+    if "--gradient_accumulation_steps" in extra:
+        assert all(r["micro_batches"] == 2.0 for r in got if "loss" in r)
+    for out in (out_t, out_j):
+        with open(os.path.join(out, "train_done.json")) as f:
+            assert json.load(f) == {"steps": 2}
+        with open(os.path.join(out, "stream_ckpt", "meta.json")) as f:
+            assert json.load(f)["count"] == 2
+
+
+def test_cli_param_offload_resumes(text_dirs, tmp_path, capsys):
+    """A second run with --max_steps 3 resumes from stream_ckpt at step 2
+    and applies one more step."""
+    model, data = text_dirs
+    out = str(tmp_path / "out")
+    argv = _stream_argv(model, data, out, "--cpu")
+    assert TCLI.main(argv) == 0
+    argv[argv.index("--max_steps") + 1] = "3"
+    assert TCLI.main(argv) == 0
+    assert "resumed stream checkpoint at step 2" in capsys.readouterr().out
+    with open(os.path.join(out, "stream_ckpt", "meta.json")) as f:
+        assert json.load(f)["count"] == 3
+    assert [r["step"] for r in _rows(out)] == [1, 2, 3]
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--peft_mode", "lora"], "full-parameter"), (["--only_gate_training"], "full-parameter"),
+    (["--image_root", "IMAGES"], "image samples")])
+def test_cli_param_offload_refusals(dirs, text_dirs, tmp_path, extra, message):
+    """PEFT, gate-only training and image samples exit with the JAX CLI's
+    messages."""
+    model, data = text_dirs
+    if "IMAGES" in extra:
+        _, model, data, _ = dirs
+        extra = ["--image_root", data + "_images"]
+    with pytest.raises(SystemExit, match=message):
+        TCLI.main(_stream_argv(model, data, str(tmp_path / "o"), "--cpu", *extra))

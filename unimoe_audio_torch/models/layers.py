@@ -148,6 +148,7 @@ def attention(
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # per-layer [T_max, B, KV]
     prefix_kv=None,
     ring=None,
+    is_sliding: bool = False,
 ):
     """GQA attention (q/k/v with bias, o without — Qwen2.5 layout), as
     `unimoe_audio_tpu/models/layers.py:150-391`.  Modes:
@@ -171,6 +172,11 @@ def attention(
     (`layers.py:191-203`).  With a cache they are ignored: the generate loop
     writes them into slots [0, n).
 
+    is_sliding: this layer attends through the sliding window
+    (cfg.sliding_window): keys a window or more behind the query are masked
+    in both einsum paths (`layers.py:227-229, 369-380`).  The flash kernel
+    does not window, so it is refused for such a layer.
+
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
     if ring is not None:
@@ -179,6 +185,9 @@ def attention(
     B, T, _ = x.shape
     H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     groups = H // KV
+    window = cfg.sliding_window if is_sliding else None
+    if window and use_flash:
+        raise ValueError("the flash kernel does not window: a sliding layer takes the einsum path")
     scale = Dh ** -0.5
 
     q = (proj_matmul(x, params["q_proj"]) + params["q_proj"]["b"]).reshape(B, T, H, Dh)
@@ -205,6 +214,9 @@ def attention(
         if cache_scales is not None:
             s = s * cache_scales[0][..., None]
         valid = kv_valid_mask > 0                             # [B, T_kv]
+        if window:
+            slots = torch.arange(k_all.shape[0], device=x.device)
+            valid = valid & ((cache_position - slots) < window)[None, :]
         s = torch.where(valid.t()[:, :, None, None], s, torch.full_like(s, NEG_INF))
         all_s = torch.cat([s, self_score[None]], dim=0)
         probs = torch.softmax(all_s, dim=0).to(x.dtype)
@@ -228,7 +240,8 @@ def attention(
         # Auto mode never takes flash in cache mode: the window covers only
         # the fresh k/v, which is right solely for a cache_position == 0
         # prefill; the generate loop's prefill opts in with use_flash=True.
-        use_flash = T >= 128 and causal and cache_kv is None and x.is_cuda
+        # Nor in a sliding layer.
+        use_flash = T >= 128 and causal and cache_kv is None and x.is_cuda and not window
     if use_flash and T > 1 and causal:
         from ..ops.flash_attention import flash_attention
 
@@ -258,6 +271,8 @@ def attention(
         q_pos = (cache_position or 0) + torch.arange(T, device=x.device)[:, None]
     if causal and (cache_kv is None or T > 1):
         scores = torch.where(key_pos <= q_pos, scores, neg)
+    if window:
+        scores = torch.where((q_pos - key_pos) < window, scores, neg)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     if cache_kv is not None and cache_scales is not None:
         probs = probs * cache_scales[1].permute(1, 2, 0)[:, :, None, None, :].to(probs.dtype)

@@ -21,7 +21,7 @@ as a Python loop over them:
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,6 +49,53 @@ def fold_seed(seed: int, n: int) -> int:
     layer stack gives each layer `fold_seed(seed, layer)`, as the JAX
     package splits its rng key into one key per layer (`model.py:108-110`)."""
     return int(np.random.SeedSequence([seed, n]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def sliding_flags(cfg: TextMoEConfig, n_layers: int) -> List[bool]:
+    """Whether each of the first n_layers layers attends through a sliding
+    window (`layer_types` "sliding_attention", with `use_sliding_window` and
+    a `sliding_window`; `model.py:113-122`)."""
+    if not cfg.has_sliding_layers:
+        return [False] * n_layers
+    return [t == "sliding_attention" for t in cfg.layer_types][:n_layers]
+
+
+class LayerOutput(NamedTuple):
+    hidden: torch.Tensor                      # [B, T, D]
+    aux_loss: torch.Tensor                    # scalar
+    router_top_k: torch.Tensor                # [S]
+    kv: Optional[tuple]                       # attention's cache / fresh (k, v)
+    moe_input: torch.Tensor                   # the DCMoE block's input [B, T, D]
+
+
+def layer_apply(lp: Dict, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cfg: TextMoEConfig, *, kv_valid_mask: Optional[torch.Tensor] = None,
+                padding_token_mask: Optional[torch.Tensor] = None,
+                aux_balance_weight: Optional[torch.Tensor] = None, training: bool = False,
+                seed: Optional[int] = None, use_flash: Optional[bool] = None,
+                dispatch_mode: str = "dense", capacity: Optional[int] = None,
+                is_sliding: bool = False, prefix_kv=None, cache_kv=None, cache_scales=None,
+                cache_position: Optional[int] = None,
+                decode_emit: bool = False) -> LayerOutput:
+    """One decoder layer: pre-norm attention and pre-norm DCMoE, each with
+    its residual (`model.py:171-213`).  `seed` is this layer's jitter seed.
+    `text_model_forward` runs its layers through it, and the stream trainer
+    (`train/stream.py`) one layer at a time."""
+    residual = h
+    hn = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
+    attn_out, kv = attention(
+        lp["attn"], hn, cos, sin, cfg, cache_kv=cache_kv, cache_scales=cache_scales,
+        cache_position=cache_position, kv_valid_mask=kv_valid_mask, use_flash=use_flash,
+        decode_emit=decode_emit, prefix_kv=prefix_kv, is_sliding=is_sliding)
+    h = residual + attn_out
+    residual = h
+    hn = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    moe_out = dcmoe_block(
+        lp["moe"], hn, cfg, padding_token_mask=padding_token_mask,
+        aux_balance_weight=aux_balance_weight, training=training, seed=seed,
+        dispatch_mode=dispatch_mode, capacity=capacity)
+    return LayerOutput(residual + moe_out.hidden_states, moe_out.aux_loss,
+                       moe_out.router_top_k, kv, hn)
 
 
 def text_model_forward(
@@ -98,9 +145,11 @@ def text_model_forward(
 
     prefix_kv: prefix-tuning (k, v), each [L, n, KV, Dh]; layer i attends
     over its slice ahead of its keys (no-cache path, `model.py:144-162`).
+
+    Sliding-window layers (`cfg.layer_types`, `sliding_flags`) mask keys a
+    window or more behind the query; a model that has any takes no flash
+    kernel, in any layer (`model.py:113-122`).
     """
-    if cfg.has_sliding_layers:
-        raise NotImplementedError("sliding-window layers are not ported yet")
     B, T, _ = inputs_embeds.shape
     cos, sin = compute_mrope(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     use_cache = kv_cache is not None
@@ -113,39 +162,33 @@ def text_model_forward(
     if decode_emit:
         slots = torch.arange(kv_cache.k.shape[1], device=kv_valid_mask.device)
         layer_mask = kv_valid_mask * (slots[None, :] != cache_position).to(kv_valid_mask.dtype)
+    sliding = sliding_flags(cfg, len(params["layers"]))
+    if cfg.has_sliding_layers:
+        use_flash = False                      # the flash kernel does not window
 
     def layer(i: int, lp: Dict, h: torch.Tensor, pre_k=None, pre_v=None):
-        residual = h
-        hn = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
-        attn_out, new_kv = attention(
-            lp["attn"], hn, cos, sin, cfg,
+        out = layer_apply(
+            lp, h, cos, sin, cfg,
+            kv_valid_mask=layer_mask, padding_token_mask=padding_token_mask,
+            aux_balance_weight=aux_balance_weight, training=training,
+            seed=fold_seed(seed, i) if training and seed is not None else None,
+            use_flash=use_flash, dispatch_mode=dispatch_mode, capacity=capacity,
+            is_sliding=sliding[i],
+            prefix_kv=(pre_k, pre_v) if pre_k is not None else None,
             cache_kv=(kv_cache.k[i], kv_cache.v[i]) if use_cache else None,
             cache_scales=(kv_cache.k_scale[i], kv_cache.v_scale[i]) if quantized else None,
-            cache_position=cache_position,
-            kv_valid_mask=layer_mask,
-            use_flash=use_flash,
-            decode_emit=decode_emit,
-            prefix_kv=(pre_k, pre_v) if pre_k is not None else None,
-        )
+            cache_position=cache_position, decode_emit=decode_emit)
         if decode_emit:
             # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot).
-            k_new, v_new = new_kv[0][:, 0], new_kv[1][:, 0]
+            k_new, v_new = out.kv[0][:, 0], out.kv[1][:, 0]
             if quantized:
                 (k_new, k_s), (v_new, v_s) = quantize_kv(k_new), quantize_kv(v_new)
                 kv_cache.k_scale[i, cache_position] = k_s
                 kv_cache.v_scale[i, cache_position] = v_s
             kv_cache.k[i, cache_position] = k_new.to(kv_cache.k.dtype)
             kv_cache.v[i, cache_position] = v_new.to(kv_cache.v.dtype)
-        h = residual + attn_out
-        residual = h
-        hn = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-        moe_out = dcmoe_block(
-            lp["moe"], hn, cfg, padding_token_mask=padding_token_mask,
-            aux_balance_weight=aux_balance_weight, training=training,
-            seed=fold_seed(seed, i) if training and seed is not None else None,
-            dispatch_mode=dispatch_mode, capacity=capacity)
-        moe_in = hn.float() if output_moe_inputs else None
-        return residual + moe_out.hidden_states, moe_out.aux_loss, moe_out.router_top_k, moe_in
+        moe_in = out.moe_input.float() if output_moe_inputs else None
+        return out.hidden, out.aux_loss, out.router_top_k, moe_in
 
     h = inputs_embeds
     aux, top_k, moe_inputs = [], [], []
@@ -402,42 +445,53 @@ def model_forward(
                        codec_logits=codec_logits, router_top_k=out.router_top_k)
 
 
-def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bfloat16,
-                      device="cuda", with_vision: bool = False) -> Dict:
-    """Random weights made directly on `device`, tensor by tensor in the
-    working dtype (the DCMoE router stays f32, as in the JAX init), from a
-    seeded torch.Generator on that device.  The layout and scales follow
-    `init_model_params` in the JAX package; the numbers differ (another
-    generator).  with_vision adds the vision tower when the config has one,
-    from a generator of its own (seed `fold_seed(seed, 6)`), so the
-    decoder's weights are the same with and without it."""
+def init_layer_params(gen: torch.Generator, cfg: TextMoEConfig, *, dtype=torch.bfloat16,
+                      device="cuda") -> Dict:
+    """One decoder layer's random weights, drawn from `gen` on `device` (the
+    layer of `init_model_params`)."""
+    ones = torch.ones(cfg.hidden_size, dtype=dtype, device=device)
+    return {"input_layernorm": ones, "post_attention_layernorm": ones.clone(),
+            "attn": init_attention_params(gen, cfg, dtype=dtype, device=device),
+            "moe": init_dcmoe_params(gen, cfg, dtype=dtype, device=device)}
+
+
+def init_outer_params(gen: torch.Generator, cfg: UniMoEAudioConfig, *, dtype=torch.bfloat16,
+                      device="cuda") -> Dict:
+    """The random weights outside the layer stack (embeddings, final norm,
+    heads), drawn from `gen` after the layers, as `init_model_params` does."""
     tc = cfg.text_config
     Dm, V = tc.hidden_size, tc.vocab_size
     C, Vc = cfg.codec_channels, cfg.codec_embed_size
     std = tc.initializer_range
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
 
     def nrm(shape, scale):
         return torch.randn(*shape, generator=gen, dtype=dtype, device=device).mul_(scale)
 
-    def ones(n):
-        return torch.ones(n, dtype=dtype, device=device)
-
-    layers = [{
-        "input_layernorm": ones(Dm),
-        "post_attention_layernorm": ones(Dm),
-        "attn": init_attention_params(gen, tc, dtype=dtype, device=device),
-        "moe": init_dcmoe_params(gen, tc, dtype=dtype, device=device),
-    } for _ in range(tc.num_hidden_layers)]
-    params = {
+    return {
         "embed_tokens": nrm((V, Dm), std),
-        "layers": layers,
-        "norm": ones(Dm),
+        "norm": torch.ones(Dm, dtype=dtype, device=device),
         "lm_head": nrm((Dm, V), Dm ** -0.5),
         "codec_embed": nrm((C, Vc, Dm), std),
         "codec_head": nrm((Dm, C * Vc), Dm ** -0.5),
     }
+
+
+def init_model_params(cfg: UniMoEAudioConfig, *, seed: int = 0, dtype=torch.bfloat16,
+                      device="cuda", with_vision: bool = False) -> Dict:
+    """Random weights made directly on `device`, tensor by tensor in the
+    working dtype (the DCMoE router stays f32, as in the JAX init), from a
+    seeded torch.Generator on that device: the layers in order, then the
+    outer weights.  The layout and scales follow `init_model_params` in the
+    JAX package; the numbers differ (another generator).  with_vision adds
+    the vision tower when the config has one, from a generator of its own
+    (seed `fold_seed(seed, 6)`), so the decoder's weights are the same with
+    and without it."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    layers = [init_layer_params(gen, cfg.text_config, dtype=dtype, device=device)
+              for _ in range(cfg.text_config.num_hidden_layers)]
+    outer = init_outer_params(gen, cfg, dtype=dtype, device=device)
+    params = {"embed_tokens": outer.pop("embed_tokens"), "layers": layers, **outer}
     if with_vision and cfg.vision_config is not None:
         params["vision"] = init_vision_params(cfg.vision_config, seed=fold_seed(seed, 6),
                                               dtype=dtype, device=device)

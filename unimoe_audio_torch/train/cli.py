@@ -8,15 +8,21 @@ the same arguments, training one model on one card with `Trainer`.
 
 MODEL_DIR holds config.json and, unless the weights are to be random,
 model.jax.pkl (dense with --initialize, which seeds the experts from it,
-`train/surgery.py`).  ARROW_DIR is a `datasets.save_to_disk` directory of
+`train/surgery.py`).  `--param_offload [--moment_dtype int8]` trains with
+`StreamTrainer` (`train/stream.py`): the layers' weights and Adam moments
+in host memory, streamed one layer at a time through the card (the full
+36-layer flagship on one card), lm_head trained; it resumes from
+OUT/stream_ckpt, counts applied steps (`--gradient_accumulation_steps`
+micro-batches make one) and refuses PEFT, gate-only training and image
+samples.  ARROW_DIR is a `datasets.save_to_disk` directory of
 {"conversations": [...], "image_path": ...} rows (reading it needs the
 `datasets` package, and image rows PIL).  The run writes
 OUT/metrics.jsonl, checkpoints under OUT/checkpoints and OUT/train_done.json.
 
 Runs on the first CUDA card and raises without one; `--cpu` trains on the
-CPU.  `--param_offload` and `--moment_dtype int8` (the offload trainers),
-`--fsdp`, `--ep_size` / `--tp_size` above 1 and the multihost arguments (the
-parallel paths) are parsed and refused: they come with later slices.
+CPU.  `--fsdp`, `--ep_size` / `--tp_size` above 1 and the multihost
+arguments (the parallel paths) are parsed and refused: they come with a
+later slice.
 """
 
 from __future__ import annotations
@@ -50,10 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ep_size", type=int, default=1)
     p.add_argument("--tp_size", type=int, default=1)
     p.add_argument("--param_offload", action="store_true",
-                   help="layer params and f32 Adam moments in host memory, streamed per "
-                        "layer (the offload trainers; not ported yet)")
+                   help="layer params and Adam moments in host memory, streamed one layer "
+                        "at a time through the card (train/stream.py)")
     p.add_argument("--moment_dtype", choices=["float32", "int8"], default="float32",
-                   help="(with --param_offload) Adam-moment storage")
+                   help="(with --param_offload) Adam-moment storage: int8 = blockwise "
+                        "log-quantized codes (train/qmoment.py), 4x less host traffic")
     p.add_argument("--fsdp", action="store_true",
                    help="shard params and optimizer state over the data axis (not ported yet)")
     p.add_argument("--only_gate_training", action="store_true")
@@ -102,11 +109,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """NotImplementedError for the flags of paths not ported yet, naming
     their slice."""
-    if args.param_offload or args.moment_dtype != "float32":
-        raise NotImplementedError(
-            "--param_offload / --moment_dtype int8: the offload and stream trainers come with "
-            "a later slice (ROADMAP §1, the offload trainers); the port trains with the "
-            "parameters and moments on the card")
     if (args.fsdp or args.ep_size > 1 or args.tp_size > 1 or args.multihost
             or args.coordinator_address or args.num_processes is not None
             or args.process_id is not None):
@@ -114,6 +116,65 @@ def refuse_unported(args) -> None:
             f"--fsdp / --ep_size {args.ep_size} / --tp_size {args.tp_size} / the multihost "
             "arguments: training on a device mesh comes with the parallel slice (ROADMAP §1, "
             "the parallel paths); the port trains on one card")
+
+
+def train_streamed(args, cfg, params, device, batches, eval_batches, total_steps: int,
+                   gas: int, ckpt_dir: str, resume: bool) -> int:
+    """--param_offload: `StreamTrainer` with lm_head trained, resumed from
+    ckpt_dir when it holds a checkpoint; gas micro-batches make one applied
+    step (`cli.py:235-300` in the JAX package)."""
+    from unimoe_audio_torch.train.step import make_lr_schedule
+    from unimoe_audio_torch.train.stream import StreamTrainer
+    from unimoe_audio_torch.train.trainer import MetricsLogger
+
+    if args.peft_mode or args.only_gate_training:
+        raise SystemExit("--param_offload is full-parameter training only; PEFT and gate-only "
+                         "curricula run through the standard trainer")
+    image_msg = ("--param_offload does not support image samples; train vision data through "
+                 "the standard trainer")
+    if eval_batches is not None and any("pixel_values" in b for b in eval_batches):
+        raise SystemExit(image_msg)
+    warmup = max(1, int(total_steps * args.warmup_ratio))
+    sched = make_lr_schedule(args.learning_rate, warmup, total_steps, args.lr_scheduler_type)
+    trainer = StreamTrainer(cfg, params, seed=args.seed, restore_dir=ckpt_dir if resume else None,
+                            learning_rate=sched, weight_decay=args.weight_decay,
+                            train_lm_head=True, moment_dtype=args.moment_dtype, device=device)
+    del params
+    if resume:
+        print(f"resumed stream checkpoint at step {trainer.step}")
+    os.makedirs(args.output_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"))
+    try:
+        micro = []
+        for batch in batches:
+            if trainer.step >= total_steps:
+                break
+            if "pixel_values" in batch:
+                raise SystemExit(image_msg)
+            micro.append(batch)
+            if len(micro) < gas:
+                continue
+            m = trainer.train_step(micro, args.seed)
+            micro = []
+            if trainer.step % args.logging_steps == 0 or m.get("skipped"):
+                logger.log(trainer.step, m)
+            if args.eval_steps and eval_batches is not None and trainer.step > 0 \
+                    and trainer.step % args.eval_steps == 0:
+                logger.log(trainer.step, trainer.evaluate(eval_batches))
+            if args.save_steps and trainer.step > 0 and trainer.step % args.save_steps == 0:
+                trainer.save(ckpt_dir)
+        if micro and trainer.step < total_steps:
+            # The trailing partial group (the step divides by its length).
+            logger.log(trainer.step, trainer.train_step(micro, args.seed))
+        if eval_batches is not None:
+            logger.log(trainer.step, trainer.evaluate(eval_batches))
+        trainer.save(ckpt_dir)
+        with open(os.path.join(args.output_dir, "train_done.json"), "w") as f:
+            json.dump({"steps": int(trainer.step)}, f)
+    finally:
+        logger.close()
+        trainer.close()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -157,16 +218,25 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, text_config=tc)
 
     blob_path = os.path.join(args.model_name_or_path, "model.jax.pkl")
-    if os.path.isfile(blob_path):
+    stream_ckpt = os.path.join(args.output_dir, "stream_ckpt")
+    resume_stream = args.param_offload and os.path.isfile(os.path.join(stream_ckpt, "meta.json"))
+    params = None
+    if resume_stream:
+        pass                                  # the stream checkpoint holds the weights
+    elif os.path.isfile(blob_path):
         with open(blob_path, "rb") as f:
             blob = pickle.load(f)
-        params = params_from_jax(blob["params"], cfg, device)
+        # The stream trainer copies the weights into host memory layer by
+        # layer: they need not pass through the card first.
+        params = params_from_jax(blob["params"], cfg,
+                                 torch.device("cpu") if args.param_offload else device)
         if args.initialize:
             params = moeify_dense_params(params, tc, moe_copy=args.moe_copy)
     else:
         print("[warning] no model.jax.pkl found — random init (development run)")
-        params = init_model_params(cfg, seed=args.seed, device=device,
-                                   with_vision=cfg.vision_config is not None)
+        if not args.param_offload:         # the stream trainer draws its own, layer by layer
+            params = init_model_params(cfg, seed=args.seed, device=device,
+                                       with_vision=cfg.vision_config is not None)
 
     # --- data -------------------------------------------------------------
     try:
@@ -206,7 +276,8 @@ def main(argv=None) -> int:
         print(f"eval hold-out: {n_eval} samples → {len(eval_batches)} batches")
 
     gas = max(1, args.gradient_accumulation_steps)
-    steps_per_epoch = max(1, n_train // bs)
+    # The stream trainer counts applied steps; Trainer counts micro-steps.
+    steps_per_epoch = max(1, n_train // (bs * (gas if args.param_offload else 1)))
     total_steps = args.max_steps or int(steps_per_epoch * args.num_train_epochs)
 
     def batches():
@@ -215,6 +286,10 @@ def main(argv=None) -> int:
             order = rng.permutation(n_train)
             for i in range(0, len(order) - bs + 1, bs):
                 yield collator([dataset[int(j)] for j in order[i:i + bs]])
+
+    if args.param_offload:
+        return train_streamed(args, cfg, params, device, prefetch(batches()), eval_batches,
+                              total_steps, gas, stream_ckpt, resume_stream)
 
     # --- train --------------------------------------------------------------
     trainable = None

@@ -37,6 +37,7 @@ import re
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import UniMoEAudioConfig
@@ -111,6 +112,30 @@ class OptState:
     mini_step: int = 0                       # micro-steps in acc
 
 
+def adamw_leaf(p: torch.Tensor, g: Optional[torch.Tensor], m: torch.Tensor, v: torch.Tensor, *,
+               scale, lr: float, count: int, b1: float, b2: float, eps: float, wd: float,
+               update: bool = True) -> None:
+    """One leaf's AdamW update, in place, rounded in the order of the JAX
+    package's offload update (`train/offload.py` `_update_fn`): the f32
+    moments m and v decay and take the clipped gradient g · scale (None: a
+    zero gradient); then, if `update`, p (any dtype) moves by
+    -lr · (m̂ / (√v̂ + eps) + wd · p) with the bias corrections of the
+    post-increment `count`."""
+    m.mul_(b1)
+    v.mul_(b2)
+    if g is not None:
+        g32 = g.float() * scale
+        m.add_(g32 * (1 - b1))
+        v.add_((g32 * (1 - b2)) * g32)
+    if not update:
+        return
+    u = (m / (1 - b1 ** count)) / ((v / (1 - b2 ** count)).sqrt_() + eps)
+    p32 = p.float()
+    if wd:
+        u = u + wd * p32
+    p.copy_(p32 - lr * u)
+
+
 @dataclass
 class AdamW:
     """clip_by_global_norm(grad_clip) → AdamW(schedule) → zero update for
@@ -171,24 +196,14 @@ class AdamW:
                             self.grad_clip / grad_norm)
         lr = self.schedule(state.count)
         count = state.count + 1
-        bc1 = 1 - self.b1 ** count
-        bc2 = 1 - self.b2 ** count
         for (name, p), g, mu, nu in zip(named_leaves(params), grads, state.mu, state.nu):
-            mu32 = mu.float().mul_(self.b1)
-            nu32 = nu.float().mul_(self.b2)
-            if g is not None:
-                g32 = g.float() * scale
-                mu32.add_(g32, alpha=1 - self.b1)
-                nu32.addcmul_(g32, g32, value=1 - self.b2)
+            mu32, nu32 = mu.float(), nu.float()
+            adamw_leaf(p, g, mu32, nu32, scale=scale, lr=lr, count=count, b1=self.b1,
+                       b2=self.b2, eps=self.eps,
+                       wd=self.weight_decay if _decays(name) else 0.0,
+                       update=self.trainable(name))
             mu.copy_(mu32)
             nu.copy_(nu32)
-            if not self.trainable(name):
-                continue
-            u = (mu32 / bc1).div_((nu32 / bc2).sqrt_().add_(self.eps))
-            p32 = p.float()
-            if self.weight_decay and _decays(name):
-                u.add_(p32, alpha=self.weight_decay)
-            p.copy_(p32.sub_(u, alpha=lr))
         state.count = count
 
 
@@ -287,6 +302,12 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
         "mean_top_k": out.router_top_k.float().mean(),
     }
     return out.loss, metrics
+
+
+def place_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A batch of numpy arrays or tensors → tensors on device."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
 
 
 def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:

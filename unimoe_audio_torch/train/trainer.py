@@ -25,7 +25,7 @@ from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models.model import calculate_input_embedding, get_rope_index
 from ..models.vision import vision_forward, vision_indices
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
-    train_step
+    place_batch, train_step
 
 
 @dataclass
@@ -268,8 +268,7 @@ class Trainer:
         return batch
 
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {k: v.to(self.device) if isinstance(v, torch.Tensor)
-                else torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+        return place_batch(batch, self.device)
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
