@@ -85,6 +85,15 @@ failure:
      decode step), then short dense and gmm runs in turns, and one of
      each under torch.profiler (launches, device time and device-to-host
      reads per decode step);
+   - the HF export: the model cut to its first 4 layers written as
+     model.safetensors + config.json in bf16 by `export_hf_checkpoint`
+     (bytes, seconds), reloaded through `UniMoEAudio(dir)`, greedy codes of
+     four captions equal to the source's;
+   - mesh serving: an NCCL process group of one rank, the 1 x 1 x 1
+     (data, expert, model) mesh, the 4-layer view on it
+     (`UniMoEAudio.use_mesh`, what `build_server` does on several ranks):
+     greedy codes equal to the mesh-less run's; a training forward with
+     `dispatch_mode="ep"` under the mesh's split batch against dense;
    - quantized serving: the flagship with `serving_mode="int4"` (int4
      experts, `packed_a8` expert compute, the int8 KV cache) on 32 captions
      through `text_to_music` and `generate_chunked` (the a8 branch counted
@@ -99,7 +108,11 @@ failure:
      a8_compute setting at the tiny config;
    - training: `Trainer.fit` at the flagship width with 4 layers, bf16,
      B 4 x T 2048, remat on, one warm-up and five timed steps, with dense
-     dispatch and then with `dispatch_mode="gmm"` on the same batch;
+     dispatch and then with `dispatch_mode="gmm"` on the same batch; then
+     `Trainer(mesh=make_mesh(1, 1, 1), fsdp=True)` for two steps beside a
+     mesh-less Trainer (losses, parameters, K1-K3 launched, step seconds);
+     and `utils.profiling.timeit_in_jit` against `graph_ms` on one K1
+     launch at the training shape;
    - the training core at the flagship width cut to 2 layers, on the same
      batch: resume (2 steps, `Trainer.save`, a new Trainer that resumes, 2
      more, against 4 straight, bf16; the checkpoint's bytes, save and
@@ -130,11 +143,16 @@ failure:
      stream trainer's `evaluate` card vs CPU; then the 36-layer flagship,
      bf16, B 4 x T 2048, through `OffloadTrainer` (f32 moments in
      page-locked host memory) and `StreamTrainer` (int8 moments, two
-     micro-batches a step), one warm-up and two timed steps each, and the
-     stream trainer again at 4 layers: its peak device memory grows with
+     micro-batches a step), one warm-up and two timed steps (one for the
+     stream trainer) each, and the stream trainer again at 4 layers: its peak device memory grows with
      depth by no more than the boundary activations;
    - sliding-window layers: a 2-layer flagship-width f32 model with one
-     sliding layer (window 64), greedy `generate` card vs CPU, no flash;
+     sliding layer (window 64), greedy `generate` card vs CPU, no flash.
+   The f32 card-vs-CPU checks (voice clone, VT2M, the quantized reference,
+   the sliding-window and PEFT witnesses) run the CPU on the card's
+   routing (`router_tape`), hold the router logits to the VT2M limit (the
+   a8 path's, after int8 roundings, to its logits' limit) and print the
+   tokens each layer's own logits would route otherwise (`route_flips`);
 4. timing of each kernel, its plain version and one PyTorch library call
    at its path's shapes, with the least time the card could take (K1 also
    at the training shape, against SDPA with a boolean mask and with
@@ -318,8 +336,9 @@ INT8_STEP_DRIFT_MIN = 5e-3
 # configuration, bench.py:131-196); then the same at STREAM_SHALLOW_LAYERS
 # layers for one step, whose peak is all that is read: the peak device
 # memory may grow with depth by at most DEPTH_MARGIN x the extra layers'
-# [B, T, D] bf16 boundary activations.
-DEEP_TIMED_STEPS = 2
+# [B, T, D] bf16 boundary activations.  (The stream phase times one step
+# after its warm-up: a second took about 9 s of the script's time limit.)
+DEEP_TIMED_STEPS = 1
 DEEP_MICRO = 2
 STREAM_SHALLOW_LAYERS = 4
 DEPTH_MARGIN = 1.25
@@ -515,6 +534,20 @@ STUDIO_SECONDS = 1.0
 # The PEFT f32 witness (`run_peft`): the exact f32 path's limit, as the
 # voice-clone and VT2M witnesses hold theirs.
 PEFT_REF_REL_L2 = QUANT_REF_EXACT_REL_L2
+
+# The parallel paths at world size 1 (`run_export`, `run_mesh_serving`,
+# `run_mesh_training`): the flagship width cut to MESH_LAYERS layers.  The
+# export is written in bf16 and reloaded; MESH_PROMPTS T2M captions decode
+# MESH_FRAMES greedy frames from the source, the reload and the mesh (one
+# rank, NCCL); the mesh trainer (fsdp on) takes MESH_TRAIN_STEPS steps on
+# the train probe's batch beside a mesh-less one.  `timeit_in_jit` must
+# read one K1 launch at the training shape within TIMEIT_VS_GRAPH of
+# `graph_ms`.
+MESH_LAYERS = 4
+MESH_PROMPTS = 4
+MESH_FRAMES = 16
+MESH_TRAIN_STEPS = 2
+TIMEIT_VS_GRAPH = 0.10
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_f32",
                   "flash_attention_bwd_f32", "grouped_gemm")
@@ -1722,29 +1755,36 @@ def run_peft(card: str) -> dict:
     seconds = (PEFT_WITNESS_FRAMES + cfg.max_delay + 1.5) / 50
     lines = []
     for mode, peft in adapters.items():
-        runs = []
+        runs, tapes = [], []
         for device in ("cuda", "cpu"):
             ref = copy.copy(model)
             ref.device, ref.dac = torch.device(device), None
             ref.params = {**f32, "peft": peft} if device == "cuda" else \
                 _to({**f32, "peft": peft}, device="cpu")
-            with tempfile.TemporaryDirectory() as out_dir, first_decode_logits() as logits:
+            tape: list = []
+            with tempfile.TemporaryDirectory() as out_dir, first_decode_logits() as logits, \
+                    router_tape(tape, tapes[0] if tapes else None):
                 ref.text_to_music(text, output_dir=out_dir, seed=0, do_sample=False,
                                   max_audio_seconds=seconds, min_audio_seconds=seconds)
             runs.append((ref.last_codes[0], ref.last_timings["T_text"], logits[0]))
+            tapes.append(tape)
             del ref
         (card_codes, T_text, card_logits), (cpu_codes, _, cpu_logits) = runs
         err = _rel(card_logits, cpu_logits)
+        router_err, flips = replay_report(*tapes, cfg.text_config)
         share = _equal_frame_share([(card_codes, len(card_codes), cpu_codes, len(cpu_codes))], 0)
-        check(err < PEFT_REF_REL_L2 and share >= SERVE_REF_EQUAL_SHARE
+        check(err < PEFT_REF_REL_L2 and router_err < VT2M_REF_REL_L2
+              and share >= SERVE_REF_EQUAL_SHARE
               and len(card_codes) == len(cpu_codes) == PEFT_WITNESS_FRAMES,
-              f"PEFT f32 witness ({mode}): first decode logits relative L2 {err}, equal frames "
-              f"{share}, frames {len(card_codes)} / {len(cpu_codes)}")
+              f"PEFT f32 witness ({mode}): first decode logits relative L2 {err}, router logits "
+              f"{router_err}, equal frames {share}, frames {len(card_codes)} / {len(cpu_codes)}")
         lines.append(f"{mode}: T_text {T_text}, first decode step's codec logits relative L2 "
-                     f"{err:.3e}, {len(card_codes)} frames, equal {share:.4f}")
+                     f"{err:.3e}, router logits {router_err:.3e}, {len(card_codes)} frames, "
+                     f"equal {share:.4f}, route_flips {sum(flips)} over {len(flips)} calls")
     print(f"reference check [{card}]: PEFT f32 witness, {L} layers at flagship width, greedy "
-          f"text_to_music, card vs CPU (limits {PEFT_REF_REL_L2} and {SERVE_REF_EQUAL_SHARE} "
-          f"equal frames): " + "; ".join(lines), flush=True)
+          f"text_to_music, card vs CPU under the card's routing (limits {PEFT_REF_REL_L2}, "
+          f"router logits {VT2M_REF_REL_L2}, {SERVE_REF_EQUAL_SHARE} equal frames): "
+          + "; ".join(lines), flush=True)
     del f32, adapters, model
     torch.cuda.empty_cache()
 
@@ -1982,19 +2022,28 @@ def check_small_offload_stream(card: str) -> None:
             el = float((u8 - u32).abs().max() / u32.abs().max())
             worst = max(worst, (n, el), key=lambda x: x[1])
     del p2, snaps, p0
+    s8.close()
+    del s8
+    # The checkpoint round trip at one layer: the same int8 path and leaves
+    # (the embeddings and lm_head, most of the bytes, included).
+    c1 = dataclasses.replace(cfg, text_config=dataclasses.replace(tc, num_hidden_layers=1))
+    s1 = StreamTrainer(c1, params(c1), learning_rate=sched, weight_decay=wd, train_lm_head=True,
+                       moment_dtype="int8")
+    for b in batches[:2]:
+        s1.train_step(b, seed)
     with tempfile.TemporaryDirectory() as ck:
         t1 = time.perf_counter()
-        s8.save(ck)
+        s1.save(ck)
         save_s = time.perf_counter() - t1
         ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
-        p_ck = _snapshot(s8)
+        p_ck = _snapshot(s1)
         for b in batches[2:S + 1]:
-            s8.train_step(b, seed)
-        straight = _snapshot(s8)
-        s8.close()
-        del s8
+            s1.train_step(b, seed)
+        straight = _snapshot(s1)
+        s1.close()
+        del s1
         t1 = time.perf_counter()
-        resumed = StreamTrainer(cfg, restore_dir=ck, learning_rate=sched, weight_decay=wd,
+        resumed = StreamTrainer(c1, restore_dir=ck, learning_rate=sched, weight_decay=wd,
                                 train_lm_head=True, moment_dtype="int8", param_dtype=f32)
         restore_s = time.perf_counter() - t1
     for b in batches[2:S + 1]:
@@ -2038,8 +2087,8 @@ def check_small_offload_stream(card: str) -> None:
           f"(max {d1[0]:.3e}, relative L2 {d1_rel:.3e} of the update); second update against "
           f"f32's, relative L2 per leaf at most {worst_l2[1]:.4f} ({worst_l2[0]}; limits "
           f"{INT8_STEP_DRIFT_MIN} to {INT8_STEP_DRIFT}), largest element's difference over the "
-          f"leaf's largest f32 move {worst[1]:.3f} ({worst[0]}; limit {INT8_STEP_ELEMENT}); 2 steps + save ({ck_bytes / 1e9:.2f} GB in "
-          f"{save_s:.2f} s) + restore ({restore_s:.2f} s) + 2 steps vs 4 straight: {res[1]} "
+          f"leaf's largest f32 move {worst[1]:.3f} ({worst[0]}; limit {INT8_STEP_ELEMENT}); at "
+          f"one layer, 2 steps + save ({ck_bytes / 1e9:.2f} GB in {save_s:.2f} s) + restore ({restore_s:.2f} s) + 2 steps vs 4 straight: {res[1]} "
           f"elements differ (max {res[0]:.3e}, relative L2 {res_rel:.3e} of the last two "
           f"updates); two f32 runs differ in {[f[1] for f in floor]} elements"
           f"{' (bit-equal: deterministic path)' if deterministic else ''}; {t_int8:.1f} s; "
@@ -2208,11 +2257,13 @@ def check_sliding_window(card: str) -> None:
     prefill, steps = dl.prepare_audio_prompt(
         [None] * B, num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
         delay_pattern=cfg.codec_delay_pattern)
-    runs = []
+    runs, tapes = [], []
     counts = _launch_counts()
     for device in ("cuda", "cpu"):
         p = params if device == "cuda" else _to(params, device="cpu")
-        with torch.inference_mode(), first_decode_logits() as logits:
+        tape: list = []
+        with torch.inference_mode(), first_decode_logits() as logits, \
+                router_tape(tape, tapes[0] if tapes else None):
             res = generate(p, cfg, torch.as_tensor(ids, device=device),
                            torch.as_tensor(mask, device=device), None,
                            pad_buffer(torch.as_tensor(prefill, device=device), SLIDING_FRAMES),
@@ -2221,19 +2272,23 @@ def check_sliding_window(card: str) -> None:
                            temperature=1.0, top_p=1.0, cfg_filter_top_k=45,
                            eos_prob_mul_factor=1.0, do_sample=False)
         runs.append((res.codes.cpu(), res.lengths.cpu(), logits[0]))
+        tapes.append(tape)
         del p
     k1 = {k: v - counts[k] for k, v in _launch_counts().items()
           if k.startswith("flash_attention_fwd") and v != counts[k]}
     err = _rel(runs[0][2], runs[1][2])
     equal = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
-    check(err <= SLIDING_REL_L2 and equal and not k1,
-          f"sliding-window witness: first decode logits relative L2 {err}, frames equal "
-          f"{equal}, K1 launches {k1}")
+    router_err, flips = replay_report(*tapes, tc, torch.as_tensor(mask.reshape(-1) > 0))
+    check(err <= SLIDING_REL_L2 and router_err < VT2M_REF_REL_L2 and equal and not k1,
+          f"sliding-window witness: first decode logits relative L2 {err}, router logits "
+          f"{router_err}, frames equal {equal}, K1 launches {k1}")
     print(f"reference check [{card}]: sliding-window witness, layers {SLIDING_LAYER_TYPES} at "
           f"flagship width, window {SLIDING_WINDOW}, f32, greedy prefill of {SLIDING_T_TEXT} "
-          f"tokens (one row left-padded by 20) and {SLIDING_FRAMES} frames, card vs CPU: first "
-          f"decode step's codec logits relative L2 {err:.3e} (limit {SLIDING_REL_L2}), frames "
-          f"equal, no K1 launch", flush=True)
+          f"tokens (one row left-padded by 20) and {SLIDING_FRAMES} frames, card vs CPU under "
+          f"the card's routing: first decode step's codec logits relative L2 {err:.3e} (limit "
+          f"{SLIDING_REL_L2}), router logits {router_err:.3e} (limit {VT2M_REF_REL_L2}), frames "
+          f"equal, no K1 launch; route_flips over {len(flips)} calls: {sum(flips)} "
+          f"(by call, nonzero: {[(i, f) for i, f in enumerate(flips) if f]})", flush=True)
     del params
     torch.cuda.empty_cache()
 
@@ -2451,19 +2506,27 @@ def check_voice_clone_reference(flag_cfg, ids, mask, flat_codec, card: str) -> N
                                tc.head_dim, dtype=torch.float32, device=device)
         emb = M.calculate_input_embedding(params, t(ids), t(aligned), cfg.codec_placeholder_value)
         kv_valid = np.concatenate([mask, np.zeros((B, 2), mask.dtype)], -1)
-        out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
-                                   kv_cache=cache, cache_position=0,
-                                   kv_valid_mask=t(kv_valid, torch.int32),
-                                   padding_token_mask=t(mask, torch.int32))
-        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+        tape: list = []
+        with router_tape(tape, replay):
+            out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
+                                       kv_cache=cache, cache_position=0,
+                                       kv_valid_mask=t(kv_valid, torch.int32),
+                                       padding_token_mask=t(mask, torch.int32))
+        return M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live], tape
 
     with torch.inference_mode():
-        err = _rel(run("cuda"), run("cpu"))
+        got, card_tape = run("cuda")
+        want, cpu_tape = run("cpu", replay=card_tape)
+    err = _rel(got, want)
+    router_err, flips = replay_report(card_tape, cpu_tape, tc, live.reshape(-1))
     print(f"reference check [{card}]: 2-layer flagship-width voice-clone prefill, f32, one CFG "
           f"pair of the TTS batch (T {T}, {int((ids == cfg.codec_placeholder_value).sum())} "
-          f"placeholder slots filled with the prompt's codes), card vs CPU, codec logits "
-          f"relative L2 {err:.3e} (limit {VOICE_REF_REL_L2})", flush=True)
-    check(err < VOICE_REF_REL_L2, f"voice-clone prefill, card vs CPU: relative L2 {err}")
+          f"placeholder slots filled with the prompt's codes), card vs CPU under the card's "
+          f"routing: codec logits relative L2 {err:.3e} (limit {VOICE_REF_REL_L2}), router "
+          f"logits {router_err:.3e} (limit {VT2M_REF_REL_L2}); route_flips by layer {flips} "
+          f"of {int(live.sum())} live tokens", flush=True)
+    check(err < VOICE_REF_REL_L2 and router_err < VT2M_REF_REL_L2,
+          f"voice-clone prefill, card vs CPU: relative L2 {err} (router logits {router_err})")
     del gpu, cpu
     torch.cuda.empty_cache()
 
@@ -3327,13 +3390,18 @@ def router_tape(tape: list, replay: list | None = None):
 
     select, mixer = R.dynamic_expert_selection, R.sparse_expert_mixer_eval
 
+    def replaying():
+        # Past the replayed run's last call (a run that goes on longer) each
+        # call routes on its own.
+        return replay is not None and len(tape) <= len(replay)
+
     def tapped_select(logits, top_p):
         k = select(logits, top_p)
         tape.append([logits.float().cpu(), k.cpu()])
-        return k if replay is None else replay[len(tape) - 1][1].to(k.device)
+        return replay[len(tape) - 1][1].to(k.device) if replaying() else k
 
     def tapped_mixer(scores, top_k, *, jitter_eps):
-        if replay is not None:
+        if replaying():
             scores = replay[len(tape) - 1][0].to(scores.device, scores.dtype)
         return mixer(scores, top_k, jitter_eps=jitter_eps)
 
@@ -3357,6 +3425,22 @@ def route_flips(tape_a: list, tape_b: list, tc) -> list:
         out.append((ka != kb) | (ma != mb).any(-1)
                    | ((wa - wb).abs() > ROUTE_WEIGHT_JUMP).any(-1))
     return out
+
+
+def replay_report(card_tape: list, cpu_tape: list, tc, live=None) -> tuple:
+    """(router logits relative L2, route flips by call) of a CPU run that
+    replayed the card's tape: the largest relative L2 of the two runs'
+    router logits over a call's rows, and per call the count of rows that
+    the CPU's own logits would route otherwise (`route_flips`).  live, a
+    [S] bool, restricts the calls of S rows (a prefill's) to live tokens."""
+    check(len(card_tape) == len(cpu_tape),
+          f"router tapes of {len(card_tape)} and {len(cpu_tape)} calls")
+    err, flips = 0.0, []
+    for (a, _), (b, _), f in zip(card_tape, cpu_tape, route_flips(card_tape, cpu_tape, tc)):
+        rows = live if live is not None and len(live) == len(a) else slice(None)
+        err = max(err, _rel(a[rows], b[rows]))
+        flips.append(int(f[rows].sum()))
+    return err, flips
 
 
 def check_vt2m_reference(flag_cfg, captured: dict, card: str) -> None:
@@ -4281,7 +4365,7 @@ def check_quantized_reference(card: str) -> None:
     codes = rng.integers(0, cfg.codec_embed_size, size=(B, 1, cfg.codec_channels))
     live = torch.as_tensor(mask, dtype=torch.bool)
 
-    def run(device, dispatch_mode, kv_dtype, noise: float = 0.0):
+    def run(device, dispatch_mode, kv_dtype, noise: float = 0.0, replay=None):
         params = cpu if device == "cpu" else gpu
         t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)   # noqa: E731
         cache = KVCache.create(tc.num_hidden_layers, B, T_max, tc.num_key_value_heads,
@@ -4290,29 +4374,37 @@ def check_quantized_reference(card: str) -> None:
         if noise:
             gen = torch.Generator().manual_seed(9)
             emb = emb * (1 + noise * torch.randn(emb.shape, generator=gen)).to(device)
-        out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
-                                   kv_cache=cache, cache_position=0,
-                                   kv_valid_mask=t(kv_valid, torch.int32),
-                                   padding_token_mask=t(mask, torch.int32),
-                                   dispatch_mode=dispatch_mode, capacity=B * T,
-                                   output_moe_inputs=True)
-        pre = M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
-        step_valid = kv_valid.copy()
-        step_valid[:, T] = 1
-        step = M.text_model_forward(
-            params, M.codec_embedding(params, t(codes)),
-            t(mask.sum(-1))[None, :, None].expand(3, B, 1), tc, kv_cache=cache,
-            cache_position=T, kv_valid_mask=t(step_valid, torch.int32),
-            dispatch_mode=dispatch_mode, capacity=B)
+        tape: list = []
+        with router_tape(tape, replay):
+            out = M.text_model_forward(params, emb, t(pos)[None].expand(3, B, T), tc,
+                                       kv_cache=cache, cache_position=0,
+                                       kv_valid_mask=t(kv_valid, torch.int32),
+                                       padding_token_mask=t(mask, torch.int32),
+                                       dispatch_mode=dispatch_mode, capacity=B * T,
+                                       output_moe_inputs=True)
+            pre = M.codec_logits_from_hidden(params, out.last_hidden_state, cfg).cpu()[live]
+            step_valid = kv_valid.copy()
+            step_valid[:, T] = 1
+            step = M.text_model_forward(
+                params, M.codec_embedding(params, t(codes)),
+                t(mask.sum(-1))[None, :, None].expand(3, B, 1), tc, kv_cache=cache,
+                cache_position=T, kv_valid_mask=t(step_valid, torch.int32),
+                dispatch_mode=dispatch_mode, capacity=B)
         dec = M.codec_logits_from_hidden(params, step.last_hidden_state, cfg).cpu()
-        return pre, dec, out.moe_inputs[0].reshape(B * T, -1).cpu(), cache
+        return pre, dec, out.moe_inputs[0].reshape(B * T, -1).cpu(), cache, tape
 
+    # The CPU runs replay the card's routing (router_tape): a token at a
+    # near-set boundary would otherwise take other experts at f32 noise.
+    flat_live = live.reshape(-1)
     with torch.inference_mode():
-        exact = _rel(run("cuda", "packed", torch.float32)[0],
-                     run("cpu", "packed", torch.float32)[0])
-        pre_c, dec_c, moe_in, _ = run("cpu", "packed_a8", "int8")
-        pre_n, dec_n, _, _ = run("cpu", "packed_a8", "int8", QUANT_REF_NOISE)
-        pre_g, dec_g, _, cache = run("cuda", "packed_a8", "int8")
+        on_card = run("cuda", "packed", torch.float32)
+        on_cpu = run("cpu", "packed", torch.float32, replay=on_card[4])
+        exact = _rel(on_card[0], on_cpu[0])
+        router = {"packed": replay_report(on_card[4], on_cpu[4], tc, flat_live)}
+        pre_g, dec_g, _, cache, tape_g = run("cuda", "packed_a8", "int8")
+        pre_c, dec_c, moe_in, _, tape_c = run("cpu", "packed_a8", "int8", replay=tape_g)
+        pre_n, dec_n, _, _, _ = run("cpu", "packed_a8", "int8", QUANT_REF_NOISE, replay=tape_g)
+        router["packed_a8"] = replay_report(tape_g, tape_c, tc, flat_live)
         check(cache.quantized and bool(cache.k_scale[:, T].gt(0).all()),
               "reference check: the decode step did not commit a quantized slot")
         w = cpu["layers"][0]["moe"]["dynamic"]["gate"]
@@ -4326,6 +4418,11 @@ def check_quantized_reference(card: str) -> None:
           "the card and the CPU")
     check(exact < QUANT_REF_EXACT_REL_L2,
           f"reference check: int8 weights through packed dispatch, card vs CPU: {exact}")
+    # The a8 path's router logits follow the int8 roundings of the layers
+    # below them: they are held to its limit, the f32 path's to the VT2M
+    # check's.
+    check(router["packed"][0] < VT2M_REF_REL_L2 and router["packed_a8"][0] < QUANT_REF_REL_L2,
+          f"reference check: router logits, card vs CPU: {router}")
     for what, (card_err, noise_err) in errs.items():
         check(card_err < QUANT_REF_REL_L2 and card_err <= QUANT_REF_VS_NOISE * max(noise_err, 1e-6),
               f"reference check: packed_a8 / int8 cache {what} logits, card vs CPU {card_err}, "
@@ -4336,7 +4433,9 @@ def check_quantized_reference(card: str) -> None:
               f"{k} {c:.3e} (the CPU moved by its input x (1 + {QUANT_REF_NOISE} N(0, 1)): "
               f"{n:.3e})" for k, (c, n) in errs.items())
           + f" (limits {QUANT_REF_REL_L2}, and {QUANT_REF_VS_NOISE} x the CPU's own move); "
-          f"int32 products of layer 0's dynamic gate ({tuple(prod_c.shape)}) equal", flush=True)
+          f"int32 products of layer 0's dynamic gate ({tuple(prod_c.shape)}) equal; under the "
+          f"card's routing, router logits relative L2 and route_flips by call: " + ", ".join(
+              f"{k} {e:.3e} {f}" for k, (e, f) in router.items()), flush=True)
 
 
 def run_gptq_slice(card: str) -> None:
@@ -4817,6 +4916,171 @@ def time_grouped(errs: dict, card: str) -> list:
     return recs
 
 
+def _greedy_t2m(model, prompts, n_frames: int):
+    """Greedy codes [B, n_frames, C] of `generate_chunked` over the prompts'
+    CFG pairs, dense dispatch."""
+    res, _ = generate_dispatch(model, prompts, "dense", n_frames, n_frames, 0, do_sample=False)
+    return res.codes.cpu()
+
+
+def run_export(model, prompts, card: str) -> dict:
+    """The HF-layout export of the flagship cut to MESH_LAYERS layers
+    (`layer_view`), bf16: its bytes and seconds, then the reload through
+    `UniMoEAudio(dir)`, whose greedy codes must equal the source's.  The
+    source's router gates are rounded to bf16 first (the model keeps them in
+    f32; the bf16 export and the loader's cast round them), so that source
+    and reload hold the same numbers.  Returns the reload run's launch
+    counts."""
+    import torch
+    from unimoe_audio_torch.api import UniMoEAudio
+    from unimoe_audio_torch.core.export import export_hf_checkpoint
+
+    view = layer_view(model, MESH_LAYERS)
+    view.params = {**view.params, "layers": [
+        {**lp, "moe": {**lp["moe"], "gate": lp["moe"]["gate"].to(torch.bfloat16)}}
+        for lp in view.params["layers"]]}
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = export_hf_checkpoint(view.params, view.config, d, dtype="bfloat16")
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reload = UniMoEAudio(d, dtype=torch.bfloat16, tokenizer=model.tokenizer,
+                             device=model.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    as_json = lambda c: json.loads(json.dumps(c.to_dict(), default=list))   # noqa: E731
+    check(as_json(reload.config) == as_json(view.config), "export: the reload's config differs")
+    src = _greedy_t2m(view, prompts[:2 * MESH_PROMPTS], MESH_FRAMES)
+    _zero_launch_counts()
+    got = _greedy_t2m(reload, prompts[:2 * MESH_PROMPTS], MESH_FRAMES)
+    launches = _launch_counts()
+    check(torch.equal(got, src), "export: the reload's greedy codes differ from the source's in "
+          f"{int((got != src).sum())} of {got.numel()}")
+    print(f"export [{card}]: the flagship cut to {MESH_LAYERS} layers as model.safetensors + "
+          f"config.json (bf16, the port's writer): {n / 1e9:.3f} GB in {export_s:.2f} s "
+          f"({n / 1e9 / export_s:.2f} GB/s); reload through UniMoEAudio {load_s:.2f} s; greedy "
+          f"codes of {MESH_PROMPTS} captions x {MESH_FRAMES} frames equal to the source's; K1 "
+          f"launches {launches['flash_attention_fwd']}", flush=True)
+    del reload
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_mesh_serving(model, prompts, card: str) -> dict:
+    """Serving on a 1 x 1 x 1 mesh over NCCL (`UniMoEAudio.use_mesh`, what
+    `build_server` does on several ranks) of the flagship cut to
+    MESH_LAYERS layers: greedy codes equal to the mesh-less view's; and a
+    training forward with dispatch_mode="ep" under the mesh's split batch
+    against dense.  Returns the mesh serving run's launch counts."""
+    import torch
+    from unimoe_audio_torch.parallel.mesh import make_mesh, set_mesh, use_mesh
+    from unimoe_audio_torch.train.step import loss_fn
+
+    view = layer_view(model, MESH_LAYERS)
+    want = _greedy_t2m(view, prompts[:2 * MESH_PROMPTS], MESH_FRAMES)
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    mesh_s = time.perf_counter() - t0
+    served = layer_view(model, MESH_LAYERS)
+    served.use_mesh(mesh)
+    try:
+        _zero_launch_counts()
+        got = _greedy_t2m(served, prompts[:2 * MESH_PROMPTS], MESH_FRAMES)
+        launches = _launch_counts()
+    finally:
+        set_mesh(None)
+    check(torch.equal(got, want) and launches["flash_attention_fwd"] > 0,
+          f"mesh serving: codes differ in {int((got != want).sum())}, K1 launches "
+          f"{launches['flash_attention_fwd']}")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in probe_batch(view.config, B=2, T=512).items()}
+    with torch.no_grad(), use_mesh(mesh, split_batch=True):
+        ep = float(loss_fn(view.params, view.config, batch, 0, 0.01, dispatch_mode="ep",
+                           remat=False)[0])
+    with torch.no_grad():
+        dense = float(loss_fn(view.params, view.config, batch, 0, 0.01, remat=False)[0])
+    rel = abs(ep - dense) / abs(dense)
+    check(rel <= TRAIN_LOSS_REL, f"ep dispatch under the mesh: loss {ep} vs dense {dense}")
+    print(f"mesh serving [{card}]: NCCL process group of one rank and the 1 x 1 x 1 mesh in "
+          f"{mesh_s:.2f} s; the flagship cut to {MESH_LAYERS} layers on it: greedy codes of "
+          f"{MESH_PROMPTS} captions x {MESH_FRAMES} frames equal to the mesh-less run's, K1 "
+          f"launches {launches['flash_attention_fwd']}; a bf16 training forward (B 2 x T 512) "
+          f"with dispatch_mode='ep' under the split batch: loss {ep:.5f} vs dense {dense:.5f} "
+          f"(relative {rel:.2e}, limit {TRAIN_LOSS_REL})", flush=True)
+    return launches
+
+
+def run_mesh_training(card: str) -> dict:
+    """`Trainer(mesh=make_mesh(1, 1, 1), fsdp=True)` at the flagship width
+    cut to MESH_LAYERS layers, bf16, the train probe's batch,
+    MESH_TRAIN_STEPS steps, beside the same Trainer without a mesh: losses
+    within TRAIN_LOSS_REL, the parameters' difference within
+    TRAIN_ACCUM_REL of the update; K1-K3 launched; step seconds.  Returns
+    the mesh run's launch counts."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.parallel.mesh import make_mesh
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = UniMoEAudioConfig(text_config=dataclasses.replace(
+        TextMoEConfig(), num_hidden_layers=MESH_LAYERS), vision_config=None)
+    batch = probe_batch(cfg)
+    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100, log_every=1)
+    runs = {}
+    for name, mesh in (("plain", None), ("mesh", make_mesh(1, 1, 1, device="cuda"))):
+        params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        p0 = [t.detach().clone() for t in _leaves(params)] if name == "plain" else None
+        tr = Trainer(cfg, params, tcfg, mesh=mesh, fsdp=mesh is not None, device="cuda")
+        _zero_launch_counts()
+        hist, _, marks = _fit_marked(tr, batch, MESH_TRAIN_STEPS)
+        runs[name] = (hist, _param_leaves(tr), _durations(marks), _launch_counts(), p0)
+        del tr, params
+        torch.cuda.empty_cache()
+    (h0, q0, _, _, p0), (h1, q1, secs, launches, _) = runs["plain"], runs["mesh"]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(h0, h1))
+    upd = _leaf_diff(q0, p0)[2]
+    diff = _leaf_diff(q1, q0)
+    check(loss_rel <= TRAIN_LOSS_REL and diff[2] <= TRAIN_ACCUM_REL * upd
+          and all(launches[k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv")),
+          f"mesh training: loss relative {loss_rel}, parameters {diff} vs an update of {upd}, "
+          f"launches {launches}")
+    print(f"mesh training [{card}]: Trainer(mesh=1 x 1 x 1, NCCL, fsdp=True), the flagship cut "
+          f"to {MESH_LAYERS} layers, bf16, B {TRAIN_B} x T {TRAIN_T}, {MESH_TRAIN_STEPS} steps: "
+          f"losses {[round(h['loss'], 5) for h in h1]} vs mesh-less "
+          f"{[round(h['loss'], 5) for h in h0]} (relative {loss_rel:.2e}, limit "
+          f"{TRAIN_LOSS_REL}); parameters differ in {diff[1]} elements, L2 {diff[2]:.3e} "
+          f"against the update's {upd:.3e} (limit {TRAIN_ACCUM_REL} of it); step seconds "
+          f"{[round(x, 4) for x in secs]}; launches per step {_per_step(launches, MESH_TRAIN_STEPS)}",
+          flush=True)
+    return launches
+
+
+def check_timeit_in_jit(card: str) -> None:
+    """`utils.profiling.timeit_in_jit` (a CUDA graph of the calls, timed by
+    events) against `graph_ms` (the same, each call after an L2 flush,
+    less the flushes) on one K1 launch at the training shape: within
+    TIMEIT_VS_GRAPH.  The launch counts are left as they were."""
+    from unimoe_audio_torch.ops.flash_attention import flash_attention
+    from unimoe_audio_torch.utils.profiling import timeit_in_jit
+
+    saved = _launch_counts()
+    q, k, v, valid = flash_inputs(TRAIN_B, 16, 2, TRAIN_T, TRAIN_T, 128,
+                                  np.ones((TRAIN_B, TRAIN_T), np.int32), seed=9)
+    jit_ms = timeit_in_jit(flash_attention, q, k, v, valid, iters=20) * 1e3
+    g_ms = graph_ms(lambda: flash_attention(q, k, v, valid), 20)
+    _set_launch_counts(saved)
+    check(g_ms is not None and abs(jit_ms - g_ms) <= TIMEIT_VS_GRAPH * g_ms,
+          f"timeit_in_jit {jit_ms} ms vs graph_ms {g_ms} ms on K1")
+    print(f"profiling [{card}]: K1 at B {TRAIN_B} x 16 heads x T {TRAIN_T} x Dh 128, bf16: "
+          f"timeit_in_jit {jit_ms:.4f} ms, graph_ms {g_ms:.4f} ms (limit {TIMEIT_VS_GRAPH:.0%} "
+          f"apart)", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4883,6 +5147,10 @@ def main() -> None:
         serving_launches, admit_rec = run_serving_apps(model, card, out_dir, stamp)
         gmm_t2m_launches = run_gmm_serving(model, prompts, card, out_dir)
         stamp("gmm serving")
+        export_launches = run_export(model, prompts, card)
+        stamp("the HF export at 4 layers and its reload")
+        mesh_serve_launches = run_mesh_serving(model, prompts, card)
+        stamp("serving and an ep forward on the 1 x 1 x 1 mesh")
     del model
     torch.cuda.empty_cache()
     quant_launches = run_quantized_serving(card, stamp)
@@ -4963,6 +5231,10 @@ def main() -> None:
     gmm_train_launches, _ = run_train_slice(card, "gmm", dense_losses)
     torch.cuda.empty_cache()
     stamp("gmm training")
+    mesh_train_launches = run_mesh_training(card)
+    stamp("mesh training at world size 1")
+    check_timeit_in_jit(card)
+    stamp("timeit_in_jit against graph_ms")
     core_launches = run_train_core(card)
     stamp("the training core (resume, accumulation, mixer, export)")
     vision_train_launches = run_train_vision(card)
@@ -4989,7 +5261,9 @@ def main() -> None:
              **quant_launches,
              "train": train_launches, "train_gmm": gmm_train_launches, **core_launches,
              "train_vision": vision_train_launches, "train_peft": peft_launches,
-             "train_offload": offload_launches, "train_stream": train_stream_launches}
+             "train_offload": offload_launches, "train_stream": train_stream_launches,
+             "export": export_launches, "mesh_serve": mesh_serve_launches,
+             "mesh_train": mesh_train_launches}
     for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -5001,7 +5275,7 @@ def main() -> None:
                 c: {p: n[f"grouped_gemm_gmm_{c}"] for p, n in paths.items()}
                 for c in ("small", "large")}
             rec["t2m_gmm_layers"] = GMM_SERVING_LAYERS          # the gmm serving run's depth
-    for path in ("train_vision", "train_peft", "train_offload", "train_stream"):
+    for path in ("train_vision", "train_peft", "train_offload", "train_stream", "mesh_train"):
         check(all(paths[path][k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
                                                   "flash_attention_bwd_dkv")),
               f"K1, K2 or K3 not launched on the {path} path: {paths[path]}")
@@ -5020,10 +5294,14 @@ def main() -> None:
             "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms_graph", "max_abs_err")}
     fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
-                                     for p in ("train", "train_gmm")}
+                                     for p in ("train", "train_gmm", "mesh_train")}
     fwd_rec["train_shape"] = fwd_train
 
     print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *f32_recs, *grouped_recs]}), flush=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

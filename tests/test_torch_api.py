@@ -35,6 +35,7 @@ from unimoe_audio_torch.generate.loop import generate, pad_buffer
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.moe import dispatch as TD
 from unimoe_audio_torch.ops.quant import QTensor, is_int4, is_kmajor, qvalues
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

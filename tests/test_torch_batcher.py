@@ -30,6 +30,7 @@ from unimoe_audio_torch.core.bridge import dac_params_from_jax, params_from_jax
 from unimoe_audio_torch.generate.sampler import counter_uniform, row_keys, sample_next_token
 from unimoe_audio_tpu import api as JAPI
 from unimoe_audio_tpu.config import tiny_test_config as j_tiny_test_config
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SECONDS = dict(max_audio_seconds=16 / 50, min_audio_seconds=4 / 50)
 

@@ -25,6 +25,7 @@ from unimoe_audio_torch.generate.loop import generate, pad_buffer
 from unimoe_audio_tpu.apps import continuous as JC
 from unimoe_audio_tpu.config import tiny_test_config as j_tiny_test_config
 from unimoe_audio_tpu.models.model import init_model_params as j_init
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T_TEXT = 8
 

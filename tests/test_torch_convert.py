@@ -35,6 +35,7 @@ from unimoe_audio_torch.config import UniMoEAudioConfig, tiny_test_config
 from unimoe_audio_torch.core import convert as TCV
 from unimoe_audio_torch.core.bridge import dac_params_from_jax, params_from_jax, to_numpy
 from unimoe_audio_torch.generate.loop import generate, pad_buffer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_trees_equal(got, want, path=""):

@@ -8,6 +8,7 @@ import os
 import pytest
 
 from unimoe_audio_torch.ops import cuda_build
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _write(path, text):

@@ -14,6 +14,7 @@ from unimoe_audio_tpu.codec import dac as JDAC
 from unimoe_audio_torch.codec import dac as TDAC
 from unimoe_audio_torch.codec.dac_wrapper import Dac
 from unimoe_audio_torch.core.bridge import dac_params_from_jax
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

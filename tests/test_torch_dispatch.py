@@ -27,6 +27,7 @@ from unimoe_audio_torch.core.bridge import to_torch
 from unimoe_audio_torch.moe import block as TB
 from unimoe_audio_torch.moe import dispatch as TDsp
 from unimoe_audio_torch.ops import grouped_gemm as GG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 @pytest.fixture(scope="module")
 def jx():
@@ -334,22 +335,31 @@ def test_token_drop_matches_jax(jx, policy):
 
 
 def test_unported_dispatch_raises():
-    """ep (the parallel slice) raises with a message; gmm_a8, a8 in training
-    and unknown modes are errors, as in the JAX package.  (QTensor weights
-    through gmm: tests/test_torch_quant.py.)"""
+    """Without a mesh, ep dispatch is the packed path (its all-to-alls over
+    a one-rank group are the identity; the multi-rank cases:
+    tests/test_torch_parallel.py), and ep_capacity with axis_name the local
+    count; gmm_a8, a8 in training and unknown modes are errors, as in the
+    JAX package.  (QTensor weights through gmm: tests/test_torch_quant.py.)"""
     cfg = tiny_test_config().text_config
     x = torch.zeros(1, 2, cfg.hidden_size)
-    for mode in ("ep", "ep_a8"):
-        with pytest.raises(NotImplementedError):
-            TB.dcmoe_block({}, x, cfg, dispatch_mode=mode)
     for kw in ({"dispatch_mode": "gmm_a8"}, {"dispatch_mode": "packed_a8", "training": True},
-               {"dispatch_mode": "sparse"}):
+               {"dispatch_mode": "ep_a8", "training": True}, {"dispatch_mode": "sparse"}):
         with pytest.raises(ValueError):
             TB.dcmoe_block({}, x, cfg, **kw)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TDsp.moe_ffn_ep()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TDsp.ep_capacity(torch.ones(2, 2), axis_name="expert")
+    gen = torch.Generator().manual_seed(0)
+    params = TB.init_dcmoe_params(gen, cfg, dtype=torch.float32, device="cpu")
+    h = torch.randn(2, 5, cfg.hidden_size, generator=gen)
+    want = TB.dcmoe_block(params, h, cfg, dispatch_mode="packed").hidden_states
+    got = TB.dcmoe_block(params, h, cfg, dispatch_mode="ep").hidden_states
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)   # the argsort pack
+    mask = (torch.rand(10, 4, generator=gen) < 0.5).to(torch.int32)
+    w = torch.rand(10, 4, generator=gen)
+    hid = torch.randn(10, cfg.hidden_size, generator=gen)
+    cap = int(TDsp.ep_capacity(mask, axis_name="expert"))
+    assert cap == int(mask.sum(0).max())
+    torch.testing.assert_close(TDsp.moe_ffn_ep(hid, mask, w, params["dynamic"], cap),
+                               TDsp.moe_ffn_packed(hid, mask, w, params["dynamic"], cap),
+                               rtol=1e-5, atol=1e-6)
 
 
 @pytest.fixture

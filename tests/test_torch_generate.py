@@ -24,6 +24,7 @@ from unimoe_audio_torch.codec import delay as TD
 from unimoe_audio_torch.core.bridge import params_from_jax
 from unimoe_audio_torch.generate.loop import generate, generate_chunked, pad_buffer
 from unimoe_audio_torch.generate.sampler import sample_next_token, topk_threshold_bisect
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MAX_TOKENS = 20
 KNOBS = dict(min_tokens=6, cfg_scale=3.0, temperature=1.0, top_p=1.0, cfg_filter_top_k=16,

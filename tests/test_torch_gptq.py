@@ -23,6 +23,7 @@ from unimoe_audio_tpu.ops import quant as JQ
 from unimoe_audio_torch.core.bridge import params_from_jax
 from unimoe_audio_torch.ops import gptq as TG
 from unimoe_audio_torch.ops import quant as TQ
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GPTQ_REL_L2 = 2e-2
 GPTQ_Q_DIFF_FRAC = 0.02

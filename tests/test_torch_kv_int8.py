@@ -26,6 +26,7 @@ from unimoe_audio_torch.core.bridge import params_from_jax, to_torch
 from unimoe_audio_torch.generate.loop import generate, generate_chunked, pad_buffer
 from unimoe_audio_torch.models import layers as TL
 from unimoe_audio_torch.models import model as TM
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MAX_TOKENS = 20

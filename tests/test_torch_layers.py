@@ -12,6 +12,7 @@ from unimoe_audio_tpu.config import tiny_test_config
 from unimoe_audio_tpu.models import layers as JL
 from unimoe_audio_torch.core.bridge import to_torch
 from unimoe_audio_torch.models import layers as TL
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -16,6 +16,7 @@ from unimoe_audio_tpu.ops.quant import quantize_tensor
 from unimoe_audio_torch.core.bridge import params_from_jax
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.models.layers import KVCache as TKV
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

@@ -18,6 +18,7 @@ from unimoe_audio_tpu.moe import router as JR
 from unimoe_audio_torch.core.bridge import to_torch
 from unimoe_audio_torch.moe import block as TB
 from unimoe_audio_torch.moe import router as TR
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _logits(seed, S=64, E=9):
@@ -93,15 +94,18 @@ def test_dcmoe_block_dense_matches():
 
 
 def test_dcmoe_block_unported_modes_raise():
-    """Modes of later slices raise: ep dispatch (with or without a8); a8 in
-    training, training jitter without a seed and the Gumbel mixer in
-    training without a seed are errors, as in the JAX package (the mixer
-    itself runs: tests/test_torch_train_core.py)."""
+    """ep dispatch runs without a mesh and equals dense (capacity S drops
+    nothing); a8 in training, training jitter without a seed and the Gumbel
+    mixer in training without a seed are errors, as in the JAX package (the
+    mixer itself runs: tests/test_torch_train_core.py)."""
     cfg = tiny_test_config().text_config
     x = torch.zeros(1, 2, cfg.hidden_size)
-    for c, kw in ((cfg, {"dispatch_mode": "ep"}), (cfg, {"dispatch_mode": "ep_a8"})):
-        with pytest.raises(NotImplementedError):
-            TB.dcmoe_block({}, x, c, **kw)
+    gen = torch.Generator().manual_seed(1)
+    params = TB.init_dcmoe_params(gen, cfg, dtype=torch.float32, device="cpu")
+    h = torch.randn(2, 6, cfg.hidden_size, generator=gen)
+    torch.testing.assert_close(TB.dcmoe_block(params, h, cfg, dispatch_mode="ep").hidden_states,
+                               TB.dcmoe_block(params, h, cfg).hidden_states,
+                               rtol=1e-5, atol=1e-6)
     mixer = dataclasses.replace(cfg, ignore_differentiable_router=False, input_jitter_noise=0.0)
     for c, kw in ((cfg, {"training": True, "dispatch_mode": "dense_a8"}),
                   (cfg, {"training": True}), (mixer, {"training": True})):

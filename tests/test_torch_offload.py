@@ -24,6 +24,7 @@ from unimoe_audio_tpu.train import offload as JO
 from unimoe_audio_torch.core.bridge import params_from_jax, params_to_numpy
 from unimoe_audio_torch.train import offload as TO
 from unimoe_audio_torch.train.step import make_lr_schedule, named_leaves
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OPT_RTOL = 1e-6
 LR, WD, WARMUP, TOTAL = 1e-3, 0.1, 2, 10

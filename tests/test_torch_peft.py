@@ -32,6 +32,7 @@ from unimoe_audio_torch.tokenizer import SimpleTokenizer
 from unimoe_audio_torch.train import lora as TL
 from unimoe_audio_torch.train import peft as TP
 from unimoe_audio_torch.train import step as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_torch_train.py's tolerances.
 LOSS_RTOL = 1e-5

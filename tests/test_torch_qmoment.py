@@ -14,6 +14,7 @@ import torch
 
 from unimoe_audio_tpu.train import qmoment as JQ
 from unimoe_audio_torch.train import qmoment as TQ
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EQUAL_SHARE = 0.999
 

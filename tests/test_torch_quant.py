@@ -34,6 +34,7 @@ from unimoe_audio_torch.core.bridge import params_from_jax, params_to_numpy
 from unimoe_audio_torch.moe import block as TB
 from unimoe_audio_torch.moe import dispatch as TD
 from unimoe_audio_torch.ops import quant as TQ
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 INT4_REL_L2 = 1e-3
 INT4_SCALE_DIFF_FRAC = 0.01

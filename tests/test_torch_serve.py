@@ -17,6 +17,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_vt2m import stable_tokenizer
 from unimoe_audio_torch.apps import inference_framework as IF
@@ -24,6 +25,7 @@ from unimoe_audio_torch.apps import serve
 from unimoe_audio_torch.apps.web_demo import PREDEFINED_EXAMPLES, StudioServer, format_status
 from unimoe_audio_torch.codec import audio_io
 from unimoe_audio_torch.config import tiny_test_config
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(max_tokens=24, min_tokens=4)
 
@@ -44,10 +46,46 @@ def test_build_server_and_ttfa(model):
 
 
 def test_parallel_serving_raises():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    """An ep x tp mesh needs that many ranks: in one process without a
+    process group build_server and the CLI say so (four gloo ranks serve:
+    tests/test_torch_parallel.py); on a one-rank mesh the model serves the
+    same greedy codes as without one."""
+    import torch.distributed as dist
+
+    from unimoe_audio_torch.api import t2m_prompt
+    from unimoe_audio_torch.parallel.mesh import make_mesh, set_mesh
+
+    with pytest.raises(ValueError, match="ranks"):
         serve.build_server(None, tp_size=2, allow_random=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(ValueError, match="ranks"):
         serve.main(["--allow-random", "--cpu", "--tp-size", "2"])
+    m = serve.build_server(None, allow_random=True, config=tiny_test_config(), device="cpu",
+                           dtype=torch.float32, max_tokens=12, min_tokens=4)
+    assert m.mesh is None
+    ids, mask = m._tokenize([t2m_prompt("a"), t2m_prompt("b c")])
+    want = _greedy(m, ids, mask)
+    try:
+        m.use_mesh(make_mesh(1, 1, 1, device="cpu"))
+        assert m.mesh.shape == {"data": 1, "expert": 1, "model": 1}
+        np.testing.assert_array_equal(_greedy(m, ids, mask), want)
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def _greedy(m, ids, mask):
+    from unimoe_audio_torch.codec import delay as dl
+    from unimoe_audio_torch.generate.loop import generate, pad_buffer
+
+    cfg = m.config
+    prefill, steps = dl.prepare_audio_prompt(
+        [None], num_channels=cfg.codec_channels, bos_value=cfg.codec_bos_value,
+        delay_pattern=cfg.codec_delay_pattern)
+    res = generate(m.params, cfg, torch.tensor(ids), torch.tensor(mask), None,
+                   pad_buffer(torch.tensor(np.asarray(prefill)), 12), steps, torch.Generator(),
+                   max_tokens=12, do_sample=False, min_tokens=4, cfg_scale=3.0, temperature=1.0,
+                   top_p=1.0, cfg_filter_top_k=16, eos_prob_mul_factor=1.0)
+    return res.codes.numpy()
 
 
 def _cli(monkeypatch, tmp_path, *args):

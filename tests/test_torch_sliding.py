@@ -27,6 +27,7 @@ from unimoe_audio_torch.generate.loop import generate, pad_buffer
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.ops import flash_attention as FA
 from unimoe_audio_torch.train import step as TS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MAX_TOKENS = 16
 KNOBS = dict(min_tokens=6, cfg_scale=3.0, temperature=1.0, top_p=1.0, cfg_filter_top_k=16,

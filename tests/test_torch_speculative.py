@@ -27,6 +27,7 @@ from unimoe_audio_tpu import api as JAPI
 from unimoe_audio_tpu.config import tiny_test_config as j_tiny_test_config
 from unimoe_audio_tpu.generate.speculative import speculative_generate_jit
 from unimoe_audio_tpu.models.model import init_model_params as j_init
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MAX_TOKENS, MIN_TOKENS = 40, 4
 KNOBS = dict(cfg_scale=3.0, eos_prob_mul_factor=0.8)

@@ -30,6 +30,7 @@ from unimoe_audio_torch.train.offload import OffloadAdamW, OffloadTrainer
 from unimoe_audio_torch.train.step import make_lr_schedule, named_leaves, train_step
 from unimoe_audio_torch.train.stream import StreamTrainer
 from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LR, WD, WARMUP, TOTAL = 1e-3, 0.1, 2, 10
 # StreamTrainer against OffloadTrainer (`tests/test_stream.py:45-78`).

@@ -18,6 +18,7 @@ from unimoe_audio_torch.codec import delay as TD
 from unimoe_audio_torch.core.bridge import params_from_jax
 from unimoe_audio_torch.generate.loop import generate, pad_buffer
 from unimoe_audio_torch.generate.streaming import generate_stream
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MAX_TOKENS = 40
 KNOBS = dict(min_tokens=6, cfg_scale=3.0, temperature=1.0, top_p=1.0, cfg_filter_top_k=16,

@@ -23,6 +23,7 @@ from unimoe_audio_torch.core.bridge import params_from_jax, params_to_numpy
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.train import resharding as TR
 from unimoe_audio_torch.train import surgery as TSU
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from unimoe_audio_torch.core.bridge import params_from_jax, params_to_numpy
 from unimoe_audio_torch.train import data as TD
 from unimoe_audio_torch.train import step as TS
 from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # f32 on both sides, the same arithmetic in another order: losses at 1e-5;
 # gradients and trained parameters at rtol 1e-4 with an absolute floor of

@@ -4,7 +4,8 @@ on the CPU (`--cpu`): on the sample arrow dataset with images, from a
 and eval losses equal the JAX package's CLI's on the same directory; it runs
 `--initialize` (dense→MoE surgery) on a dense model.jax.pkl and
 `--peft_mode lora` (only the adapters move); without `--cpu` it asks for a
-card; the mesh flags raise NotImplementedError naming their slice.
+card; the mesh and multihost flags parse and reach the process-group
+start-up (the mesh CLI on two gloo ranks: tests/test_torch_parallel.py).
 `--param_offload` (the stream trainer) on a text-only dataset: its
 metrics.jsonl losses equal the JAX CLI's with f32 moments, int8 moments and
 two micro-batches a step; it resumes from OUT/stream_ckpt; PEFT and image
@@ -27,6 +28,7 @@ from unimoe_audio_torch.core.checkpoint import latest_step
 from unimoe_audio_torch.models.model import init_model_params
 from unimoe_audio_torch.train import cli as TCLI
 from unimoe_audio_torch.train.step import named_leaves
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 1e-5          # tests/test_torch_train.py's
 
@@ -160,14 +162,27 @@ def test_cli_needs_a_card_without_cpu(dirs, tmp_path):
     (["--multihost"], "parallel"), (["--coordinator-address", "localhost:1"], "parallel"),
     (["--num-processes", "2"], "parallel"), (["--process-id", "0"], "parallel")])
 def test_cli_refuses_unported_flags(flags, slice_name):
-    """The mesh and multihost flags raise NotImplementedError naming the
-    parallel slice; the offload flags, ported, pass."""
-    argv = ["--model_name_or_path", "m", "--data_path", "d", "--cpu", *flags]
+    """The offload flags and the mesh and multihost flags parse; the
+    multihost ones reach the process-group start-up (injected here), and a
+    mesh of more ranks than the process group has is refused with a message
+    (training on four gloo ranks: tests/test_torch_parallel.py)."""
+    from unimoe_audio_torch.parallel.mesh import default_mesh_shape, make_mesh
+    from unimoe_audio_torch.parallel.multihost import maybe_initialize_multihost
+
+    args = TCLI.build_parser().parse_args(
+        ["--model_name_or_path", "m", "--data_path", "d", "--cpu", *flags])
     if slice_name == "offload":
-        assert TCLI.refuse_unported(TCLI.build_parser().parse_args(argv)) is None
+        assert args.param_offload or args.moment_dtype == "int8"
         return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        TCLI.main(argv)
+    calls = []
+    started = maybe_initialize_multihost(args, initialize=lambda **kw: calls.append(kw))
+    multihost = flags[0] in ("--multihost", "--coordinator-address")
+    assert started == multihost and len(calls) == int(multihost)
+    shape = default_mesh_shape(args.ep_size * args.tp_size, args.ep_size, args.tp_size)
+    assert shape == (1, args.ep_size, args.tp_size)
+    if shape != (1, 1, 1):
+        with pytest.raises(RuntimeError, match="process group"):
+            make_mesh(*shape, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from unimoe_audio_torch.moe import block as TB
 from unimoe_audio_torch.moe import router as TR
 from unimoe_audio_torch.train import step as TS
 from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The mixer in f32, the same operations in the same order: value and
 # gradient at rtol 1e-6 (an absolute floor of 1e-6 of the largest entry).

@@ -17,6 +17,7 @@ from examples.make_sample_dataset import build as build_sample_dataset
 from unimoe_audio_tpu.config import tiny_test_config
 from unimoe_audio_tpu.train import data as JD
 from unimoe_audio_torch.train import data as TD
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SPECIAL = {"<|vision_start|>": 90, "<|vision_end|>": 91, "<|image_pad|>": 92,
            "<|video_pad|>": 93}

@@ -24,6 +24,7 @@ from unimoe_audio_torch.core.bridge import params_from_jax, params_to_numpy, to_
 from unimoe_audio_torch.models import vision as TV
 from unimoe_audio_torch.train import step as TS
 from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_torch_train.py's tolerances.
 LOSS_RTOL = 1e-5

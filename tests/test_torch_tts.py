@@ -32,6 +32,7 @@ from unimoe_audio_torch.codec.dac_wrapper import Dac
 from unimoe_audio_torch.config import tiny_test_config
 from unimoe_audio_torch.core.bridge import dac_params_from_jax, params_from_jax
 from unimoe_audio_torch.models import model as TM
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PROMPT_SR = 22050
 

@@ -32,6 +32,7 @@ from unimoe_audio_torch.models import layers as TL
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.models import vision as TV
 from unimoe_audio_torch.ops import quant as TQ
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # The JAX package's `tests/test_vision.py` small tower: depth 3, block 1 full
 # attention, windows of 2 x 2 merged patches.

@@ -33,6 +33,7 @@ from unimoe_audio_torch.generate import loop as TLOOP
 from unimoe_audio_torch.models import model as TM
 from unimoe_audio_torch.ops.quant import QTensor
 from unimoe_audio_torch.tokenizer import SimpleTokenizer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4          # tests/test_torch_model.py's f32 tolerance
 GREEDY = dict(min_tokens=4, cfg_scale=3.0, temperature=1.0, top_p=1.0, cfg_filter_top_k=16,

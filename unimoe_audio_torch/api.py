@@ -30,6 +30,7 @@ from .codec.dac_wrapper import Dac
 from .config import UniMoEAudioConfig, tiny_test_config
 from .generate.loop import _sync, generate, generate_chunked, pad_buffer
 from .models.model import align_codec_ids, init_model_params
+from .parallel.comm import is_writer
 from .tokenizer import SimpleTokenizer
 from .train.peft import prefix_kv, virtual_embeds
 
@@ -189,6 +190,7 @@ class UniMoEAudio:
         self.dac = self._load_dac(dac_weights, allow_random)
         self.last_timings: dict = {}
         self.last_codes: List[np.ndarray] = []
+        self.mesh = None
         if serving_mode and not snapshot:
             self._quantize(serving_mode, gptq_calibration or {})
 
@@ -478,20 +480,24 @@ class UniMoEAudio:
         audios = dl.generate_output(codes, lengths, pad_value=cfg.codec_pad_value,
                                     delay_pattern=cfg.codec_delay_pattern)
 
-        os.makedirs(output_dir, exist_ok=True)
         t0 = time.perf_counter()
+        writer = is_writer()                   # on a mesh, rank 0 writes the files
+        if writer:
+            os.makedirs(output_dir, exist_ok=True)
         if self.dac is not None:
             output_paths = [os.path.join(output_dir, f"generated_{save_name}_{i}.wav")
                             for i in range(len(audios))]
-            self.dac.decode_batch([frames.T for frames in audios], output_paths,
-                                  min_duration=1)
+            if writer:
+                self.dac.decode_batch([frames.T for frames in audios], output_paths,
+                                      min_duration=1)
         else:
             output_paths = []
             for i, frames in enumerate(audios):
                 p = os.path.join(output_dir, f"generated_{save_name}_{i}.wav.codes.npy")
-                np.save(p, frames)
+                if writer:
+                    np.save(p, frames)
                 output_paths.append(p)
-        if rebuild_codec is not None and self.dac is not None:
+        if rebuild_codec is not None and self.dac is not None and writer:
             rebuild = np.asarray(rebuild_codec).T[None]
             for i in range(len(audios)):
                 self.dac.decode(rebuild, save_path=os.path.join(
@@ -500,6 +506,19 @@ class UniMoEAudio:
         self.last_timings = timings
         self.last_codes = audios
         return output_paths
+
+    def use_mesh(self, mesh) -> None:
+        """Serve on a (data, expert, model) mesh (`parallel/mesh.py`): the
+        params become this rank's shard (`shard_params`, quantized leaves
+        included) and the mesh the process's active one; every rank then
+        takes the same requests and computes the same tokens, and rank 0
+        writes the files.  Quantize before: a serving snapshot or GPTQ
+        calibration works on the whole model."""
+        from .parallel.mesh import set_mesh, shard_params
+
+        self.params = shard_params(self.params, mesh, self.config)
+        self.mesh = mesh
+        set_mesh(mesh)
 
     def serving_dispatch(self, rows: int, T_text: int) -> dict:
         """The serving dispatch choice for `rows` CFG rows of `T_text` tokens
@@ -826,17 +845,20 @@ class UniMoEAudio:
     def _write_streams(self, audios, output_dir: str, save_name: str, names=None) -> List[str]:
         """Each stream's codes [T_i, C] as `generated_{save_name}_{name}.wav`
         (one DAC decode per stream, at least 1 s), or as `.wav.codes.npy`
-        without a DAC."""
-        os.makedirs(output_dir, exist_ok=True)
+        without a DAC; on a mesh rank 0 writes them."""
+        writer = is_writer()
+        if writer:
+            os.makedirs(output_dir, exist_ok=True)
         out = []
         for i, frames in enumerate(audios):
             path = os.path.join(output_dir,
                                 f"generated_{save_name}_{i if names is None else names[i]}.wav")
-            if self.dac is not None:
-                self.dac.decode(frames.T[None], save_path=path, min_duration=1)
-            else:
-                np.save(path + ".codes.npy", frames)
+            if self.dac is None:
                 path += ".codes.npy"
+            if writer and self.dac is not None:
+                self.dac.decode(frames.T[None], save_path=path, min_duration=1)
+            elif writer:
+                np.save(path, frames)
             out.append(path)
         return out
 

@@ -43,6 +43,7 @@ import torch
 from ..config import UniMoEAudioConfig
 from ..generate.loop import LoopState, generate
 from ..models.layers import KVCache
+from ..parallel.mesh import kv_heads
 
 
 @dataclasses.dataclass
@@ -146,7 +147,7 @@ class SlotServer:
             buf=torch.full((S, self.buf_len, C), cfg.codec_pad_value, dtype=torch.int32,
                            device=dev),
             cache=KVCache.create(tc.num_hidden_layers, 2 * S, self.cache_len,
-                                 tc.num_key_value_heads, tc.head_dim, device=dev,
+                                 kv_heads(params, tc), tc.head_dim, device=dev,
                                  dtype=torch.int8 if kv_dtype == "int8"
                                  else params["embed_tokens"].dtype),
             eos_detected=torch.zeros((S,), dtype=torch.bool, device=dev),

@@ -9,8 +9,14 @@ the request batcher (`--requests`) or through the continuous slot server
     python -m unimoe_audio_torch.apps.serve --allow-random --measure-latency
 
 Runs on the first CUDA card; `--cpu` runs on the CPU.  Expert and tensor
-parallel serving (`--ep-size`, `--tp-size` above 1) and the multihost
-arguments come with the parallel slice (ROADMAP §1 item 3).
+parallel serving: one process per rank, started by `torchrun` (with
+`--multihost`) or given `--coordinator-address HOST:PORT --num-processes N
+--process-id I`; the N ranks form a (N / (ep·tp), ep, tp) mesh, each holds
+its shard of the weights and takes the same requests, and rank 0 writes
+the files:
+
+    torchrun --nproc-per-node 4 -m unimoe_audio_torch.apps.serve --multihost \
+        --ep-size 2 --tp-size 2 --allow-random
 """
 
 from __future__ import annotations
@@ -27,18 +33,34 @@ from unimoe_audio_torch.api import UniMoEAudio
 def build_server(model_path: Optional[str], *, ep_size: int = 1, tp_size: int = 1,
                  allow_random: bool = False, quantize=False, tokenizer=None, config=None,
                  max_tokens: int = 1000, min_tokens: int = 100, kv_cache: Optional[str] = None,
-                 device=None) -> UniMoEAudio:
-    """A model for serving on one card (`serve.py:37-72`): quantize ("int8"
-    / "int4" / "int4-gptq", or True for int8) picks the serving mode,
-    kv_cache="int8" the int8 KV cache.  device defaults to CUDA."""
-    if ep_size * tp_size > 1:
-        raise NotImplementedError(
-            f"ep_size={ep_size}, tp_size={tp_size}: serving on a device mesh comes with the "
-            "parallel slice (ROADMAP §1 item 3); the port serves on one card")
-    return UniMoEAudio(
+                 device=None, dtype=None) -> UniMoEAudio:
+    """A model for serving (`serve.py:29-72`): quantize ("int8" / "int4" /
+    "int4-gptq", or True for int8) picks the serving mode, kv_cache="int8"
+    the int8 KV cache.  device defaults to CUDA, dtype (of the floating
+    weights and activations) to bf16.  With ep_size · tp_size > 1,
+    or a running process group of several ranks, the model serves on the
+    (data, expert, model) = (ranks / (ep·tp), ep, tp) mesh
+    (`UniMoEAudio.use_mesh`; one rank per process, after
+    `parallel.multihost.maybe_initialize_multihost`)."""
+    import torch.distributed as dist
+
+    from unimoe_audio_torch.parallel.mesh import default_mesh_shape, make_mesh
+
+    model = UniMoEAudio(
         model_path, allow_random=allow_random, config=config, tokenizer=tokenizer,
         max_tokens=max_tokens, min_tokens=min_tokens, serving_mode=quantize,
-        kv_cache_dtype=kv_cache, device=device)
+        kv_cache_dtype=kv_cache, device=device,
+        **({} if dtype is None else {"dtype": dtype}))
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if ep_size * tp_size > 1 or n > 1:
+        if n % (ep_size * tp_size):
+            raise ValueError(f"ep_size={ep_size} x tp_size={tp_size} does not divide the "
+                             f"{n} ranks of the process group")
+        shape = default_mesh_shape(n, ep_size, tp_size)
+        model.use_mesh(make_mesh(*shape, device=model.device.type))
+        print(f"serving on mesh (data, expert, model) = {shape}"
+              + (f" [{'int8' if quantize is True else quantize}]" if quantize else ""))
+    return model
 
 
 def measure_ttfa(model: UniMoEAudio, *, n_trials: int = 5,
@@ -127,7 +149,11 @@ def _serve_batched(model: UniMoEAudio, reqs: List[dict], args) -> dict:
 
 
 def main(argv=None) -> int:
+    from unimoe_audio_torch.parallel.multihost import (add_multihost_args,
+                                                       maybe_initialize_multihost)
+
     parser = argparse.ArgumentParser(description="UniMoE-Audio serving (PyTorch port)")
+    add_multihost_args(parser)
     parser.add_argument("--model", default=None)
     parser.add_argument("--ep-size", type=int, default=1)
     parser.add_argument("--tp-size", type=int, default=1)
@@ -161,6 +187,7 @@ def main(argv=None) -> int:
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
     args = parser.parse_args(argv)
 
+    maybe_initialize_multihost(args, cpu=args.cpu)
     model = build_server(args.model, ep_size=args.ep_size, tp_size=args.tp_size,
                          allow_random=args.allow_random, quantize=args.quantize,
                          kv_cache=args.kv_cache, device="cpu" if args.cpu else None)

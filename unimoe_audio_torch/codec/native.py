@@ -1,7 +1,7 @@
 """ctypes bindings to the repo's host library `native/hostlib.cpp` —
-counterpart of `unimoe_audio_tpu/codec/native.py`'s audio entry points
-(PCM conversion and resampling; the port has no caller of its mixdown or
-collation yet).
+counterpart of `unimoe_audio_tpu/codec/native.py`: PCM conversion,
+resampling, a mono mixdown and the right-padded collation of token
+sequences.
 
 The library is built on first use with the same g++ command as the JAX
 package's (so both packages run the same machine code on one machine), but
@@ -59,6 +59,10 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
                                       ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                                       ctypes.c_int32]
         lib.resample_poly.restype = ctypes.c_int64
+        lib.mixdown.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_int32]
+        lib.collate_pad_i64.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+                                        ctypes.c_int64, ctypes.c_void_p]
         _LIB = lib
     except Exception:
         _LIB = None
@@ -109,3 +113,33 @@ def resample(audio: np.ndarray, sr_from: int, sr_to: int, taps: int = 32) -> np.
     out = np.empty(cap, dtype=np.float32)
     n = lib.resample_poly(x.ctypes.data, x.shape[0], out.ctypes.data, cap, up, down, taps)
     return out[:n]
+
+
+def mixdown(interleaved: np.ndarray) -> np.ndarray:
+    """[T, C] float32 → [T] mono average (`native.py:79-87`); numpy's mean
+    without the library or for another rank."""
+    lib = _build_and_load()
+    x = np.ascontiguousarray(interleaved, dtype=np.float32)
+    if lib is None or x.ndim != 2:
+        return x.mean(axis=-1)
+    out = np.empty(x.shape[0], dtype=np.float32)
+    lib.mixdown(x.ctypes.data, out.ctypes.data, x.shape[0], x.shape[1])
+    return out
+
+
+def collate_pad(seqs, pad_value: int, max_len: Optional[int] = None) -> np.ndarray:
+    """1-D int sequences → [n, max_len] int64, right-padded with pad_value
+    and cut at max_len (default: the longest) (`native.py:109-127`)."""
+    lengths = np.asarray([len(s) for s in seqs], dtype=np.int64)
+    T = int(lengths.max()) if max_len is None else max_len
+    out = np.full((len(seqs), T), pad_value, dtype=np.int64)
+    lib = _build_and_load()
+    if lib is None:
+        for i, s in enumerate(seqs):
+            n = min(len(s), T)
+            out[i, :n] = np.asarray(s[:n], dtype=np.int64)
+        return out
+    flat = np.ascontiguousarray(np.concatenate([np.asarray(s, dtype=np.int64) for s in seqs])
+                                if len(seqs) else np.zeros(0, np.int64))
+    lib.collate_pad_i64(flat.ctypes.data, lengths.ctypes.data, len(seqs), T, out.ctypes.data)
+    return out

@@ -22,7 +22,7 @@ import json
 import os
 import pickle
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -295,6 +295,38 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(arr.astype(np_dtype).reshape(info["shape"]))
         out[name] = t.view(t_dtype) if t_dtype == torch.bfloat16 else t
     return out
+
+
+_ST_NAMES = {t: name for name, (_, t) in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+                      metadata: Optional[Dict[str, str]] = None) -> int:
+    """Write {name: tensor} as one .safetensors file, `read_safetensors`'
+    format (and the `safetensors` package's): the 8-byte little-endian
+    header length, the JSON header padded with spaces to a multiple of 8,
+    then each tensor's raw little-endian bytes in the order given (F32,
+    BF16, F16 and the integer types; bf16 as its 16-bit words).  Returns
+    the bytes written."""
+    header: Dict[str, Any] = {}
+    offset = 0
+    for name, t in tensors.items():
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: no safetensors dtype for {t.dtype}")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata:
+        header["__metadata__"] = metadata
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(head) + offset
 
 
 def load_hf_safetensors(model_dir: str) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,16 @@
-"""Serving snapshots: the quantized serving params, config and modes on disk,
+"""Export — counterpart of `unimoe_audio_tpu/core/export.py`: the HF-layout
+checkpoint (`export_hf_checkpoint`, the inverse of
+`core/convert.convert_model_state_dict`), and serving snapshots.
+
+The HF layout: the reference's module names (`language_model.layers.{l}...`,
+`mlp.dynamic_real_moe.deepspeed_moe.experts.deepspeed_experts.{e}`,
+`mlp.fixed_real_moe.{e}`), projection weights [out, in], written as
+`model.safetensors` by the port's own writer (`core/convert.write_safetensors`)
+and `config.json`.
+
+Serving snapshots: the quantized serving params, config and modes on disk,
 so that a restart skips the quantization pass (and for "int4-gptq" the
-self-calibration) — counterpart of `unimoe_audio_tpu/core/export.py:84-149`.
+self-calibration) (`export.py:84-149`).
 
 The port writes `serving.torch.pkl`, a pickle that numpy alone reads:
 
@@ -26,8 +36,64 @@ import numpy as np
 import torch
 
 from ..config import UniMoEAudioConfig
-from ..ops.quant import QTensor, is_int4, pack_int4
+from ..ops.quant import QTensor, dequantize, is_int4, pack_int4
 from .bridge import params_from_jax
+
+def model_params_to_state_dict(params: Dict, cfg, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """The port's param tree → the HF state dict {name: CPU tensor in
+    dtype}, projection weights transposed to [out, in] as contiguous copies
+    (`export.py:19-73`).  QTensor leaves are dequantized.  The vision tower
+    is not exported, as in the JAX package."""
+    tc = cfg.text_config
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, t, transpose=False):
+        if isinstance(t, QTensor):
+            t = dequantize(t)
+        t = t.detach().to("cpu", dtype)
+        sd[name] = (t.t() if transpose else t).contiguous()
+
+    put("language_model.embed_tokens.weight", params["embed_tokens"])
+    put("language_model.norm.weight", params["norm"])
+    put("lm_head.weight", params["lm_head"], transpose=True)
+    for c in range(cfg.codec_channels):
+        put(f"codec_embed_tokens.{c}.weight", params["codec_embed"][c])
+    put("codec_head.weight", params["codec_head"], transpose=True)
+    for l, lp in enumerate(params["layers"]):
+        p = f"language_model.layers.{l}"
+        put(f"{p}.input_layernorm.weight", lp["input_layernorm"])
+        put(f"{p}.post_attention_layernorm.weight", lp["post_attention_layernorm"])
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            put(f"{p}.self_attn.{proj}.weight", lp["attn"][proj]["w"], transpose=True)
+            put(f"{p}.self_attn.{proj}.bias", lp["attn"][proj]["b"])
+        put(f"{p}.self_attn.o_proj.weight", lp["attn"]["o_proj"]["w"], transpose=True)
+        put(f"{p}.mlp.gate.weight", lp["moe"]["gate"], transpose=True)
+        for group, base, n in (
+                ("dynamic", f"{p}.mlp.dynamic_real_moe.deepspeed_moe.experts.deepspeed_experts",
+                 tc.mlp_dynamic_expert_num),
+                ("fixed", f"{p}.mlp.fixed_real_moe", tc.mlp_fixed_expert_num)):
+            w = {k: dequantize(v) if isinstance(v, QTensor) else v
+                 for k, v in lp["moe"][group].items()}
+            for e in range(n):
+                for k in ("gate", "up", "down"):
+                    put(f"{base}.{e}.{k}_proj.weight", w[k][e], transpose=True)
+    return sd
+
+
+def export_hf_checkpoint(params: Dict, cfg, out_dir: str, *, dtype="float32") -> int:
+    """Write config.json and model.safetensors in the reference's layout
+    (`export.py:76-84`), weights in dtype (a name or a torch dtype: float32,
+    bfloat16, float16); returns the bytes of model.safetensors.  Both
+    packages' `UniMoEAudio` load the directory."""
+    from .convert import write_safetensors
+
+    os.makedirs(out_dir, exist_ok=True)
+    t_dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    n = write_safetensors(os.path.join(out_dir, "model.safetensors"),
+                          model_params_to_state_dict(params, cfg, t_dtype))
+    cfg.save_json(os.path.join(out_dir, "config.json"))
+    return n
+
 
 SERVING_SNAPSHOT = "serving.torch.pkl"
 JAX_SERVING_SNAPSHOT = "serving.jax.pkl"

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import UniMoEAudioConfig
-from ..models.layers import KVCache, quantize_kv
+from ..models.layers import KVCache, local_kv_start, quantize_kv
+from ..parallel.mesh import kv_heads
 from ..models.model import (
     calculate_input_embedding,
     codec_embedding,
@@ -196,12 +197,13 @@ def generate(
             pos = torch.cumsum(attention_mask, dim=-1) - 1
             pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
             position_ids = pos[None].expand(3, B2, T_text)
-        cache = KVCache.create(tc.num_hidden_layers, B2, T_total, tc.num_key_value_heads,
-                               tc.head_dim, device=dev,
+        KV = kv_heads(params, tc)
+        cache = KVCache.create(tc.num_hidden_layers, B2, T_total, KV, tc.head_dim, device=dev,
                                dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
         if n_pre:
-            shape = (tc.num_hidden_layers, n_pre, B2) + tuple(prefix_kv[0].shape[2:])
-            pk, pv = (t[:, :, None].expand(shape) for t in prefix_kv)
+            k0 = local_kv_start(tc)                     # this rank's heads on a model group
+            shape = (tc.num_hidden_layers, n_pre, B2, KV, tc.head_dim)
+            pk, pv = (t[:, :, None, k0:k0 + KV].expand(shape) for t in prefix_kv)
             if cache.quantized:
                 (qk, sk), (qv, sv) = quantize_kv(pk), quantize_kv(pv)
                 cache.k[:, :n_pre], cache.v[:, :n_pre] = qk, qv

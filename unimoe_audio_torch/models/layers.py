@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ..config import TextMoEConfig
-from ..ops.quant import proj_matmul
+from ..ops.quant import proj_matmul, wshape
+from ..parallel.comm import copy_to, reduce_from
+from ..parallel.mesh import tp_group
 
 NEG_INF = -1e30
 
@@ -177,14 +179,29 @@ def attention(
     in both einsum paths (`layers.py:227-229, 369-380`).  The flash kernel
     does not window, so it is refused for such a layer.
 
+    On an active mesh's model group (`parallel/mesh.py`) the weights hold
+    this rank's q heads and the kv heads they read: H and KV are the local
+    counts (from the weights' widths), x enters through `copy_to` and the
+    o_proj product, a partial sum over the heads, is summed over the group.
+    A cache holds the local kv heads.
+
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
     if ring is not None:
-        raise NotImplementedError("ring attention comes with the parallel slice")
+        raise NotImplementedError("ring attention (ring_axis) comes with the next slice: "
+                                  "sequence and pipeline parallelism")
 
     B, T, _ = x.shape
-    H, KV, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    H = wshape(params["q_proj"]["w"])[-1] // Dh
+    KV = wshape(params["k_proj"]["w"])[-1] // Dh
     groups = H // KV
+    tp = tp_group()
+    x = copy_to(x, tp)
+
+    def o_proj(o):
+        return reduce_from(proj_matmul(o, params["o_proj"]), tp)
+
     window = cfg.sliding_window if is_sliding else None
     if window and use_flash:
         raise ValueError("the flash kernel does not window: a sliding layer takes the einsum path")
@@ -197,6 +214,9 @@ def attention(
 
     if prefix_kv is not None and cache_kv is None:
         pk, pv = prefix_kv
+        if pk.shape[1] != KV:                       # the whole model's heads: take ours
+            k0 = local_kv_start(cfg)
+            pk, pv = pk[:, k0:k0 + KV], pv[:, k0:k0 + KV]
         n_pre = pk.shape[0]
         k = torch.cat([pk[None].to(k.dtype).expand(B, n_pre, KV, Dh), k], dim=1)
         v = torch.cat([pv[None].to(v.dtype).expand(B, n_pre, KV, Dh), v], dim=1)
@@ -226,8 +246,7 @@ def attention(
             pv = pv * cache_scales[1][..., None].to(pv.dtype)
         o = torch.einsum("sbkg,sbkd->bkgd", pv, v_all.to(x.dtype))
         o = o + probs[T_kv][..., None] * v.reshape(B, KV, 1, Dh).to(x.dtype)
-        out = proj_matmul(o.reshape(B, 1, H * Dh), params["o_proj"])
-        return out, (k, v)
+        return o_proj(o.reshape(B, 1, H * Dh)), (k, v)
 
     if cache_kv is not None:
         k_all, v_all = update_cache_slice(cache_kv[0], cache_kv[1], k, v, cache_position,
@@ -253,7 +272,7 @@ def attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), window_valid, causal=True,
         ).transpose(1, 2).reshape(B, T, H * Dh)
-        return proj_matmul(out, params["o_proj"]), cache_kv
+        return o_proj(out), cache_kv
 
     kv_spec = "bskd" if cache_kv is None else "sbkd"
     T_kv = k_all.shape[1] if cache_kv is None else k_all.shape[0]
@@ -277,7 +296,20 @@ def attention(
     if cache_kv is not None and cache_scales is not None:
         probs = probs * cache_scales[1].permute(1, 2, 0)[:, :, None, None, :].to(probs.dtype)
     out = torch.einsum(f"bkgts,{kv_spec}->btkgd", probs, v_all.to(x.dtype)).reshape(B, T, H * Dh)
-    return proj_matmul(out, params["o_proj"]), cache_kv
+    return o_proj(out), cache_kv
+
+
+def local_kv_start(cfg: TextMoEConfig) -> int:
+    """The first kv head of this rank's attention on the active mesh's
+    model group (0 without one)."""
+    from ..parallel.mesh import active, kv_replicas
+
+    ctx = active()
+    if ctx is None:
+        return 0
+    tp = ctx.mesh.shape["model"]
+    rep = kv_replicas(cfg, tp)
+    return ctx.mesh.coord["model"] // rep * (cfg.num_key_value_heads * rep // tp)
 
 
 def init_attention_params(gen: torch.Generator, cfg: TextMoEConfig, *,

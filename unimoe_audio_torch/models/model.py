@@ -30,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TextMoEConfig, UniMoEAudioConfig
 from ..moe.block import dcmoe_block, init_dcmoe_params
 from ..ops.quant import matmul
+from ..parallel.comm import all_reduce, copy_to, gather_last, reduce_from
+from ..parallel.mesh import batch_group, tp_group
 from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
                      rms_norm)
 from .vision import init_vision_params, vision_forward
@@ -321,20 +323,30 @@ def get_rope_index(input_ids, cfg: UniMoEAudioConfig, *, image_grid_thw=None,
 
 
 def scatter_vision_features(inputs_embeds: torch.Tensor, input_ids: torch.Tensor,
-                            feats: torch.Tensor, token_id: int) -> torch.Tensor:
+                            feats: torch.Tensor, token_id: int,
+                            offset: int = 0) -> torch.Tensor:
     """Order-preserving scatter: the j-th `token_id` slot of the flattened
-    batch, in reading order, takes feats[j] (`model.py:474-491`)."""
+    batch, in reading order, takes feats[offset + j] (`model.py:474-491`;
+    offset: the slots of the rows before these, under a split batch)."""
     B, T = input_ids.shape
     vmask = input_ids == token_id
-    slot = torch.cumsum(vmask.reshape(-1), 0) - 1
+    slot = torch.cumsum(vmask.reshape(-1), 0) - 1 + offset
     gathered = feats[slot.clamp(0, feats.shape[0] - 1)].reshape(B, T, -1)
     return torch.where(vmask[..., None], gathered.to(inputs_embeds.dtype), inputs_embeds)
+
+
+def head_logits(hidden: torch.Tensor, w) -> torch.Tensor:
+    """hidden @ w in f32.  On an active mesh's model group w holds this
+    rank's output columns: hidden enters through `copy_to` and the logits
+    are all-gathered over the group."""
+    tp = tp_group()
+    return gather_last(matmul(copy_to(hidden, tp), w).float(), tp)
 
 
 def codec_logits_from_hidden(params: Dict, hidden: torch.Tensor,
                              cfg: UniMoEAudioConfig) -> torch.Tensor:
     """[B, T, D] → [B, T, C, Vc] codec logits (fp32)."""
-    flat = matmul(hidden, params["codec_head"]).float()
+    flat = head_logits(hidden, params["codec_head"])
     B, T = hidden.shape[:2]
     return flat.reshape(B, T, cfg.codec_channels, cfg.codec_embed_size)
 
@@ -351,7 +363,9 @@ class ModelOutput(NamedTuple):
 def _shifted_ce(logits: torch.Tensor, labels: torch.Tensor, dims) -> torch.Tensor:
     """Next-token cross-entropy: logits [B, T, ..., V] against labels
     [B, T, ...] shifted by one position, -100 ignored; the sum of the NLL
-    over `dims` divided by the count of valid labels there (at least 1)."""
+    over `dims` divided by the count of valid labels there (at least 1).
+    Under a split batch (`parallel/mesh.batch_group`) the sum and the count
+    are the whole batch's."""
     shift_logits = logits[:, :-1]
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != -100
@@ -359,7 +373,9 @@ def _shifted_ce(logits: torch.Tensor, labels: torch.Tensor, dims) -> torch.Tenso
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum(dim=dims) / valid.sum(dim=dims).clamp_min(1)
+    group = batch_group()
+    return reduce_from(nll.sum(dim=dims), group) / \
+        all_reduce(valid.sum(dim=dims), group).clamp_min(1)
 
 
 def model_forward(
@@ -429,7 +445,7 @@ def model_forward(
 
     logits = None
     if labels is not None:
-        logits = matmul(hidden, params["lm_head"]).float()
+        logits = head_logits(hidden, params["lm_head"])
     codec_logits = codec_logits_from_hidden(params, hidden, cfg)
 
     loss = codec_loss = None

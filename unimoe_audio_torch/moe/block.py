@@ -17,8 +17,17 @@ load-balancing loss; the mixer is the closed-form eval mixer under
 straight-through mixer otherwise, as in the JAX package.  `token_drop` caps
 each expert at `expert_capacity` tokens by router logit or by position.
 An `_a8` suffix on the dispatch mode (`dense_a8`, `packed_a8`) runs the
-dynamic and the fixed experts in int8 (serving only).  The ep dispatch mode
-(the parallel slice) raises here.
+dynamic and the fixed experts in int8 (serving only).
+
+On an active mesh (`parallel/mesh.py`) the experts' intermediate dims are
+split over `model` (each rank's FFNs give partial sums, added over the group
+at the end) and the dynamic experts over `expert`.  `dispatch_mode="ep"`
+(training: tokens split over the expert group) sends each token to its
+expert's rank and back (`moe_ffn_ep`); any other mode with expert-split
+weights (serving: every rank holds every token) runs the local experts on
+all tokens and sums over the expert group.  Under a split batch the
+load-balancing statistics and the jitter and mixer draws are the whole
+batch's.
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import TextMoEConfig
+from ..ops.quant import wshape
+from ..parallel.comm import copy_to, group_size, reduce_from
+from ..parallel.mesh import active, batch_group
 from . import dispatch as D
 from . import router as R
 
@@ -68,11 +80,11 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     from `fold_seed(seed, 1)`, unless `mixer_draws` (gumbel [E_dyn, S,
     E_dyn], coin [E_dyn, S]) gives them;
     aux_balance_weight [B, T] weights tokens in the load-balancing loss.
-    dispatch_mode: 'dense' | 'packed' | 'gmm', or 'dense_a8' | 'packed_a8'
-    (`block.py:64-80`: int8 expert products, with per-channel QTensor
-    weights; serving only); capacity is the packed path's per-expert slot
-    count (None = S), assignment_budget the gmm path's total row count
-    (None = every slot)."""
+    dispatch_mode: 'dense' | 'packed' | 'ep' | 'gmm', or 'dense_a8' |
+    'packed_a8' | 'ep_a8' (`block.py:64-80`: int8 expert products, with
+    per-channel QTensor weights; serving only); capacity is the packed and
+    ep paths' per-expert slot count (None = S), assignment_budget the gmm
+    path's total row count (None = every slot)."""
     a8 = dispatch_mode.endswith("_a8")
     if a8:
         dispatch_mode = dispatch_mode[:-len("_a8")]
@@ -81,9 +93,7 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
                              "differentiable); drop the _a8 suffix for training")
         if dispatch_mode == "gmm":
             raise ValueError("gmm dispatch has no a8 variant (the grouped kernels are bf16)")
-    if dispatch_mode == "ep":
-        raise NotImplementedError("dispatch_mode='ep' comes with the parallel slice")
-    if dispatch_mode not in ("dense", "packed", "gmm"):
+    if dispatch_mode not in ("dense", "packed", "gmm", "ep"):
         raise ValueError(f"Unknown dispatch_mode: {dispatch_mode}")
     B, T, dim = hidden_states.shape
     S = B * T
@@ -91,6 +101,11 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     E_real = cfg.mlp_dynamic_expert_num
     E_total = cfg.num_experts
     original = hidden_states
+    ctx = active()
+    tp = ctx.mesh.group("model") if ctx is not None else None
+    bgroup = batch_group()
+    n_b = group_size(bgroup)
+    i_b = ctx.mesh.index(("data", "expert")) if n_b > 1 else 0
 
     x = hidden_states
     if training and cfg.fp32_gate:
@@ -98,7 +113,9 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     if training and cfg.input_jitter_noise > 0:
         if seed is None:
             raise ValueError("training DCMoE requires a seed")
-        x = x * input_jitter(x.shape, seed, cfg.input_jitter_noise, x.dtype, x.device)
+        # Under a split batch: the whole batch's draw, this rank's rows.
+        noise = input_jitter((B * n_b, T, dim), seed, cfg.input_jitter_noise, x.dtype, x.device)
+        x = x * noise[i_b * B:(i_b + 1) * B]
     x = x.reshape(S, dim)
 
     gate_w = params["gate"]
@@ -120,6 +137,9 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
             raise ValueError("the training mixer requires a seed")
         from ..models.model import fold_seed
 
+        if mixer_draws is None and n_b > 1:
+            g, c = R._mixer_draws(S * n_b, E_dyn, E_dyn, fold_seed(seed, 1), x.device)
+            mixer_draws = (g[:, i_b * S:(i_b + 1) * S], c[:, i_b * S:(i_b + 1) * S])
         routing_weights, dyn_mask = R.sparse_expert_mixer(
             dynamic_logits, dynamic_top_k, max_k=E_dyn, jitter_eps=cfg.router_jitter_noise,
             training=True, seed=None if seed is None else fold_seed(seed, 1),
@@ -140,9 +160,12 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
 
     aux_loss = R.load_balancing_loss(
         expert_mask, full_router_logits, E_dyn,
-        None if aux_balance_weight is None else aux_balance_weight.reshape(S))
+        None if aux_balance_weight is None else aux_balance_weight.reshape(S), group=bgroup)
 
     if cfg.token_drop:
+        if n_b > 1:
+            raise NotImplementedError("token_drop on a split batch: its per-expert cut is over "
+                                      "the whole batch, which no rank holds")
         cap = min(R.expert_capacity(S, E_dyn, cfg.capacity_factor, cfg.min_capacity), S)
         dyn = expert_mask[:, :E_dyn]
         if cfg.drop_policy == "probs":
@@ -170,25 +193,47 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     else:
         global_weight = routing_weights
 
-    x_orig = original.reshape(S, dim)
-    gw = global_weight.to(x_orig.dtype)
+    # The experts' region: on a model group each rank's FFNs give partial
+    # sums, so their inputs (tokens and combine weights) take the group's
+    # gradient sum and the output is summed over it at the end.
+    x_orig = copy_to(original.reshape(S, dim), tp)
+    gw = copy_to(global_weight.to(x_orig.dtype), tp)
     real_mask, real_w = expert_mask[:, :E_real], gw[:, :E_real]
+    E_local = wshape(params["dynamic"]["gate"])[0]
+    eg = ctx.mesh.group("expert") if ctx is not None else None
+    if dispatch_mode != "ep" and E_local < E_real:
+        # Every token on every rank of the expert group: the local experts'
+        # share of each token, summed over the group.
+        if n_b > 1:
+            raise ValueError("expert-split weights under a split batch need "
+                             "dispatch_mode='ep' (the ranks hold different tokens)")
+        e0 = ctx.mesh.coord["expert"] * E_local
+        real_mask, real_w = real_mask[:, e0:e0 + E_local], real_w[:, e0:e0 + E_local]
     if dispatch_mode == "dense":
         out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"], a8=a8)
     elif dispatch_mode == "packed":
         out = D.moe_ffn_packed(x_orig, real_mask, real_w, params["dynamic"],
                                capacity if capacity is not None else S, a8=a8)
+    elif dispatch_mode == "ep":
+        out = D.moe_ffn_ep(x_orig, real_mask, real_w, params["dynamic"],
+                           capacity if capacity is not None else S, axis_name="expert", a8=a8)
     else:
         # The budget counts (token, expert) assignments in all, a different
         # unit from the per-expert `capacity`.
         out = D.moe_ffn_gmm(x_orig, real_mask, real_w, params["dynamic"],
                             assignment_budget=assignment_budget)
+    if dispatch_mode != "ep" and E_local < E_real:
+        out = reduce_from(out, eg)
+    if not training and cfg.avg_hidden_states_last and dispatch_mode == "ep":
+        # Eval-time averaging over the expert group (`block.py:210-213`).
+        out = reduce_from(out, eg) / group_size(eg)
 
     if cfg.mlp_fixed_expert_num > 0:
         x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)
         y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"], a8=a8)   # [nF, S, D]
         w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
         out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
+    out = reduce_from(out, tp)
 
     return MoEOutput(
         hidden_states=out.reshape(B, T, dim).to(hidden_states.dtype),

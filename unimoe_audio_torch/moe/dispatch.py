@@ -12,8 +12,8 @@
 
 Weights are plain tensors or `QTensor`s (`ops/quant.py`).  With `a8=True`
 and per-channel QTensor weights the dense and packed paths run the expert
-products in int8 (`swiglu_expert_ffn`).  Expert parallelism (`moe_ffn_ep`)
-comes with the parallel slice and raises here.
+products in int8 (`swiglu_expert_ffn`).  `moe_ffn_ep` is the packed path
+across the ranks of an expert group (`parallel/mesh.py`): two all-to-alls.
 
 Stacked expert layout as in the JAX package:
   params = {"gate": [E, D, F], "up": [E, D, F], "down": [E, F, D]}
@@ -173,9 +173,39 @@ def moe_ffn_packed(hidden: torch.Tensor, expert_mask: torch.Tensor,
     return combine_from_packed(y, pos, expert_mask, router_weight)
 
 
-def moe_ffn_ep(*args, **kwargs):
-    raise NotImplementedError("expert-parallel dispatch (moe_ffn_ep) comes with the parallel "
-                              "slice")
+def _group(axis_name):
+    from ..parallel.mesh import active
+
+    ctx = active()
+    return None if ctx is None else ctx.mesh.group(axis_name)
+
+
+def moe_ffn_ep(hidden: torch.Tensor, expert_mask: torch.Tensor, router_weight: torch.Tensor,
+               params: Dict, capacity: int, *, axis_name: str = "expert",
+               a8: bool = False) -> torch.Tensor:
+    """Expert-parallel packed path (`dispatch.py:225-271`), for a batch
+    whose tokens are split over the active mesh's `axis_name` group and
+    whose dynamic experts are too (each rank holds E_local = E / ep of
+    them, `params`): the local tokens packed for all E experts [E, cap, D],
+    one all-to-all over the group → [E_local, ep·cap, D] (the rank's
+    experts' slots from every rank), the local SwiGLU (a8 included), the
+    all-to-all back, the gather-combine into the local tokens.  `capacity`
+    must be the group-wide one (`ep_capacity(..., axis_name=...)`).
+    Without an active mesh, or with one rank on the axis, it is the packed
+    path."""
+    from ..parallel.comm import all_to_all, group_size
+
+    group = _group(axis_name)
+    ep = group_size(group)
+    E_local = wshape(params["gate"])[0]
+    packed, _, pos = pack_by_expert(hidden, expert_mask, capacity)      # [E, cap, D]
+    D = packed.shape[-1]
+    recv = all_to_all(packed.reshape(ep, E_local, capacity, D), group)  # [ep(src), E_l, cap, D]
+    x_local = recv.transpose(0, 1).reshape(E_local, ep * capacity, D)
+    y_local = swiglu_expert_ffn(x_local.to(hidden.dtype), params, a8=a8)
+    y_send = y_local.reshape(E_local, ep, capacity, D).transpose(0, 1)
+    y_home = all_to_all(y_send, group).reshape(E_local * ep, capacity, D)
+    return combine_from_packed(y_home, pos, expert_mask, router_weight)
 
 
 def gmm_group_sizes(expert_mask: torch.Tensor, rows: int) -> torch.Tensor:
@@ -297,9 +327,12 @@ def decompress_matrix(B_mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def ep_capacity(expert_mask: torch.Tensor, *, axis_name: Optional[str] = None) -> torch.Tensor:
-    """Most tokens routed to any expert (`dispatch.py:415-422`); the
-    cross-rank max over `axis_name` comes with the parallel slice."""
+    """Most tokens routed to any expert (`dispatch.py:415-422`); with
+    `axis_name`, the most over the active mesh's group on that axis (an
+    all-reduce MAX, the reference's capacity sync)."""
+    cap = expert_mask.to(torch.int32).sum(dim=0).max()
     if axis_name is not None:
-        raise NotImplementedError("ep_capacity across ranks (axis_name) comes with the parallel "
-                                  "slice")
-    return expert_mask.to(torch.int32).sum(dim=0).max()
+        from ..parallel.comm import all_reduce
+
+        cap = all_reduce(cap, _group(axis_name), op=torch.distributed.ReduceOp.MAX)
+    return cap

@@ -154,21 +154,31 @@ def global_routing_weight(expert_mask: torch.Tensor, full_router_logits: torch.T
 
 def load_balancing_loss(expert_mask: torch.Tensor, full_router_logits: torch.Tensor,
                         num_dynamic: int,
-                        aux_balance_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Switch-style load-balancing loss over the dynamic (+ null) experts."""
+                        aux_balance_weight: Optional[torch.Tensor] = None, *,
+                        group=None) -> torch.Tensor:
+    """Switch-style load-balancing loss over the dynamic (+ null) experts.
+    `group`: the process group the tokens are split over (a split batch);
+    the per-expert means are then over every rank's tokens."""
+    from ..parallel.comm import group_size, reduce_from
+
     logits = full_router_logits.float()
     masked = torch.where(expert_mask == 0,
                          torch.full_like(logits, torch.finfo(torch.float32).min), logits)
     gw = torch.softmax(masked[:, :num_dynamic], dim=-1)
     dyn_mask = expert_mask[:, :num_dynamic].float()
     if aux_balance_weight is None:
-        tokens_per_expert = dyn_mask.mean(dim=0)
-        prob_per_expert = gw.mean(dim=0)
+        if group_size(group) == 1:
+            tokens_per_expert = dyn_mask.mean(dim=0)
+            prob_per_expert = gw.mean(dim=0)
+        else:
+            n = dyn_mask.shape[0] * group_size(group)
+            tokens_per_expert = reduce_from(dyn_mask.sum(dim=0), group) / n
+            prob_per_expert = reduce_from(gw.sum(dim=0), group) / n
     else:
         wgt = aux_balance_weight.float()[:, None]
-        denom = wgt.sum(dim=0) + 1e-9
-        tokens_per_expert = (dyn_mask * wgt).sum(dim=0) / denom
-        prob_per_expert = (gw * wgt).sum(dim=0) / denom
+        denom = reduce_from(wgt.sum(dim=0), group) + 1e-9
+        tokens_per_expert = reduce_from((dyn_mask * wgt).sum(dim=0), group) / denom
+        prob_per_expert = reduce_from((gw * wgt).sum(dim=0), group) / denom
     return (tokens_per_expert * prob_per_expert).sum() * num_dynamic
 
 

@@ -20,9 +20,15 @@ samples.  ARROW_DIR is a `datasets.save_to_disk` directory of
 OUT/metrics.jsonl, checkpoints under OUT/checkpoints and OUT/train_done.json.
 
 Runs on the first CUDA card and raises without one; `--cpu` trains on the
-CPU.  `--fsdp`, `--ep_size` / `--tp_size` above 1 and the multihost
-arguments (the parallel paths) are parsed and refused: they come with a
-later slice.
+CPU.  On several ranks (one process each: `torchrun` with `--multihost`,
+or `--coordinator-address HOST:PORT --num-processes N --process-id I`) it
+trains on the (N / (ep·tp), `--ep_size`, `--tp_size`) mesh
+(`Trainer(mesh=...)`), `--fsdp` keeping the optimizer state on each data
+rank's slice; rank 0 writes metrics.jsonl and train_done.json, each rank
+its checkpoints (OUT/checkpoints/rank{r}):
+
+    torchrun --nproc-per-node 2 -m unimoe_audio_torch.train.cli --multihost \
+        --ep_size 2 --fsdp --model_name_or_path MODEL_DIR --data_path ARROW_DIR
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import json
 import os
 import pickle
 import sys
+
+from unimoe_audio_torch.parallel.multihost import add_multihost_args, maybe_initialize_multihost
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(with --param_offload) Adam-moment storage: int8 = blockwise "
                         "log-quantized codes (train/qmoment.py), 4x less host traffic")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params and optimizer state over the data axis (not ported yet)")
+                   help="keep each large leaf's optimizer state and update on one data rank's "
+                        "slice (ZeRO-2 over the data axis)")
     p.add_argument("--only_gate_training", action="store_true")
     # Data arguments
     p.add_argument("--data_path", required=True)
@@ -93,29 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gradient_checkpointing", action="store_true", default=True)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max_steps", type=int, default=None)
-    g = p.add_argument_group("multi-host (not ported yet)")
-    g.add_argument("--multihost", action="store_true")
-    g.add_argument("--coordinator-address", default=None, metavar="HOST:PORT")
-    g.add_argument("--num-processes", type=int, default=None)
-    g.add_argument("--process-id", type=int, default=None)
+    add_multihost_args(p)
     p.add_argument("--peft_mode", choices=["lora", "prefix", "ptuning", "prompt"], default=None,
                    help="parameter-efficient finetuning: adapters train, the base is frozen")
     p.add_argument("--lora_r", type=int, default=16)
     p.add_argument("--lora_alpha", type=float, default=32.0)
     p.add_argument("--cpu", action="store_true", help="train on the CPU instead of the card")
     return p
-
-
-def refuse_unported(args) -> None:
-    """NotImplementedError for the flags of paths not ported yet, naming
-    their slice."""
-    if (args.fsdp or args.ep_size > 1 or args.tp_size > 1 or args.multihost
-            or args.coordinator_address or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            f"--fsdp / --ep_size {args.ep_size} / --tp_size {args.tp_size} / the multihost "
-            "arguments: training on a device mesh comes with the parallel slice (ROADMAP §1, "
-            "the parallel paths); the port trains on one card")
 
 
 def train_streamed(args, cfg, params, device, batches, eval_batches, total_steps: int,
@@ -179,15 +172,18 @@ def train_streamed(args, cfg, params, device, batches, eval_batches, total_steps
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    maybe_initialize_multihost(args, cpu=args.cpu)
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from unimoe_audio_torch.api import resolve_device
     from unimoe_audio_torch.config import UniMoEAudioConfig
     from unimoe_audio_torch.core.bridge import params_from_jax
     from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.parallel.comm import is_writer
+    from unimoe_audio_torch.parallel.mesh import default_mesh_shape, make_mesh
     from unimoe_audio_torch.tokenizer import SimpleTokenizer
     from unimoe_audio_torch.train.data import Collator, ConversationDataset, prefetch
     from unimoe_audio_torch.train.surgery import moeify_dense_params
@@ -291,6 +287,15 @@ def main(argv=None) -> int:
         return train_streamed(args, cfg, params, device, prefetch(batches()), eval_batches,
                               total_steps, gas, stream_ckpt, resume_stream)
 
+    # --- mesh ---------------------------------------------------------------
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_shape = default_mesh_shape(n_dev, args.ep_size, args.tp_size)
+    mesh = None
+    if n_dev > 1 or args.fsdp:
+        mesh = make_mesh(*mesh_shape, device=device.type)
+    print(f"mesh (data, expert, model) = {mesh_shape} over {n_dev} devices"
+          + (" [fsdp]" if args.fsdp else ""))
+
     # --- train --------------------------------------------------------------
     trainable = None
     if args.only_gate_training:
@@ -327,12 +332,15 @@ def main(argv=None) -> int:
         eval_every=args.eval_steps or (total_steps if eval_batches else 0),
     )
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"))
-    trainer = Trainer(cfg, params, tcfg, logger=logger, device=device)
+    logger = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl") if is_writer()
+                           else None)
+    trainer = Trainer(cfg, params, tcfg, logger=logger, device=device, mesh=mesh,
+                      fsdp=args.fsdp)
     trainer.fit(prefetch(batches()), max_steps=args.max_steps, eval_batches=eval_batches)
     logger.close()
-    with open(os.path.join(args.output_dir, "train_done.json"), "w") as f:
-        json.dump({"steps": int(trainer.state.step)}, f)
+    if is_writer():
+        with open(os.path.join(args.output_dir, "train_done.json"), "w") as f:
+            json.dump({"steps": int(trainer.state.step)}, f)
     return 0
 
 

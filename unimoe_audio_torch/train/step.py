@@ -44,6 +44,8 @@ from ..config import UniMoEAudioConfig
 from ..models.model import (calculate_input_embedding, fold_seed, model_forward,
                             scatter_vision_features)
 from ..models.vision import vision_tower_apply
+from ..parallel.comm import all_reduce, group_size
+from ..parallel.mesh import batch_group
 from .peft import prefix_kv, prepend_virtual_tokens, virtual_embeds
 
 
@@ -149,6 +151,9 @@ class AdamW:
     grad_clip: float = 1.0
     trainable_pattern: Optional[str] = None
     grad_accum_steps: int = 1
+    # The global norm of a list of gradients (a trainer on a mesh sets its
+    # own, which sums over the ranks' shards).
+    norm: Optional[Callable[[List[Optional[torch.Tensor]]], torch.Tensor]] = None
     _pattern: Optional[re.Pattern] = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -181,7 +186,7 @@ class AdamW:
         if n < k - 1:
             state.mini_step = n + 1
             return
-        self.apply(params, list(state.acc), state, global_norm(state.acc))
+        self.apply(params, list(state.acc), state, (self.norm or global_norm)(state.acc))
         for acc in state.acc:
             acc.zero_()
         state.mini_step = 0
@@ -230,12 +235,15 @@ class TrainState:
     step: int                                  # host counter of applied (micro-)steps
 
 
-def init_train_state(params: Dict, optimizer: AdamW) -> TrainState:
-    """Marks every floating parameter as requiring a gradient."""
+def init_train_state(params: Dict, optimizer: AdamW, slices=None) -> TrainState:
+    """Marks every floating parameter as requiring a gradient.  slices: the
+    optimizer's view of params where it is not params itself (a trainer on
+    a mesh, `MeshPlan.views`)."""
     for _, t in named_leaves(params):
         if t.is_floating_point():
             t.requires_grad_(True)
-    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+    return TrainState(params=params, step=0,
+                      opt_state=optimizer.init(params if slices is None else slices))
 
 
 def aux_weight_at_step(cfg: UniMoEAudioConfig, step: int) -> float:
@@ -271,7 +279,8 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
                                         batch.get("codec_input_ids"),
                                         cfg.codec_placeholder_value)
         inputs_embeds = scatter_vision_features(emb, batch["input_ids"], feats,
-                                                cfg.image_token_id)
+                                                cfg.image_token_id,
+                                                int(batch.get("vision_slot_offset", 0)))
     if "peft" in params:
         peft = params["peft"]
         virt = virtual_embeds(peft)
@@ -295,11 +304,12 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
         training=True, seed=seed, remat=remat, use_flash=use_flash,
         dispatch_mode=dispatch_mode, capacity=capacity, prefix_kv=prefix)
     zero = torch.zeros((), dtype=torch.float32, device=out.aux_loss.device)
+    group = batch_group()
     metrics = {
         "loss": out.loss,
         "codec_loss": out.codec_loss if out.codec_loss is not None else zero,
         "aux_loss": out.aux_loss,
-        "mean_top_k": out.router_top_k.float().mean(),
+        "mean_top_k": all_reduce(out.router_top_k.float().mean(), group) / group_size(group),
     }
     return out.loss, metrics
 
@@ -319,22 +329,34 @@ def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
                cfg: UniMoEAudioConfig, optimizer: AdamW, dispatch_mode: str = "dense",
                capacity: Optional[int] = None, remat: bool = True,
-               use_flash: Optional[bool] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               use_flash: Optional[bool] = None,
+               plan=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One (micro-)step (`step.py:211-249`): loss and gradients, then the
     optimizer's update in place — unless the loss or the gradient norm is
     not finite, in which case parameters, moments, the accumulator, the
     mini-step and the step count stay as they were (`skipped` = 1).  The
-    finite test reads one flag to the host per step."""
+    finite test reads one flag to the host per step.
+
+    plan (`train/trainer.MeshPlan`, on an active split-batch mesh): the
+    gradients are summed over the ranks that hold copies of each leaf
+    (reduce-scattered to the optimizer's slice under FSDP), the norm is
+    taken over the whole model, the optimizer updates its slices and the
+    updated slices are all-gathered."""
     aux_w = aux_weight_at_step(cfg, state.step)
     loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
                             dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
                             use_flash=use_flash)
     leaves = [t for _, t in named_leaves(state.params)]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grad_norm = global_norm(grads)
+    if plan is not None:
+        grads = plan.sync(grads, leaves)
+    grad_norm = (plan.norm if plan is not None else global_norm)(grads)
     finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(grad_norm))
     if finite:
-        optimizer.update(state.params, list(grads), state.opt_state, grad_norm)
+        optimizer.update(state.params if plan is None else plan.views(state.params),
+                         list(grads), state.opt_state, grad_norm)
+        if plan is not None:
+            plan.gather(state.params)
         state.step += 1
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = grad_norm

@@ -4,8 +4,9 @@ and resume, and the inference export — counterpart of
 `Trainer.fit` is the entry point.
 
 The trainer runs on the card (`device="cuda"`, the default) and raises
-without one; the tests pass `device="cpu"`.  Ring attention comes with the
-parallel slice and raises here.
+without one; the tests pass `device="cpu"`.  `Trainer(mesh=...)` trains on
+a (data, expert, model) mesh of ranks (`parallel/mesh.py`, `MeshPlan`).
+Ring attention (`ring_axis`) comes with the next slice and raises here.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from ..core.bridge import params_to_numpy
 from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models.model import calculate_input_embedding, get_rope_index
 from ..models.vision import vision_forward, vision_indices
+from ..parallel import comm
+from ..parallel.mesh import (Mesh, add_fsdp_axis, batch_spec, fsdp_dim, full_specs,
+                             gather_params, leaf_specs, shard_params, storage_splits, use_mesh)
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     place_batch, train_step
 
@@ -147,30 +151,128 @@ class MetricsLogger:
             self._wandb = None
 
 
+class MeshPlan:
+    """How a trainer on a mesh treats each leaf (`trainer.py:183-190,
+    345-360`): the batch rows are split over (data, expert), so a leaf's
+    gradient is summed over the ranks that hold the same piece of it —
+    (data, expert) for a leaf whole over expert, data for an expert-split
+    one, and also the model ranks that share a kv head's copy (GQA with
+    |model| > num_key_value_heads).  Under FSDP a leaf with a `data` entry
+    (`add_fsdp_axis`) is reduce-scattered to this data rank's slice instead,
+    the optimizer keeps moments for that slice only and updates it, and the
+    updated slices are all-gathered into the whole (local) parameter.  The
+    gradient norm counts each distinct piece once."""
+
+    def __init__(self, mesh: Mesh, params: Dict, cfg: UniMoEAudioConfig, *, fsdp: bool,
+                 fsdp_min_bytes: int):
+        self.mesh = mesh
+        specs = full_specs(params, cfg)
+        if fsdp:
+            specs = add_fsdp_axis(specs, params, mesh, min_bytes=fsdp_min_bytes)
+        self.leaves = leaf_specs(params, specs, cfg, mesh.shape["model"])
+        world = mesh.size(("data", "expert", "model"))
+        self._copies = []
+        for ls in self.leaves:
+            distinct = 1
+            for _, a in storage_splits(ls.spec):
+                distinct *= mesh.shape[a] // (ls.kv_rep if a == "model" else 1)
+            if fsdp_dim(ls.spec) is not None:
+                distinct *= mesh.shape["data"]
+            self._copies.append(world // distinct)
+
+    def _expert_split(self, ls) -> bool:
+        return any(a == "expert" for _, a in storage_splits(ls.spec))
+
+    def sync(self, grads, leaves) -> List[torch.Tensor]:
+        out = []
+        m = self.mesh
+        for g, p, ls in zip(grads, leaves, self.leaves):
+            g = torch.zeros_like(p) if g is None else g
+            if ls.kv_rep > 1:
+                g = comm.all_reduce(g, m.block_groups[ls.kv_rep])
+            d = fsdp_dim(ls.spec)
+            if d is None:
+                g = comm.all_reduce(g, m.group("data" if self._expert_split(ls)
+                                               else ("data", "expert")))
+            else:
+                if not self._expert_split(ls):
+                    g = comm.all_reduce(g, m.group("expert"))
+                g = comm.reduce_scatter_dim(g, m.group("data"), d)
+            out.append(g)
+        return out
+
+    def norm(self, grads) -> torch.Tensor:
+        sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 / c
+                 for g, c in zip(grads, self._copies) if g is not None)
+        return comm.all_reduce(sq, self.mesh.group(("data", "expert", "model"))).sqrt()
+
+    def _slice(self, p: torch.Tensor, ls) -> torch.Tensor:
+        d = fsdp_dim(ls.spec)
+        if d is None:
+            return p
+        return p.chunk(self.mesh.shape["data"], d)[self.mesh.coord["data"]]
+
+    def views(self, params) -> List[Dict[str, torch.Tensor]]:
+        """The optimizer's view of params: one {name: slice} per leaf, in
+        leaf order (a slice is a view, updated in place)."""
+        return [{ls.name: self._slice(t, ls)} for (_, t), ls in
+                zip(named_leaves(params), self.leaves)]
+
+    @torch.no_grad()
+    def gather(self, params) -> None:
+        for (_, t), ls in zip(named_leaves(params), self.leaves):
+            d = fsdp_dim(ls.spec)
+            if d is not None:
+                t.copy_(comm.all_gather_dim(self._slice(t, ls), self.mesh.group("data"), d))
+
+
 class Trainer:
     """Holds the parameters (on `device`), the optimizer state and the step
-    count; `fit` runs the steps, `evaluate` a forward-only pass."""
+    count; `fit` runs the steps, `evaluate` a forward-only pass.
+
+    mesh: train on a (data, expert, model) mesh of ranks.  params is then
+    the whole tree, the same on every rank, and the trainer keeps this
+    rank's shard (`shard_params`); each batch handed in is the whole batch,
+    of which the rank takes its rows; the dynamic experts run
+    `dispatch_mode="ep"` when the expert axis has more than one rank;
+    `fsdp` (leaves of at least fsdp_min_bytes, `add_fsdp_axis`) keeps the
+    optimizer state on each data rank's slice.  Losses, metrics and the
+    gradient norm are the whole batch's, as on one device.  Checkpoints are
+    per rank (ckpt_dir/rank{r}) when there is more than one."""
 
     def __init__(self, cfg: UniMoEAudioConfig, params: Dict, tcfg: TrainerConfig, *,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 mesh: Optional[Mesh] = None, fsdp: bool = False,
+                 fsdp_min_bytes: int = 1 << 18):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer runs on a CUDA card and none is available; "
                                "pass device='cpu' to train on the CPU")
         if tcfg.ring_axis is not None:
-            raise NotImplementedError("ring_axis: ring attention comes with a later slice")
+            raise NotImplementedError("ring_axis: ring attention comes with the next slice "
+                                      "(sequence and pipeline parallelism)")
         for name, t in named_leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"parameter {name} is on {t.device}, the trainer on "
                                  f"{self.device}")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
+        self.plan = None
+        self.dispatch_mode = tcfg.dispatch_mode
         self.optimizer = make_optimizer(
             learning_rate=tcfg.learning_rate, weight_decay=tcfg.weight_decay,
             warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps,
             schedule=tcfg.schedule, grad_clip=tcfg.grad_clip,
             trainable_pattern=tcfg.trainable_pattern, grad_accum_steps=tcfg.grad_accum_steps)
-        self.state = init_train_state(params, self.optimizer)
+        if mesh is not None:
+            self.plan = MeshPlan(mesh, params, cfg, fsdp=fsdp, fsdp_min_bytes=fsdp_min_bytes)
+            params = shard_params(params, mesh, cfg)
+            self.optimizer.norm = self.plan.norm
+            if mesh.shape["expert"] > 1:
+                self.dispatch_mode = "ep"
+        self.state = init_train_state(params, self.optimizer,
+                                      None if self.plan is None else self.plan.views(params))
         self.logger = logger or MetricsLogger()
         if tcfg.trainable_pattern is not None:
             on = compress_strings_set(
@@ -179,24 +281,37 @@ class Trainer:
             print(f"[trainer] trainable ({tcfg.trainable_pattern!r}): {sorted(on)}")
 
     # -- checkpointing (`trainer.py:234-262`) -----------------------------
+    def _ckpt_dir(self) -> Optional[str]:
+        d = self.tcfg.ckpt_dir
+        if d and self.mesh is not None and self.mesh.size(("data", "expert", "model")) > 1:
+            d = os.path.join(d, f"rank{self.mesh.rank}")
+        return d
+
     def maybe_resume(self) -> int:
         """Restore the latest checkpoint under ckpt_dir into the trainer's
         state, in place; returns its step (0 when there is none)."""
-        if not self.tcfg.ckpt_dir:
+        ckpt_dir = self._ckpt_dir()
+        if not ckpt_dir:
             return 0
-        step = latest_step(self.tcfg.ckpt_dir)
+        step = latest_step(ckpt_dir)
         if step is None:
             return 0
-        restore_checkpoint(self.tcfg.ckpt_dir, self.state, step)
+        restore_checkpoint(ckpt_dir, self.state, step)
         print(f"resumed from checkpoint step {step}")
         return int(step)
 
     def save(self) -> None:
         """Save the state under ckpt_dir at its step count (pruned to
         max_to_keep steps)."""
-        if self.tcfg.ckpt_dir:
-            save_checkpoint(self.tcfg.ckpt_dir, self.state.step, self.state,
+        if self._ckpt_dir():
+            save_checkpoint(self._ckpt_dir(), self.state.step, self.state,
                             max_to_keep=self.tcfg.max_to_keep)
+
+    def whole_params(self) -> Dict:
+        """The whole param tree (gathered from the ranks on a mesh)."""
+        if self.mesh is None:
+            return self.state.params
+        return gather_params(self.state.params, self.mesh, self.cfg)
 
     def save_pretrained(self, out_dir: str) -> None:
         """Export an inference directory (`model.jax.pkl` + `config.json`)
@@ -206,8 +321,11 @@ class Trainer:
         bf16); both loaders cast to their dtype."""
         import pickle
 
+        params = self.whole_params()
+        if not comm.is_writer():
+            return
         os.makedirs(out_dir, exist_ok=True)
-        blob = {"params": params_to_numpy(self.state.params), "config": self.cfg.to_dict()}
+        blob = {"params": params_to_numpy(params), "config": self.cfg.to_dict()}
         with open(os.path.join(out_dir, "model.jax.pkl"), "wb") as f:
             pickle.dump(blob, f, protocol=4)
         self.cfg.save_json(os.path.join(out_dir, "config.json"))
@@ -268,7 +386,27 @@ class Trainer:
         return batch
 
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return place_batch(batch, self.device)
+        """The batch on the device; on a mesh this rank's rows of it (the
+        vision tower's inputs whole: every rank runs the tower and takes the
+        features of its rows' image tokens, from `vision_slot_offset`)."""
+        if self.mesh is None:
+            return place_batch(batch, self.device)
+        n, i = self.mesh.size(batch_spec()), self.mesh.index(batch_spec())
+        out = {}
+        for k, v in batch.items():
+            bd = 1 if k == "position_ids" else 0
+            if k.startswith("vision_") or n == 1:
+                out[k] = v
+                continue
+            if v.shape[bd] % n:
+                raise ValueError(f"batch key {k}: {v.shape[bd]} rows do not split over "
+                                 f"{n} (data x expert) ranks")
+            b = v.shape[bd] // n
+            out[k] = v[:, i * b:(i + 1) * b] if bd else v[i * b:(i + 1) * b]
+            if k == "input_ids" and "vision_patches" in batch:
+                out["vision_slot_offset"] = int(
+                    (np.asarray(v[:i * b]) == self.cfg.image_token_id).sum())
+        return place_batch(out, self.device)
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
@@ -281,10 +419,11 @@ class Trainer:
             if max_batches is not None and j >= max_batches:
                 break
             batch = self._place_batch(self._prepare_vision_batch(batch))
-            _, m = loss_fn(self.state.params, self.cfg, batch, 0,
-                           aux_weight_at_step(self.cfg, self.state.step),
-                           dispatch_mode=self.tcfg.dispatch_mode,
-                           capacity=self.tcfg.dispatch_capacity, remat=False)
+            with use_mesh(self.mesh, split_batch=True):
+                _, m = loss_fn(self.state.params, self.cfg, batch, 0,
+                               aux_weight_at_step(self.cfg, self.state.step),
+                               dispatch_mode=self.dispatch_mode,
+                               capacity=self.tcfg.dispatch_capacity, remat=False)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
@@ -307,10 +446,11 @@ class Trainer:
             if max_steps is not None and step_no >= max_steps:
                 break
             batch = self._place_batch(self._prepare_vision_batch(batch))
-            self.state, metrics = train_step(
-                self.state, batch, self.tcfg.seed, cfg=self.cfg,
-                optimizer=self.optimizer, dispatch_mode=self.tcfg.dispatch_mode,
-                capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat)
+            with use_mesh(self.mesh, split_batch=True):
+                self.state, metrics = train_step(
+                    self.state, batch, self.tcfg.seed, cfg=self.cfg,
+                    optimizer=self.optimizer, dispatch_mode=self.dispatch_mode,
+                    capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat, plan=self.plan)
             if step_no % self.tcfg.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 if metrics["skipped"]:
