@@ -548,6 +548,28 @@ MESH_PROMPTS = 4
 MESH_FRAMES = 16
 MESH_TRAIN_STEPS = 2
 TIMEIT_VS_GRAPH = 0.10
+# Sequence and pipeline parallelism at world size 1 (`run_ring`,
+# `run_pipeline`), bf16 at the flagship width.  The ring's chunk arithmetic
+# composed over RING_CHUNKS virtual ranks at B 1 x T RING_T (one process,
+# each rank's queries visiting the chunks in ring order) is held to K1 over
+# the whole T with K1's own bf16 tolerance: both round P to bf16, at other
+# points, and sum in other orders.  `ring_attention` on its group of one
+# rank is held to K1 at the training shape the same way.  The ring trainer
+# (`ring_axis="model"`, the mesh trainer's cut) keeps its losses within
+# TRAIN_LOSS_REL of the mesh-less trainer's.  `pipeline_forward` at one
+# stage and PIPE_MICRO microbatches of the train probe's batch: its hidden
+# states equal `text_model_forward(use_flash=False)` of each microbatch bit
+# for bit (the same products at the same shapes), and against one forward
+# of the whole batch, where bf16 products over another row count round
+# otherwise and move a few top-p routing decisions (ROADMAP §3), the hidden
+# states are within PIPE_HIDDEN_REL_L2 and the parameters' gradients
+# within PIPE_GRAD_REL_L2, relative L2 (about 2 x the first readings,
+# 1.394e-2 and 2.252e-2).
+RING_T, RING_CHUNKS = 16384, 8
+RING_RTOL, RING_ATOL = FLASH_RTOL, FLASH_ATOL
+PIPE_MICRO = 4
+PIPE_HIDDEN_REL_L2 = 3e-2
+PIPE_GRAD_REL_L2 = 5e-2
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_f32",
                   "flash_attention_bwd_f32", "grouped_gemm")
@@ -5017,7 +5039,7 @@ def run_mesh_training(card: str) -> dict:
     MESH_TRAIN_STEPS steps, beside the same Trainer without a mesh: losses
     within TRAIN_LOSS_REL, the parameters' difference within
     TRAIN_ACCUM_REL of the update; K1-K3 launched; step seconds.  Returns
-    the mesh run's launch counts."""
+    the mesh run's launch counts and the mesh-less run's history."""
     import dataclasses
 
     import torch
@@ -5057,6 +5079,173 @@ def run_mesh_training(card: str) -> dict:
           f"against the update's {upd:.3e} (limit {TRAIN_ACCUM_REL} of it); step seconds "
           f"{[round(x, 4) for x in secs]}; launches per step {_per_step(launches, MESH_TRAIN_STEPS)}",
           flush=True)
+    return launches, h0
+
+
+def run_ring(card: str, plain_hist) -> dict:
+    """Ring attention at world size 1 (NCCL), bf16, flagship widths (H 16,
+    KV 2, Dh 128):
+      (a) the ring steps composed over RING_CHUNKS chunks at B 1 x T RING_T
+          against K1 over the whole sequence, and the peak memory of one
+          chunk step beside that of one f32 [1, 16, T, T] score block;
+      (b) `ring_attention` on the mesh's model group (one rank) at the
+          training shape against K1;
+      (c) `Trainer(mesh=make_mesh(1, 1, 1), TrainerConfig(ring_axis=
+          "model"))` at the mesh trainer's cut beside its mesh-less run
+          (`plain_hist`): losses within TRAIN_LOSS_REL, step seconds.
+    The K1 launches of (a) and (b) are comparisons and leave the counts as
+    they were; the trainer's run is counted from 0 and launches no kernel
+    of the table (its attention is the ring's einsum arithmetic).  Returns
+    that run's launch counts."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import init_model_params
+    from unimoe_audio_torch.ops import ring_attention as RA
+    from unimoe_audio_torch.ops.flash_attention import flash_attention
+    from unimoe_audio_torch.parallel.mesh import make_mesh
+    from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
+
+    saved = _launch_counts()
+    H, KV, Dh = 16, 2, 128
+    T, p = RING_T, RING_CHUNKS
+    q, k, v, valid = flash_inputs(1, H, KV, T, T, Dh, np.ones((1, T), np.int32), seed=40)
+    want = flash_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = RA.compose_ring(q, k, v, valid, p)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    err = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all())
+          and bool((err <= RING_ATOL + RING_RTOL * want.float().abs()).all()),
+          f"ring: the composed ring at T {T} differs from K1, max err {err.max().item()}")
+    Tc = T // p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = RA.init_state(q[:, :, -Tc:])
+    state = RA.ring_step(state, q[:, :, -Tc:], k[:, :, :Tc], v[:, :, :Tc], valid[:, :Tc],
+                         p - 1, 0)
+    torch.cuda.synchronize()
+    step_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del state, got, want, q, k, v
+    print(f"ring [{card}]: the ring steps composed over {p} chunks of {Tc} at B 1 x T {T}, "
+          f"{H} heads / {KV} kv x Dh {Dh}, bf16: max|err| against K1 {err.max().item():.3e} "
+          f"(rtol {RING_RTOL}, atol {RING_ATOL}), {ring_s:.3f} s for the {p * p} steps; one "
+          f"chunk step peaks at {step_gb:.3f} GB against {4 * H * T * T / 1e9:.1f} GB for one "
+          f"f32 [1, {H}, T, T] score block", flush=True)
+
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    q, k, v, valid = flash_inputs(TRAIN_B, H, KV, TRAIN_T, TRAIN_T, 128,
+                                  np.ones((TRAIN_B, TRAIN_T), np.int32), seed=41)
+    want = flash_attention(q, k, v, valid)
+    got = RA.ring_attention(q, k, v, valid, group=(mesh, "model"))
+    torch.cuda.synchronize()
+    err_b = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all())
+          and bool((err_b <= RING_ATOL + RING_RTOL * want.float().abs()).all()),
+          f"ring: ring_attention on one rank differs from K1, max err {err_b.max().item()}")
+    print(f"ring [{card}]: ring_attention on the mesh's model group (1 rank, NCCL) at B "
+          f"{TRAIN_B} x T {TRAIN_T}: max|err| against K1 {err_b.max().item():.3e}", flush=True)
+    del q, k, v, got, want
+    _set_launch_counts(saved)
+
+    cfg = UniMoEAudioConfig(text_config=dataclasses.replace(
+        TextMoEConfig(), num_hidden_layers=MESH_LAYERS), vision_config=None)
+    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100, log_every=1,
+                         ring_axis="model")
+    tr = Trainer(cfg, init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"), tcfg,
+                 mesh=mesh, device="cuda")
+    _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist, _, marks = _fit_marked(tr, probe_batch(cfg), MESH_TRAIN_STEPS)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del tr
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(plain_hist, hist))
+    check(loss_rel <= TRAIN_LOSS_REL and not any(launches.values()),
+          f"ring training: loss relative {loss_rel}, launches {launches}")
+    print(f"ring training [{card}]: Trainer(mesh=1 x 1 x 1, ring_axis='model'), the flagship "
+          f"cut to {MESH_LAYERS} layers, bf16, B {TRAIN_B} x T {TRAIN_T}, {MESH_TRAIN_STEPS} "
+          f"steps: losses {[round(h['loss'], 5) for h in hist]} vs mesh-less "
+          f"{[round(h['loss'], 5) for h in plain_hist]} (relative {loss_rel:.2e}, limit "
+          f"{TRAIN_LOSS_REL}); step seconds {[round(x, 4) for x in _durations(marks)]}; peak "
+          f"{peak_gb:.2f} GB; no kernel of the table launched", flush=True)
+    return launches
+
+
+def run_pipeline(card: str) -> dict:
+    """`pipeline_forward` on the mesh's model group (one stage, NCCL) with
+    PIPE_MICRO microbatches of the train probe's batch, the flagship cut to
+    MESH_LAYERS layers in bf16, against `text_model_forward(use_flash=
+    False)`: the hidden states bit for bit against it on each microbatch;
+    against it on the whole batch the hidden states within
+    PIPE_HIDDEN_REL_L2, the layers' and the final norm's gradients of
+    sum(h · w) (w random) within PIPE_GRAD_REL_L2.  Returns the pipeline
+    run's launch counts (none of the table: its attention is einsum
+    arithmetic, as in the JAX package)."""
+    import dataclasses
+
+    import torch
+    from unimoe_audio_torch.config import TextMoEConfig, UniMoEAudioConfig
+    from unimoe_audio_torch.models.model import (calculate_input_embedding, init_model_params,
+                                                 text_model_forward)
+    from unimoe_audio_torch.parallel.mesh import make_mesh
+    from unimoe_audio_torch.parallel.pipeline import pipeline_forward
+
+    cfg = UniMoEAudioConfig(text_config=dataclasses.replace(
+        TextMoEConfig(), num_hidden_layers=MESH_LAYERS), vision_config=None)
+    tc = cfg.text_config
+    params = init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    batch = probe_batch(cfg)
+    with torch.no_grad():
+        x = calculate_input_embedding(
+            params, torch.as_tensor(batch["input_ids"], device="cuda"),
+            torch.as_tensor(batch["codec_input_ids"], device="cuda"),
+            cfg.codec_placeholder_value)
+    pos = torch.arange(TRAIN_T, device="cuda")[None, None].expand(3, TRAIN_B, TRAIN_T)
+    w = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(42),
+                    device="cuda").to(x.dtype)
+    leaves = [t.requires_grad_() for t in _leaves(params["layers"])] + [params["norm"]]
+    params["norm"].requires_grad_()
+    h0 = text_model_forward(params, x, pos, tc, use_flash=False).last_hidden_state
+    g0 = torch.autograd.grad((h0.float() * w.float()).sum(), leaves)
+    mesh = make_mesh(1, 1, 1, device="cuda")
+    _zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h1 = pipeline_forward(params["layers"], params["norm"], x, pos, tc, (mesh, "model"),
+                          n_micro=PIPE_MICRO)
+    g1 = torch.autograd.grad((h1.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launch_counts()
+    mb = TRAIN_B // PIPE_MICRO
+    with torch.no_grad():
+        per_micro = torch.cat([text_model_forward(
+            params, x[i:i + mb], pos[:, i:i + mb], tc, use_flash=False).last_hidden_state
+            for i in range(0, TRAIN_B, mb)])
+    check(torch.equal(h1, per_micro), f"pipeline: the hidden states differ from the "
+          f"microbatches' own forwards, max {(h1.float() - per_micro.float()).abs().max().item()}")
+    h_rel = _rel(h1.float(), h0.float())
+    g_rel = (sum(float(torch.linalg.vector_norm((a.float() - b.float()))) ** 2
+                 for a, b in zip(g1, g0))
+             / sum(float(torch.linalg.vector_norm(b.float())) ** 2 for b in g0)) ** 0.5
+    check(bool(torch.isfinite(h1).all()) and h_rel <= PIPE_HIDDEN_REL_L2
+          and g_rel <= PIPE_GRAD_REL_L2 and not any(launches.values()),
+          f"pipeline: hidden relative L2 {h_rel}, gradients {g_rel}, launches {launches}")
+    print(f"pipeline [{card}]: pipeline_forward, 1 stage (NCCL) x {PIPE_MICRO} microbatches, "
+          f"the flagship cut to {MESH_LAYERS} layers, bf16, B {TRAIN_B} x T {TRAIN_T}: hidden "
+          f"states equal to each microbatch's text_model_forward(use_flash=False) bit for "
+          f"bit; against one forward of the whole batch relative L2 {h_rel:.3e} (limit "
+          f"{PIPE_HIDDEN_REL_L2}), gradients of the layers and the final norm {g_rel:.3e} "
+          f"(limit {PIPE_GRAD_REL_L2}); forward and backward {secs:.3f} s; no kernel of the "
+          f"table launched", flush=True)
+    del params, h0, h1, g0, g1, per_micro
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5231,8 +5420,12 @@ def main() -> None:
     gmm_train_launches, _ = run_train_slice(card, "gmm", dense_losses)
     torch.cuda.empty_cache()
     stamp("gmm training")
-    mesh_train_launches = run_mesh_training(card)
+    mesh_train_launches, mesh_plain_hist = run_mesh_training(card)
     stamp("mesh training at world size 1")
+    ring_launches = run_ring(card, mesh_plain_hist)
+    stamp("ring attention: composed at T 16384, on one rank, and the ring trainer")
+    pipeline_launches = run_pipeline(card)
+    stamp("the pipeline at one stage")
     check_timeit_in_jit(card)
     stamp("timeit_in_jit against graph_ms")
     core_launches = run_train_core(card)
@@ -5263,7 +5456,8 @@ def main() -> None:
              "train_vision": vision_train_launches, "train_peft": peft_launches,
              "train_offload": offload_launches, "train_stream": train_stream_launches,
              "export": export_launches, "mesh_serve": mesh_serve_launches,
-             "mesh_train": mesh_train_launches}
+             "mesh_train": mesh_train_launches, "train_ring": ring_launches,
+             "pipeline": pipeline_launches}
     for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -5294,7 +5488,7 @@ def main() -> None:
             "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms_graph", "max_abs_err")}
     fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
-                                     for p in ("train", "train_gmm", "mesh_train")}
+                                     for p in ("train", "train_gmm", "mesh_train", "train_ring")}
     fwd_rec["train_shape"] = fwd_train
 
     print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *f32_recs, *grouped_recs]}), flush=True)

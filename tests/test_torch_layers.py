@@ -142,8 +142,20 @@ def test_attention_decode_emit(setup):
 
 
 def test_unported_modes_raise(setup):
+    """Ring attention refuses what it does not carry: a cache (the JAX
+    package asserts the no-cache path) and a sliding-window layer (the JAX
+    package's ring would drop the window)."""
+    import dataclasses
+    from types import SimpleNamespace
+
     cfg, _, tp = setup
-    x = torch.zeros(1, 1, cfg.hidden_size)
-    cos = sin = torch.zeros(1, 1, cfg.head_dim)
-    with pytest.raises(NotImplementedError):
-        TL.attention(tp, x, cos, sin, cfg, ring=(1, 1))
+    x = torch.zeros(1, 4, cfg.hidden_size)
+    cos = sin = torch.zeros(1, 4, cfg.head_dim)
+    one_rank = (SimpleNamespace(group=lambda axis: None), "model")
+    cache = torch.zeros(8, 1, cfg.num_key_value_heads, cfg.head_dim)
+    with pytest.raises(ValueError, match="no cache"):
+        TL.attention(tp, x, cos, sin, cfg, cache_kv=(cache, cache), cache_position=0,
+                     ring=one_rank)
+    with pytest.raises(ValueError, match="window"):
+        TL.attention(tp, x, cos, sin, dataclasses.replace(cfg, sliding_window=4),
+                     is_sliding=True, ring=one_rank)

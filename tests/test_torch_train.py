@@ -344,17 +344,17 @@ def test_trainer_fit_gmm_matches_jax(setup):
 
 
 def test_trainer_defaults_to_cuda_and_refuses_later_slices(setup):
-    """Without a card the trainer refuses the default device; ring
-    attention (a later slice) raises, and so does an image batch for a model
-    without a vision tower.  Checkpoints, gradient accumulation and
-    save_pretrained run: tests/test_torch_train_core.py; vision batches:
-    tests/test_torch_train_vision.py."""
+    """Without a card the trainer refuses the default device; ring_axis
+    without a mesh raises (the JAX trainer asserts a mesh), and so does an
+    image batch for a model without a vision tower.  Checkpoints, gradient
+    accumulation and save_pretrained run: tests/test_torch_train_core.py;
+    vision batches: tests/test_torch_train_vision.py."""
     cfg, _, tree = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(cfg, _torch_params(cfg, tree), TrainerConfig())
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(ring_axis="seq"), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(ring_axis="model"), device="cpu")
     tr = Trainer(cfg, _torch_params(cfg, tree), TrainerConfig(), device="cpu")
     with pytest.raises(ValueError, match="vision tower"):
         tr.fit([{**_batch(cfg, seed=0), "pixel_values": np.zeros((4, 8), np.float32),

@@ -16,7 +16,8 @@ import torch
 
 from ..config import TextMoEConfig
 from ..ops.quant import proj_matmul, wshape
-from ..parallel.comm import copy_to, reduce_from
+from ..parallel.comm import (copy_to, gather_dim, group_rank, group_size, reduce_from,
+                             reduce_scatter, resolve_group)
 from ..parallel.mesh import tp_group
 
 NEG_INF = -1e30
@@ -151,6 +152,7 @@ def attention(
     prefix_kv=None,
     ring=None,
     is_sliding: bool = False,
+    seq_parallel: bool = False,
 ):
     """GQA attention (q/k/v with bias, o without — Qwen2.5 layout), as
     `unimoe_audio_tpu/models/layers.py:150-391`.  Modes:
@@ -183,13 +185,28 @@ def attention(
     this rank's q heads and the kv heads they read: H and KV are the local
     counts (from the weights' widths), x enters through `copy_to` and the
     o_proj product, a partial sum over the heads, is summed over the group.
-    A cache holds the local kv heads.
+    A cache holds the local kv heads.  seq_parallel (Megatron sequence
+    parallelism, `models/model.text_model_forward(seq_axis="model")`): the
+    o_proj sum is reduce-scattered over the sequence instead, and each model
+    rank keeps its T / |model| rows of the output.
+
+    ring: a process group or (mesh, axis), ring attention over it
+    (`layers.py:270-301`, `ops/ring_attention.py`).  x holds the whole
+    sequence on every rank of the ring; q, k and v enter the ring's region
+    through `copy_to` (their gradients summed over the ring), each rank
+    attends its T / |ring| chunk of queries, and the chunks are gathered
+    before o_proj.  The causal no-cache path only; a sliding layer is
+    refused (the JAX package's ring skips the window).
 
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
     if ring is not None:
-        raise NotImplementedError("ring attention (ring_axis) comes with the next slice: "
-                                  "sequence and pipeline parallelism")
+        if cache_kv is not None or prefix_kv is not None or not causal:
+            raise ValueError("ring attention takes the causal no-cache path: no cache, no "
+                             "prefix keys, causal")
+        if is_sliding and cfg.sliding_window:
+            raise ValueError("ring attention does not window: refused on a sliding-window "
+                             "layer (it would attend the whole causal past)")
 
     B, T, _ = x.shape
     Dh = cfg.head_dim
@@ -200,6 +217,8 @@ def attention(
     x = copy_to(x, tp)
 
     def o_proj(o):
+        if seq_parallel:
+            return reduce_scatter(proj_matmul(o, params["o_proj"]), tp, 1)
         return reduce_from(proj_matmul(o, params["o_proj"]), tp)
 
     window = cfg.sliding_window if is_sliding else None
@@ -211,6 +230,9 @@ def attention(
     k = (proj_matmul(x, params["k_proj"]) + params["k_proj"]["b"]).reshape(B, T, KV, Dh)
     v = (proj_matmul(x, params["v_proj"]) + params["v_proj"]["b"]).reshape(B, T, KV, Dh)
     q, k = apply_rope(q, k, cos, sin)
+
+    if ring is not None:
+        return o_proj(_ring(q, k, v, kv_valid_mask, resolve_group(ring), tp)), None
 
     if prefix_kv is not None and cache_kv is None:
         pk, pv = prefix_kv
@@ -299,13 +321,35 @@ def attention(
     return o_proj(out), cache_kv
 
 
+def _ring(q, k, v, kv_valid_mask, group, tp) -> torch.Tensor:
+    """Ring attention of [B, T, ·, Dh] q, k, v over group: this rank's
+    query chunk against every chunk, the chunks' outputs gathered along T
+    → [B, T, H·Dh]."""
+    from ..ops.ring_attention import ring_attention
+
+    if group is not None and group is tp:
+        raise ValueError("ring attention over the model axis needs tensor parallelism off "
+                         "there (the weights whole on every ring rank)")
+    B, T, H, Dh = q.shape
+    p, r = group_size(group), group_rank(group)
+    if T % p:
+        raise ValueError(f"ring attention: T {T} does not split over {p} ranks")
+    Tc = T // p
+    cut = slice(r * Tc, (r + 1) * Tc)
+    valid = (kv_valid_mask[:, :T].to(torch.int32) if kv_valid_mask is not None
+             else torch.ones(B, T, dtype=torch.int32, device=q.device))
+    q, k, v = (copy_to(t, group)[:, cut].transpose(1, 2) for t in (q, k, v))
+    out = ring_attention(q, k, v, valid[:, cut], group=group, causal=True)
+    return gather_dim(out.transpose(1, 2).reshape(B, Tc, H * Dh), group, 1)
+
+
 def local_kv_start(cfg: TextMoEConfig) -> int:
     """The first kv head of this rank's attention on the active mesh's
     model group (0 without one)."""
     from ..parallel.mesh import active, kv_replicas
 
     ctx = active()
-    if ctx is None:
+    if ctx is None or not ctx.tp:
         return 0
     tp = ctx.mesh.shape["model"]
     rep = kv_replicas(cfg, tp)

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import TextMoEConfig, UniMoEAudioConfig
 from ..moe.block import dcmoe_block, init_dcmoe_params
 from ..ops.quant import matmul
-from ..parallel.comm import all_reduce, copy_to, gather_last, reduce_from
+from ..parallel.comm import all_reduce, copy_to, gather_dim, group_size, reduce_from, scatter_dim
 from ..parallel.mesh import batch_group, tp_group
 from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
                      rms_norm)
@@ -78,24 +78,36 @@ def layer_apply(lp: Dict, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 dispatch_mode: str = "dense", capacity: Optional[int] = None,
                 is_sliding: bool = False, prefix_kv=None, cache_kv=None, cache_scales=None,
                 cache_position: Optional[int] = None,
-                decode_emit: bool = False) -> LayerOutput:
+                decode_emit: bool = False, ring=None, seq_group=None) -> LayerOutput:
     """One decoder layer: pre-norm attention and pre-norm DCMoE, each with
     its residual (`model.py:171-213`).  `seed` is this layer's jitter seed.
     `text_model_forward` runs its layers through it, and the stream trainer
-    (`train/stream.py`) one layer at a time."""
+    (`train/stream.py`) one layer at a time.  ring: attention's ring group
+    (`models/layers.attention`).  seq_group: the model group of sequence
+    parallelism (`text_model_forward(seq_axis=...)`): h holds this rank's
+    rows of T, the norms run on them (their weights through `copy_to`, so
+    their gradients sum over the group), the normed rows are gathered over
+    T before attention and before the DCMoE block, and both give back this
+    rank's rows."""
+    sp = seq_group is not None
+
+    def norm(x, w):
+        return gather_dim(rms_norm(x, copy_to(w, seq_group), cfg.rms_norm_eps), seq_group, 1)
+
     residual = h
-    hn = rms_norm(h, lp["input_layernorm"], cfg.rms_norm_eps)
+    hn = norm(h, lp["input_layernorm"])
     attn_out, kv = attention(
         lp["attn"], hn, cos, sin, cfg, cache_kv=cache_kv, cache_scales=cache_scales,
         cache_position=cache_position, kv_valid_mask=kv_valid_mask, use_flash=use_flash,
-        decode_emit=decode_emit, prefix_kv=prefix_kv, is_sliding=is_sliding)
+        decode_emit=decode_emit, prefix_kv=prefix_kv, ring=ring, is_sliding=is_sliding,
+        seq_parallel=sp)
     h = residual + attn_out
     residual = h
-    hn = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    hn = norm(h, lp["post_attention_layernorm"])
     moe_out = dcmoe_block(
         lp["moe"], hn, cfg, padding_token_mask=padding_token_mask,
         aux_balance_weight=aux_balance_weight, training=training, seed=seed,
-        dispatch_mode=dispatch_mode, capacity=capacity)
+        dispatch_mode=dispatch_mode, capacity=capacity, seq_parallel=sp)
     return LayerOutput(residual + moe_out.hidden_states, moe_out.aux_loss,
                        moe_out.router_top_k, kv, hn)
 
@@ -120,6 +132,8 @@ def text_model_forward(
     output_moe_inputs: bool = False,
     decode_emit: Optional[bool] = None,
     prefix_kv=None,
+    ring=None,
+    seq_axis: Optional[str] = None,
 ) -> TextModelOutput:
     """Pre-norm attention + pre-norm DCMoE per layer with residuals, then
     the final RMSNorm (`model.py:55-266`).
@@ -151,10 +165,38 @@ def text_model_forward(
     Sliding-window layers (`cfg.layer_types`, `sliding_flags`) mask keys a
     window or more behind the query; a model that has any takes no flash
     kernel, in any layer (`model.py:113-122`).
+
+    ring: a process group or (mesh, axis): every layer's attention runs as
+    ring attention over it (`model.py:77, 192`); the causal no-cache path,
+    without sliding layers.
+
+    seq_axis="model": activation sequence sharding, the port's counterpart
+    of the JAX package's `hidden_sharding` (`model.py:74, 87-101, 145-150,
+    180-185`; there a GSPMD layout of the hidden states between blocks, B
+    over (data, expert) and T over model).  Here it is Megatron sequence
+    parallelism over the active mesh's model group, beside its tensor
+    parallelism: between blocks each model rank holds T / |model| rows of
+    the hidden states; the norms run on them; the normed rows are gathered
+    over T before attention and before the DCMoE block (whose router sees
+    the whole sequence, so its statistics are the whole batch's), whose
+    row-split sums are reduce-scattered over T in place of the all-reduce.
+    The final norm's output is gathered, so the result is the whole
+    [B, T, D], as without it.  Without a model group it changes nothing.
     """
     B, T, _ = inputs_embeds.shape
     cos, sin = compute_mrope(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     use_cache = kv_cache is not None
+    seq_group = None
+    if seq_axis is not None:
+        if seq_axis != "model":
+            raise ValueError(f"seq_axis {seq_axis!r}: the sequence shards over the model axis "
+                             "('model') only")
+        if use_cache or ring is not None:
+            raise ValueError("seq_axis is for the no-cache forward without ring attention")
+        seq_group = tp_group()
+        if T % group_size(seq_group):
+            raise ValueError(f"seq_axis: T {T} does not split over "
+                             f"{group_size(seq_group)} model ranks")
     if remat and use_cache:
         raise NotImplementedError("remat is for the no-cache (training) path")
     decode_emit = (decode_emit is not False and use_cache and T == 1
@@ -179,7 +221,8 @@ def text_model_forward(
             prefix_kv=(pre_k, pre_v) if pre_k is not None else None,
             cache_kv=(kv_cache.k[i], kv_cache.v[i]) if use_cache else None,
             cache_scales=(kv_cache.k_scale[i], kv_cache.v_scale[i]) if quantized else None,
-            cache_position=cache_position, decode_emit=decode_emit)
+            cache_position=cache_position, decode_emit=decode_emit, ring=ring,
+            seq_group=seq_group)
         if decode_emit:
             # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot).
             k_new, v_new = out.kv[0][:, 0], out.kv[1][:, 0]
@@ -192,7 +235,7 @@ def text_model_forward(
         moe_in = out.moe_input.float() if output_moe_inputs else None
         return out.hidden, out.aux_loss, out.router_top_k, moe_in
 
-    h = inputs_embeds
+    h = scatter_dim(inputs_embeds, seq_group, 1)
     aux, top_k, moe_inputs = [], [], []
     for i, lp in enumerate(params["layers"]):
         pre = (prefix_kv[0][i], prefix_kv[1][i]) if prefix_kv is not None else ()
@@ -203,7 +246,8 @@ def text_model_forward(
         aux.append(aux_i)
         top_k.append(top_k_i)
         moe_inputs.append(moe_in)
-    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    h = gather_dim(rms_norm(h, copy_to(params["norm"], seq_group), cfg.rms_norm_eps),
+                   seq_group, 1)
     return TextModelOutput(
         last_hidden_state=h, kv_cache=kv_cache,
         aux_loss=torch.stack(aux), router_top_k=torch.stack(top_k),
@@ -340,7 +384,7 @@ def head_logits(hidden: torch.Tensor, w) -> torch.Tensor:
     rank's output columns: hidden enters through `copy_to` and the logits
     are all-gathered over the group."""
     tp = tp_group()
-    return gather_last(matmul(copy_to(hidden, tp), w).float(), tp)
+    return gather_dim(matmul(copy_to(hidden, tp), w).float(), tp, -1)
 
 
 def codec_logits_from_hidden(params: Dict, hidden: torch.Tensor,
@@ -402,6 +446,8 @@ def model_forward(
     dispatch_mode: str = "dense",
     capacity: Optional[int] = None,
     prefix_kv=None,                                      # ([L, n, KV, Dh], same)
+    ring=None,
+    seq_axis: Optional[str] = None,
 ) -> ModelOutput:
     """Full-model forward without a cache — the training / eval path
     (`model.py:432-567`): input embedding with the codec scatter, the
@@ -412,7 +458,8 @@ def model_forward(
     embeddings of the image and video token slots, in reading order.
     With prefix_kv (prefix tuning) the learned keys take positions [0, n),
     so every position id, explicit ones included, shifts by n
-    (`model.py:496-501`)."""
+    (`model.py:496-501`).  ring and seq_axis go to `text_model_forward`
+    (`model.py:518-519`)."""
     tc = cfg.text_config
     B, T = input_ids.shape
     if attention_mask is None:
@@ -440,7 +487,7 @@ def model_forward(
         kv_valid_mask=attention_mask, padding_token_mask=attention_mask,
         aux_balance_weight=abw, training=training, seed=seed, remat=remat,
         use_flash=use_flash, dispatch_mode=dispatch_mode, capacity=capacity,
-        prefix_kv=prefix_kv)
+        prefix_kv=prefix_kv, ring=ring, seq_axis=seq_axis)
     hidden = out.last_hidden_state
 
     logits = None

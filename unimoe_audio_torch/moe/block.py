@@ -26,8 +26,8 @@ at the end) and the dynamic experts over `expert`.  `dispatch_mode="ep"`
 expert's rank and back (`moe_ffn_ep`); any other mode with expert-split
 weights (serving: every rank holds every token) runs the local experts on
 all tokens and sums over the expert group.  Under a split batch the
-load-balancing statistics and the jitter and mixer draws are the whole
-batch's.
+load-balancing statistics, the jitter and mixer draws and the `token_drop`
+cut are the whole batch's.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ import torch
 
 from ..config import TextMoEConfig
 from ..ops.quant import wshape
-from ..parallel.comm import copy_to, group_size, reduce_from
-from ..parallel.mesh import active, batch_group
+from ..parallel.comm import all_gather_dim, copy_to, group_size, reduce_from, reduce_scatter
+from ..parallel.mesh import active, batch_group, tp_group
 from . import dispatch as D
 from . import router as R
 
@@ -73,7 +73,8 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
                 dispatch_mode: str = "dense",
                 capacity: Optional[int] = None,
                 assignment_budget: Optional[int] = None,
-                mixer_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> MoEOutput:
+                mixer_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                seq_parallel: bool = False) -> MoEOutput:
     """Forward of the DCMoE block (`block.py:42-236`).  `seed` (training
     with input jitter or the Gumbel mixer) takes the place of the JAX
     package's rng key: the jitter is drawn from `seed`, the mixer's draws
@@ -84,7 +85,9 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     'packed_a8' | 'ep_a8' (`block.py:64-80`: int8 expert products, with
     per-channel QTensor weights; serving only); capacity is the packed and
     ep paths' per-expert slot count (None = S), assignment_budget the gmm
-    path's total row count (None = every slot)."""
+    path's total row count (None = every slot).  seq_parallel: the output's
+    sum over the model group is reduce-scattered over T (Megatron sequence
+    parallelism): this rank's [B, T / |model|, D] rows come back."""
     a8 = dispatch_mode.endswith("_a8")
     if a8:
         dispatch_mode = dispatch_mode[:-len("_a8")]
@@ -102,7 +105,7 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
     E_total = cfg.num_experts
     original = hidden_states
     ctx = active()
-    tp = ctx.mesh.group("model") if ctx is not None else None
+    tp = tp_group()
     bgroup = batch_group()
     n_b = group_size(bgroup)
     i_b = ctx.mesh.index(("data", "expert")) if n_b > 1 else 0
@@ -163,30 +166,8 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
         None if aux_balance_weight is None else aux_balance_weight.reshape(S), group=bgroup)
 
     if cfg.token_drop:
-        if n_b > 1:
-            raise NotImplementedError("token_drop on a split batch: its per-expert cut is over "
-                                      "the whole batch, which no rank holds")
-        cap = min(R.expert_capacity(S, E_dyn, cfg.capacity_factor, cfg.min_capacity), S)
-        dyn = expert_mask[:, :E_dyn]
-        if cfg.drop_policy == "probs":
-            # Keep each expert's top-`cap` tokens by router logit.
-            masked_logits = torch.where(dyn > 0, dynamic_logits,
-                                        torch.full_like(dynamic_logits,
-                                                        torch.finfo(torch.float32).min))
-            keep_idx = torch.topk(masked_logits.t(), cap, dim=-1).indices      # [E_dyn, cap]
-            cap_mask = torch.zeros(E_dyn, S, dtype=torch.int32, device=x.device)
-            cap_mask.scatter_(1, keep_idx, 1)
-            dyn = dyn * cap_mask.t()
-        elif cfg.drop_policy == "position":
-            locations = torch.cumsum(dyn, dim=0) - 1
-            dyn = dyn * (locations < cap).to(dyn.dtype)
-        else:
-            raise ValueError(f"Invalid drop_policy: {cfg.drop_policy}")
-        expert_mask = torch.cat([dyn, expert_mask[:, E_dyn:]], dim=-1)
-        routing_weights = torch.where(dyn > 0, routing_weights,
-                                      torch.zeros_like(routing_weights))
-        routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
-
+        expert_mask, routing_weights = _token_drop(cfg, expert_mask, dynamic_logits,
+                                                   routing_weights, bgroup, n_b, i_b)
     if E_dyn < E_total:
         global_weight = R.global_routing_weight(
             expert_mask, full_router_logits, E_dyn, routing_weights)
@@ -233,16 +214,54 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
         y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"], a8=a8)   # [nF, S, D]
         w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
         out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
-    out = reduce_from(out, tp)
+    if seq_parallel:
+        out = reduce_scatter(out.reshape(B, T, dim), tp, 1)
+    else:
+        out = reduce_from(out, tp).reshape(B, T, dim)
 
     return MoEOutput(
-        hidden_states=out.reshape(B, T, dim).to(hidden_states.dtype),
+        hidden_states=out.to(hidden_states.dtype),
         router_logits=full_router_logits,
         router_top_k=dynamic_top_k,
         expert_mask=expert_mask,
         router_weight=global_weight,
         aux_loss=aux_loss,
     )
+
+
+def _token_drop(cfg: TextMoEConfig, expert_mask, dynamic_logits, routing_weights, bgroup,
+                n_b: int, i_b: int):
+    """Each dynamic expert keeps at most `expert_capacity` tokens of the
+    whole batch (`block.py:153-172`): its top tokens by router logit
+    ("probs") or its first by position ("position").  Under a split batch
+    the ranking keys are gathered over the batch group, the cut is taken
+    over the whole batch's tokens as on one device, ties included, and this
+    rank keeps its rows.  Returns the cut expert mask and the renormalised
+    routing weights."""
+    E_dyn = cfg.num_dynamic_experts
+    S = expert_mask.shape[0]
+    S_all = S * n_b
+    cap = min(R.expert_capacity(S_all, E_dyn, cfg.capacity_factor, cfg.min_capacity), S_all)
+    dyn = expert_mask[:, :E_dyn]
+    dyn_all = all_gather_dim(dyn, bgroup, 0)
+    if cfg.drop_policy == "probs":
+        # Keep each expert's top-`cap` tokens by router logit.
+        masked = torch.where(dyn_all > 0, all_gather_dim(dynamic_logits, bgroup, 0),
+                             torch.full((), torch.finfo(torch.float32).min,
+                                        device=dyn.device))
+        keep_idx = torch.topk(masked.t(), cap, dim=-1).indices          # [E_dyn, cap]
+        cap_mask = torch.zeros(E_dyn, S_all, dtype=torch.int32, device=dyn.device)
+        cap_mask.scatter_(1, keep_idx, 1)
+        keep = cap_mask.t()
+    elif cfg.drop_policy == "position":
+        keep = (torch.cumsum(dyn_all, dim=0) - 1 < cap).to(dyn.dtype)
+    else:
+        raise ValueError(f"Invalid drop_policy: {cfg.drop_policy}")
+    dyn = dyn * keep[i_b * S:(i_b + 1) * S]
+    expert_mask = torch.cat([dyn, expert_mask[:, E_dyn:]], dim=-1)
+    routing_weights = torch.where(dyn > 0, routing_weights, torch.zeros_like(routing_weights))
+    routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
+    return expert_mask, routing_weights
 
 
 def init_dcmoe_params(gen: torch.Generator, cfg: TextMoEConfig, *,

@@ -158,6 +158,7 @@ def default_mesh_shape(n_devices: int, ep_size: int = 1, tp_size: int = 1) -> Tu
 class MeshContext(NamedTuple):
     mesh: Mesh
     split_batch: bool
+    tp: bool = True              # the layers split over the model axis
 
 
 _ACTIVE: Optional[MeshContext] = None
@@ -167,18 +168,22 @@ def active() -> Optional[MeshContext]:
     return _ACTIVE
 
 
-def set_mesh(mesh: Optional[Mesh], *, split_batch: bool = False) -> Optional[MeshContext]:
+def set_mesh(mesh: Optional[Mesh], *, split_batch: bool = False,
+             tp: bool = True) -> Optional[MeshContext]:
     """Make mesh the process's active mesh (None: none); returns the one it
-    replaces.  A server keeps it for its life (`apps/serve.build_server`)."""
+    replaces.  A server keeps it for its life (`apps/serve.build_server`).
+    tp=False: the layers hold whole weights and run no tensor parallelism
+    over the model axis, which another use holds (ring attention's
+    sequence, `TrainerConfig.ring_axis`)."""
     global _ACTIVE
     prev = _ACTIVE
-    _ACTIVE = None if mesh is None else MeshContext(mesh, split_batch)
+    _ACTIVE = None if mesh is None else MeshContext(mesh, split_batch, tp)
     return prev
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh], *, split_batch: bool = False):
-    prev = set_mesh(mesh, split_batch=split_batch)
+def use_mesh(mesh: Optional[Mesh], *, split_batch: bool = False, tp: bool = True):
+    prev = set_mesh(mesh, split_batch=split_batch, tp=tp)
     try:
         yield
     finally:
@@ -187,10 +192,10 @@ def use_mesh(mesh: Optional[Mesh], *, split_batch: bool = False):
 
 
 def tp_group():
-    """The active mesh's model group (None without a mesh or with one
-    model rank)."""
+    """The active mesh's model group (None without a mesh, with one model
+    rank, or with tensor parallelism off)."""
     ctx = _ACTIVE
-    return None if ctx is None else ctx.mesh.group("model")
+    return None if ctx is None or not ctx.tp else ctx.mesh.group("model")
 
 
 def batch_group():
@@ -256,10 +261,17 @@ def _replicated(tree):
     return tuple([None] * len(wshape(tree)))
 
 
-def full_specs(params: Dict, cfg: UniMoEAudioConfig) -> Dict:
+def _drop_model(tree):
+    if isinstance(tree, dict):
+        return {k: _drop_model(v) for k, v in tree.items()}
+    return tuple(None if e == "model" else e for e in tree)
+
+
+def full_specs(params: Dict, cfg: UniMoEAudioConfig, *, model: bool = True) -> Dict:
     """`param_specs` with the vision tower and PEFT adapters replicated
-    (`mesh.py:181-192`), in the key order of params."""
-    specs = dict(param_specs(cfg))
+    (`mesh.py:181-192`), in the key order of params.  model=False: no leaf
+    split over the model axis (the weights whole on every model rank)."""
+    specs = dict(param_specs(cfg) if model else _drop_model(param_specs(cfg)))
     for k in ("vision", "peft"):
         if k in params:
             specs[k] = _replicated(params[k])
@@ -433,13 +445,19 @@ def _map_leaves(fn, params, specs: List[LeafSpec]):
     return walk(params)
 
 
-def shard_params(params: Dict, mesh: Mesh, cfg: UniMoEAudioConfig) -> Dict:
+def _tp(mesh: Mesh, model: bool) -> int:
+    return mesh.shape["model"] if model else 1
+
+
+def shard_params(params: Dict, mesh: Mesh, cfg: UniMoEAudioConfig, *,
+                 model: bool = True) -> Dict:
     """This rank's shard of every leaf of a whole param tree (QTensor
     leaves included), per `param_specs`; the vision tower and PEFT adapters
     whole.  FSDP changes no parameter (see the module docstring): the
     trainer places the optimizer state by `add_fsdp_axis`
-    (`Trainer(mesh=..., fsdp=True)`)."""
-    ls = leaf_specs(params, full_specs(params, cfg), cfg, mesh.shape["model"])
+    (`Trainer(mesh=..., fsdp=True)`).  model=False: nothing split over the
+    model axis (`full_specs`)."""
+    ls = leaf_specs(params, full_specs(params, cfg, model=model), cfg, _tp(mesh, model))
     return _map_leaves(lambda x, s: local_shard(x, s.spec, mesh, s.kv_rep), params, ls)
 
 
@@ -455,10 +473,11 @@ def _gather(x: torch.Tensor, spec: LeafSpec, mesh: Mesh, scale_of=None) -> torch
     return x
 
 
-def gather_params(params: Dict, mesh: Mesh, cfg: UniMoEAudioConfig) -> Dict:
+def gather_params(params: Dict, mesh: Mesh, cfg: UniMoEAudioConfig, *,
+                  model: bool = True) -> Dict:
     """The whole tree from every rank's shard (`shard_params`' inverse), on
     every rank; gradient-free."""
-    ls = leaf_specs(params, full_specs(params, cfg), cfg, mesh.shape["model"])
+    ls = leaf_specs(params, full_specs(params, cfg, model=model), cfg, _tp(mesh, model))
 
     def one(x, s):
         if isinstance(x, QTensor):

@@ -256,8 +256,8 @@ def aux_weight_at_step(cfg: UniMoEAudioConfig, step: int) -> float:
 
 def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor], seed: int,
             aux_weight: float, *, dispatch_mode: str = "dense", capacity: Optional[int] = None,
-            remat: bool = True,
-            use_flash: Optional[bool] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            remat: bool = True, use_flash: Optional[bool] = None, ring=None,
+            seq_axis: Optional[str] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss and its metrics (`step.py:124-208`); `seed` stands
     for the JAX rng key; dispatch_mode and capacity go to the DCMoE blocks.
 
@@ -267,7 +267,9 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
     flattened batch takes feats[j] (`step.py:139-161`).  With
     `params["peft"]` the adapters act after that: prompt and P-tuning
     prepend their soft tokens to the embeddings, prefix tuning hands every
-    layer its keys and values (`step.py:162-181`)."""
+    layer its keys and values (`step.py:162-181`).  ring (ring attention's
+    group) and seq_axis (sequence parallelism) go to `model_forward`
+    (`step.py:134-135, 199-200`)."""
     inputs_embeds = batch.get("inputs_embeds")
     prefix = None
     if "vision_patches" in batch:
@@ -302,7 +304,8 @@ def loss_fn(params: Dict, cfg: UniMoEAudioConfig, batch: Dict[str, torch.Tensor]
         aux_balance_weight=batch.get("aux_balance_weight"),
         aux_loss_weight=aux_weight,
         training=True, seed=seed, remat=remat, use_flash=use_flash,
-        dispatch_mode=dispatch_mode, capacity=capacity, prefix_kv=prefix)
+        dispatch_mode=dispatch_mode, capacity=capacity, prefix_kv=prefix, ring=ring,
+        seq_axis=seq_axis)
     zero = torch.zeros((), dtype=torch.float32, device=out.aux_loss.device)
     group = batch_group()
     metrics = {
@@ -329,7 +332,7 @@ def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
                cfg: UniMoEAudioConfig, optimizer: AdamW, dispatch_mode: str = "dense",
                capacity: Optional[int] = None, remat: bool = True,
-               use_flash: Optional[bool] = None,
+               use_flash: Optional[bool] = None, ring=None, seq_axis: Optional[str] = None,
                plan=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One (micro-)step (`step.py:211-249`): loss and gradients, then the
     optimizer's update in place — unless the loss or the gradient norm is
@@ -341,11 +344,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
     gradients are summed over the ranks that hold copies of each leaf
     (reduce-scattered to the optimizer's slice under FSDP), the norm is
     taken over the whole model, the optimizer updates its slices and the
-    updated slices are all-gathered."""
+    updated slices are all-gathered.  ring and seq_axis go to `loss_fn`
+    (`step.py:221-230`)."""
     aux_w = aux_weight_at_step(cfg, state.step)
     loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
                             dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
-                            use_flash=use_flash)
+                            use_flash=use_flash, ring=ring, seq_axis=seq_axis)
     leaves = [t for _, t in named_leaves(state.params)]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     if plan is not None:

@@ -5,8 +5,9 @@ and resume, and the inference export — counterpart of
 
 The trainer runs on the card (`device="cuda"`, the default) and raises
 without one; the tests pass `device="cpu"`.  `Trainer(mesh=...)` trains on
-a (data, expert, model) mesh of ranks (`parallel/mesh.py`, `MeshPlan`).
-Ring attention (`ring_axis`) comes with the next slice and raises here.
+a (data, expert, model) mesh of ranks (`parallel/mesh.py`, `MeshPlan`);
+`TrainerConfig(ring_axis="model")` runs its attention as ring attention
+over the mesh's model axis (`ops/ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models.model import calculate_input_embedding, get_rope_index
 from ..models.vision import vision_forward, vision_indices
 from ..parallel import comm
-from ..parallel.mesh import (Mesh, add_fsdp_axis, batch_spec, fsdp_dim, full_specs,
+from ..parallel.mesh import (Mesh, active, add_fsdp_axis, batch_spec, fsdp_dim, full_specs,
                              gather_params, leaf_specs, shard_params, storage_splits, use_mesh)
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     place_batch, train_step
@@ -35,13 +36,15 @@ from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer,
 @dataclass
 class TrainerConfig:
     """The JAX package's `TrainerConfig` (same names and defaults).
-    `ring_axis` is kept so that a config asking for it is refused with a
-    message.  `train_vision` runs the vision tower inside the step, so it
-    trains (False: its features are fused outside the step and the tower
-    stays as it is); `vision_bucket` pads the merged vision tokens of a
-    batch to a multiple of it.  `dispatch_mode` is
-    'dense', 'packed' (per-expert slot count `dispatch_capacity`, None = all
-    tokens) or 'gmm'.  `grad_accum_steps` > 1 applies the optimizer every
+    `ring_axis` ("model", with `Trainer(mesh=...)`): the sequence shards
+    over the mesh's model axis in every attention (ring attention); the
+    ranks of that axis hold the same rows and the same whole weights (no
+    tensor parallelism), `trainer.py:67-71, 218-226`.  `train_vision` runs
+    the vision tower inside the step, so it trains (False: its features are
+    fused outside the step and the tower stays as it is); `vision_bucket`
+    pads the merged vision tokens of a batch to a multiple of it.
+    `dispatch_mode` is 'dense', 'packed' (per-expert slot count
+    `dispatch_capacity`, None = all tokens) or 'gmm'.  `grad_accum_steps` > 1 applies the optimizer every
     that many micro-steps, to their mean gradient; the step count, and with
     it the log and save cadences, counts micro-steps."""
     learning_rate: float = 1e-4
@@ -161,15 +164,18 @@ class MeshPlan:
     (`add_fsdp_axis`) is reduce-scattered to this data rank's slice instead,
     the optimizer keeps moments for that slice only and updates it, and the
     updated slices are all-gathered into the whole (local) parameter.  The
-    gradient norm counts each distinct piece once."""
+    gradient norm counts each distinct piece once.  model=False: no leaf is
+    split over the model axis (ring attention holds it), and its ranks hold
+    whole copies with equal gradients."""
 
     def __init__(self, mesh: Mesh, params: Dict, cfg: UniMoEAudioConfig, *, fsdp: bool,
-                 fsdp_min_bytes: int):
+                 fsdp_min_bytes: int, model: bool = True):
         self.mesh = mesh
-        specs = full_specs(params, cfg)
+        self.model = model
+        specs = full_specs(params, cfg, model=model)
         if fsdp:
             specs = add_fsdp_axis(specs, params, mesh, min_bytes=fsdp_min_bytes)
-        self.leaves = leaf_specs(params, specs, cfg, mesh.shape["model"])
+        self.leaves = leaf_specs(params, specs, cfg, mesh.shape["model"] if model else 1)
         world = mesh.size(("data", "expert", "model"))
         self._copies = []
         for ls in self.leaves:
@@ -184,8 +190,14 @@ class MeshPlan:
         return any(a == "expert" for _, a in storage_splits(ls.spec))
 
     def sync(self, grads, leaves) -> List[torch.Tensor]:
+        """The gradients summed (or reduce-scattered) over the ranks that
+        hold copies.  Under the active mesh without a split batch (rows that
+        do not divide), every rank's gradient is the whole batch's, and the
+        sums are divided by the (data, expert) size."""
         out = []
         m = self.mesh
+        ctx = active()
+        n_b = m.size(("data", "expert")) if ctx is not None and not ctx.split_batch else 1
         for g, p, ls in zip(grads, leaves, self.leaves):
             g = torch.zeros_like(p) if g is None else g
             if ls.kv_rep > 1:
@@ -198,7 +210,7 @@ class MeshPlan:
                 if not self._expert_split(ls):
                     g = comm.all_reduce(g, m.group("expert"))
                 g = comm.reduce_scatter_dim(g, m.group("data"), d)
-            out.append(g)
+            out.append(g / n_b if n_b > 1 else g)
         return out
 
     def norm(self, grads) -> torch.Tensor:
@@ -248,9 +260,14 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer runs on a CUDA card and none is available; "
                                "pass device='cpu' to train on the CPU")
+        self.ring = None
         if tcfg.ring_axis is not None:
-            raise NotImplementedError("ring_axis: ring attention comes with the next slice "
-                                      "(sequence and pipeline parallelism)")
+            if mesh is None:
+                raise ValueError("ring_axis requires Trainer(mesh=...)")
+            if tcfg.ring_axis != "model":
+                raise ValueError(f"ring_axis {tcfg.ring_axis!r}: ring attention runs over the "
+                                 "mesh's 'model' axis only")
+            self.ring = (mesh, "model")
         for name, t in named_leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"parameter {name} is on {t.device}, the trainer on "
@@ -266,8 +283,9 @@ class Trainer:
             schedule=tcfg.schedule, grad_clip=tcfg.grad_clip,
             trainable_pattern=tcfg.trainable_pattern, grad_accum_steps=tcfg.grad_accum_steps)
         if mesh is not None:
-            self.plan = MeshPlan(mesh, params, cfg, fsdp=fsdp, fsdp_min_bytes=fsdp_min_bytes)
-            params = shard_params(params, mesh, cfg)
+            self.plan = MeshPlan(mesh, params, cfg, fsdp=fsdp, fsdp_min_bytes=fsdp_min_bytes,
+                                 model=self.ring is None)
+            params = shard_params(params, mesh, cfg, model=self.ring is None)
             self.optimizer.norm = self.plan.norm
             if mesh.shape["expert"] > 1:
                 self.dispatch_mode = "ep"
@@ -311,7 +329,7 @@ class Trainer:
         """The whole param tree (gathered from the ranks on a mesh)."""
         if self.mesh is None:
             return self.state.params
-        return gather_params(self.state.params, self.mesh, self.cfg)
+        return gather_params(self.state.params, self.mesh, self.cfg, model=self.plan.model)
 
     def save_pretrained(self, out_dir: str) -> None:
         """Export an inference directory (`model.jax.pkl` + `config.json`)
@@ -385,28 +403,42 @@ class Trainer:
         batch["position_ids"] = pos
         return batch
 
+    def _replicated(self, batch: Dict) -> bool:
+        """Whether the batch runs whole on every rank: its rows do not divide
+        over (data, expert), and the JAX package replicates it
+        (`trainer.py:345-360`)."""
+        n = 1 if self.mesh is None else self.mesh.size(batch_spec())
+        return n > 1 and np.shape(batch["input_ids"])[0] % n != 0
+
     def _place_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """The batch on the device; on a mesh this rank's rows of it (the
-        vision tower's inputs whole: every rank runs the tower and takes the
-        features of its rows' image tokens, from `vision_slot_offset`)."""
-        if self.mesh is None:
+        """The batch on the device; on a mesh this rank's rows of it, unless
+        `_replicated` (the vision tower's inputs whole: every rank runs the
+        tower and takes the features of its rows' image tokens, from
+        `vision_slot_offset`)."""
+        n = 1 if self.mesh is None else self.mesh.size(batch_spec())
+        if n == 1 or self._replicated(batch):
             return place_batch(batch, self.device)
-        n, i = self.mesh.size(batch_spec()), self.mesh.index(batch_spec())
+        i = self.mesh.index(batch_spec())
+        b = np.shape(batch["input_ids"])[0] // n
         out = {}
         for k, v in batch.items():
             bd = 1 if k == "position_ids" else 0
-            if k.startswith("vision_") or n == 1:
+            if k.startswith("vision_"):
                 out[k] = v
                 continue
-            if v.shape[bd] % n:
-                raise ValueError(f"batch key {k}: {v.shape[bd]} rows do not split over "
-                                 f"{n} (data x expert) ranks")
-            b = v.shape[bd] // n
             out[k] = v[:, i * b:(i + 1) * b] if bd else v[i * b:(i + 1) * b]
             if k == "input_ids" and "vision_patches" in batch:
                 out["vision_slot_offset"] = int(
                     (np.asarray(v[:i * b]) == self.cfg.image_token_id).sum())
         return place_batch(out, self.device)
+
+    def _step_inputs(self, batch: Dict):
+        """The placed batch and the mesh context of its step: split_batch
+        unless the batch is replicated, tensor parallelism off under ring
+        attention."""
+        batch = self._prepare_vision_batch(batch)
+        return self._place_batch(batch), use_mesh(
+            self.mesh, split_batch=not self._replicated(batch), tp=self.ring is None)
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
@@ -418,12 +450,13 @@ class Trainer:
         for j, batch in enumerate(eval_batches):
             if max_batches is not None and j >= max_batches:
                 break
-            batch = self._place_batch(self._prepare_vision_batch(batch))
-            with use_mesh(self.mesh, split_batch=True):
+            batch, on_mesh = self._step_inputs(batch)
+            with on_mesh:
                 _, m = loss_fn(self.state.params, self.cfg, batch, 0,
                                aux_weight_at_step(self.cfg, self.state.step),
                                dispatch_mode=self.dispatch_mode,
-                               capacity=self.tcfg.dispatch_capacity, remat=False)
+                               capacity=self.tcfg.dispatch_capacity, remat=False,
+                               ring=self.ring)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
@@ -445,12 +478,13 @@ class Trainer:
             step_no = start + i
             if max_steps is not None and step_no >= max_steps:
                 break
-            batch = self._place_batch(self._prepare_vision_batch(batch))
-            with use_mesh(self.mesh, split_batch=True):
+            batch, on_mesh = self._step_inputs(batch)
+            with on_mesh:
                 self.state, metrics = train_step(
                     self.state, batch, self.tcfg.seed, cfg=self.cfg,
                     optimizer=self.optimizer, dispatch_mode=self.dispatch_mode,
-                    capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat, plan=self.plan)
+                    capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat, ring=self.ring,
+                    plan=self.plan)
             if step_no % self.tcfg.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 if metrics["skipped"]:
