@@ -554,9 +554,9 @@ TIMEIT_VS_GRAPH = 0.10
 # each rank's queries visiting the chunks in ring order) is held to K1 over
 # the whole T with K1's own bf16 tolerance: both round P to bf16, at other
 # points, and sum in other orders.  `ring_attention` on its group of one
-# rank is held to K1 at the training shape the same way.  The ring trainer
-# (`ring_axis="model"`, the mesh trainer's cut) keeps its losses within
-# TRAIN_LOSS_REL of the mesh-less trainer's.  `pipeline_forward` at one
+# rank is held to K1 at the training shape the same way.  The ring trainers
+# (`ring_axis` "model", "data" and "expert", the mesh trainer's cut) keep
+# their losses within TRAIN_LOSS_REL of the mesh-less trainer's.  `pipeline_forward` at one
 # stage and PIPE_MICRO microbatches of the train probe's batch: its hidden
 # states equal `text_model_forward(use_flash=False)` of each microbatch bit
 # for bit (the same products at the same shapes), and against one forward
@@ -5092,11 +5092,17 @@ def run_ring(card: str, plain_hist) -> dict:
           training shape against K1;
       (c) `Trainer(mesh=make_mesh(1, 1, 1), TrainerConfig(ring_axis=
           "model"))` at the mesh trainer's cut beside its mesh-less run
-          (`plain_hist`): losses within TRAIN_LOSS_REL, step seconds.
+          (`plain_hist`): losses within TRAIN_LOSS_REL, step seconds, peak
+          GB; tensor parallelism off (`tr.plan.model` False);
+      (d) the same with `ring_axis="data"` and with `ring_axis="expert"`:
+          tensor parallelism stays on (`tr.plan.model` True).  At world
+          size 1 the ring's row-for-chunk exchange (`comm.rows_to_chunks`)
+          is the identity, and a ring of one rank takes the same-rows
+          branch; the CPU tests' four gloo ranks hold the exchange itself.
     The K1 launches of (a) and (b) are comparisons and leave the counts as
-    they were; the trainer's run is counted from 0 and launches no kernel
+    they were; each trainer's run is counted from 0 and launches no kernel
     of the table (its attention is the ring's einsum arithmetic).  Returns
-    that run's launch counts."""
+    {axis: that run's launch counts}."""
     import dataclasses
 
     import torch
@@ -5154,27 +5160,35 @@ def run_ring(card: str, plain_hist) -> dict:
 
     cfg = UniMoEAudioConfig(text_config=dataclasses.replace(
         TextMoEConfig(), num_hidden_layers=MESH_LAYERS), vision_config=None)
-    tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100, log_every=1,
-                         ring_axis="model")
-    tr = Trainer(cfg, init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"), tcfg,
-                 mesh=mesh, device="cuda")
-    _zero_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    hist, _, marks = _fit_marked(tr, probe_batch(cfg), MESH_TRAIN_STEPS)
-    launches = _launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del tr
-    torch.cuda.empty_cache()
-    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(plain_hist, hist))
-    check(loss_rel <= TRAIN_LOSS_REL and not any(launches.values()),
-          f"ring training: loss relative {loss_rel}, launches {launches}")
-    print(f"ring training [{card}]: Trainer(mesh=1 x 1 x 1, ring_axis='model'), the flagship "
-          f"cut to {MESH_LAYERS} layers, bf16, B {TRAIN_B} x T {TRAIN_T}, {MESH_TRAIN_STEPS} "
-          f"steps: losses {[round(h['loss'], 5) for h in hist]} vs mesh-less "
-          f"{[round(h['loss'], 5) for h in plain_hist]} (relative {loss_rel:.2e}, limit "
-          f"{TRAIN_LOSS_REL}); step seconds {[round(x, 4) for x in _durations(marks)]}; peak "
-          f"{peak_gb:.2f} GB; no kernel of the table launched", flush=True)
-    return launches
+    runs = {}
+    for axis in ("model", "data", "expert"):
+        tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=0, total_steps=100, log_every=1,
+                             ring_axis=axis)
+        tr = Trainer(cfg, init_model_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+                     tcfg, mesh=mesh, device="cuda")
+        _zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        hist, _, marks = _fit_marked(tr, probe_batch(cfg), MESH_TRAIN_STEPS)
+        launches = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tp = tr.plan.model
+        del tr
+        torch.cuda.empty_cache()
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(a["loss"])
+                       for a, b in zip(plain_hist, hist))
+        check(loss_rel <= TRAIN_LOSS_REL and not any(launches.values())
+              and tp == (axis != "model"),
+              f"ring training over {axis}: loss relative {loss_rel}, tensor parallelism "
+              f"{tp}, launches {launches}")
+        print(f"ring training [{card}]: Trainer(mesh=1 x 1 x 1, ring_axis={axis!r}), tensor "
+              f"parallelism {'on' if tp else 'off'}, the flagship cut to {MESH_LAYERS} layers, "
+              f"bf16, B {TRAIN_B} x T {TRAIN_T}, {MESH_TRAIN_STEPS} steps: losses "
+              f"{[round(h['loss'], 5) for h in hist]} vs mesh-less "
+              f"{[round(h['loss'], 5) for h in plain_hist]} (relative {loss_rel:.2e}, limit "
+              f"{TRAIN_LOSS_REL}); step seconds {[round(x, 4) for x in _durations(marks)]}; "
+              f"peak {peak_gb:.2f} GB; no kernel of the table launched", flush=True)
+        runs[axis] = launches
+    return runs
 
 
 def run_pipeline(card: str) -> dict:
@@ -5423,7 +5437,8 @@ def main() -> None:
     mesh_train_launches, mesh_plain_hist = run_mesh_training(card)
     stamp("mesh training at world size 1")
     ring_launches = run_ring(card, mesh_plain_hist)
-    stamp("ring attention: composed at T 16384, on one rank, and the ring trainer")
+    stamp("ring attention: composed at T 16384, on one rank, and the ring trainers over the "
+          "model, data and expert axes")
     pipeline_launches = run_pipeline(card)
     stamp("the pipeline at one stage")
     check_timeit_in_jit(card)
@@ -5456,8 +5471,9 @@ def main() -> None:
              "train_vision": vision_train_launches, "train_peft": peft_launches,
              "train_offload": offload_launches, "train_stream": train_stream_launches,
              "export": export_launches, "mesh_serve": mesh_serve_launches,
-             "mesh_train": mesh_train_launches, "train_ring": ring_launches,
-             "pipeline": pipeline_launches}
+             "mesh_train": mesh_train_launches, "train_ring": ring_launches["model"],
+             "train_ring_data": ring_launches["data"],
+             "train_ring_expert": ring_launches["expert"], "pipeline": pipeline_launches}
     for rec in (fwd_rec, *bwd_recs, *f32_recs, *grouped_recs):
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -5488,7 +5504,8 @@ def main() -> None:
             "ms", "device_ms_graph", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_device_ms_graph", "max_abs_err")}
     fwd_train["launches_by_path"] = {p: paths[p]["flash_attention_fwd"]
-                                     for p in ("train", "train_gmm", "mesh_train", "train_ring")}
+                                     for p in ("train", "train_gmm", "mesh_train", "train_ring",
+                                               "train_ring_data", "train_ring_expert")}
     fwd_rec["train_shape"] = fwd_train
 
     print(json.dumps({"kernels": [fwd_rec, *bwd_recs, *f32_recs, *grouped_recs]}), flush=True)

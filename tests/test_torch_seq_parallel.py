@@ -15,9 +15,16 @@ virtual CPU devices while they work (weights cross over through
   * `text_model_forward(ring=...)` against JAX's with its ring, rtol and
     atol 3e-5; `loss_fn(ring=...)` against JAX's with and without ring
     (loss rtol 1e-5, gradients atol 3e-5, rtol 2e-4), equal on every rank;
-  * `Trainer(ring_axis="model")` on (1, 1, 4) and (2, 1, 2) against the
-    mesh-less trainer: losses rtol 1e-4, gradient norms rtol 1e-3, the
-    parameters after a step as `tests/test_torch_parallel.py`;
+  * the ring's row-for-chunk exchange (`comm.rows_to_chunks`,
+    `chunks_to_rows`) and its gradients over four and two ranks against a
+    numpy reshuffle, bit for bit;
+  * `Trainer(ring_axis="model")` on (1, 1, 4) and (2, 1, 2), and
+    `ring_axis="data"` on (2, 1, 2), (4, 1, 1) with FSDP and a 3-row batch
+    on (2, 2, 1), and `"expert"` on (1, 2, 2), against the mesh-less
+    trainer: losses rtol 1e-4, gradient norms rtol 1e-3, the parameters
+    after a step as `tests/test_torch_parallel.py`; the data and expert
+    rings beside tensor parallelism also against JAX's `Trainer` with the
+    same ring axis on the same mesh;
   * `text_model_forward(seq_axis="model")` on (2, 1, 2) with tensor
     parallelism against JAX's `hidden_sharding`, rtol 3e-4, atol 3e-5; its
     `loss_fn` gradients against the unsharded port's, atol 3e-5, rtol 2e-4;
@@ -57,6 +64,7 @@ except ImportError:
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_seq_worker.py")
 JAX_REFS = os.path.join(os.path.dirname(WORKER), "torch_seq_jax.py")
 REPO = os.path.dirname(os.path.dirname(WORKER))
+JAX_PARTS = ("loss", "replicated", *(f"ring_{case[1]}" for case in C.RING_JAX_CASES))
 
 
 def _addr() -> str:
@@ -73,22 +81,22 @@ class Ranks:
 
     def start(self):
         """The four ranks, and the JAX references that take longest to
-        compile in a process beside them."""
+        compile in processes beside them."""
         addr = _addr()
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env.update(PYTHONPATH=REPO, PYTHONHASHSEED="0")
-        for r, argv in [(r, [WORKER, str(r), addr]) for r in range(C.WORLD)] + [
-                ("_jax", [JAX_REFS])]:
+        for r, argv in [(r, [WORKER, str(r), addr, self.base]) for r in range(C.WORLD)] + [
+                (f"_jax_{part}", [JAX_REFS, self.base, part]) for part in JAX_PARTS]:
             log = open(os.path.join(self.base, f"log{r}.txt"), "w")
             self.procs.append(subprocess.Popen(
-                [sys.executable, *argv, self.base], stdout=log, stderr=subprocess.STDOUT,
+                [sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT,
                 env=env, cwd=REPO))
 
     def _wait(self):
         for p in self.procs:
             p.wait(timeout=600)
         logs = [open(os.path.join(self.base, f"log{r}.txt")).read()[-3000:]
-                for r in [*range(C.WORLD), "_jax"]]
+                for r in [*range(C.WORLD), *(f"_jax_{part}" for part in JAX_PARTS)]]
         assert all(p.returncode == 0 for p in self.procs), "\n".join(logs)
 
     def results(self, rank: int = 0):
@@ -96,8 +104,9 @@ class Ranks:
             self._wait()
             self._res = [pickle.load(open(os.path.join(self.base, f"rank{r}.pkl"), "rb"))
                          for r in range(C.WORLD)]
-            with open(os.path.join(self.base, "jax.pkl"), "rb") as f:
-                self.jax.update(pickle.load(f))
+            for part in JAX_PARTS:
+                with open(os.path.join(self.base, f"jax_{part}.pkl"), "rb") as f:
+                    self.jax.update(pickle.load(f))
         return self._res[rank]
 
     def stop(self):
@@ -305,21 +314,71 @@ def test_ring_loss_fn_matches_jax(ranks, jax_ring):
             np.testing.assert_array_equal(a, b, err_msg=name)
 
 
-@pytest.mark.parametrize("shape", C.RING_TRAIN_MESHES, ids=lambda s: "x".join(map(str, s)))
-def test_trainer_ring_axis_matches_one_device(ranks, shape):
-    """Trainer(ring_axis="model"): the ring over the model ranks, the rows
-    over (data, expert), the weights whole on every rank."""
-    got = ranks.results()[("ring_train", shape)]
-    hist, params = ranks.single["train"]
+@pytest.mark.parametrize("case", C.RING_TRAIN_CASES, ids=C.ring_case_id)
+def test_trainer_ring_axis_matches_one_device(ranks, case):
+    """Trainer(ring_axis=...) against the mesh-less trainer on the same
+    rows.  "model": the ring over the model ranks, the rows over (data,
+    expert), the weights whole on every rank.  "data" / "expert": tensor
+    parallelism stays on the model axis, and the ring's ranks exchange
+    their rows for chunks of the sequence (under FSDP too); a batch that
+    does not divide runs whole on every rank and takes the same-rows
+    branch."""
+    shape, axis, _, rows = case
+    got = ranks.results()[("ring_train", case)]
+    hist, params = ranks.single["replicated" if rows else "train"]
     np.testing.assert_allclose(got["loss"], [h["loss"] for h in hist], rtol=1e-4)
     np.testing.assert_allclose(got["grad_norm"], [h["grad_norm"] for h in hist], rtol=1e-3)
     _assert_params_close(got["params"], params, params_to_numpy(C.port_params(
         C.train_config())), 1e-3)
     cfg = C.train_config().text_config
-    assert got["q_width"] == (cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim)
+    tp = shape[2] if axis != "model" else 1
+    assert got["tp"] == (axis != "model")
+    assert got["q_width"] == (cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim // tp)
     for r in range(1, C.WORLD):
-        np.testing.assert_array_equal(ranks.results(r)[("ring_train", shape)]["loss"],
+        np.testing.assert_array_equal(ranks.results(r)[("ring_train", case)]["loss"],
                                       got["loss"])
+
+
+@pytest.mark.parametrize("case", C.RING_JAX_CASES, ids=C.ring_case_id)
+def test_trainer_ring_axis_matches_jax(ranks, case):
+    """The data and expert rings beside tensor parallelism against JAX's
+    Trainer with the same ring_axis on the same mesh (its weights split
+    over model by `shard_params`): losses and gradient norms."""
+    got = ranks.results()[("ring_train", case)]
+    want = ranks.jax[("ring_train", case)]
+    np.testing.assert_allclose(got["loss"], [h["loss"] for h in want], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], [h["grad_norm"] for h in want], rtol=1e-3)
+
+
+def _to_chunks(x, p, dim):
+    """numpy: rows [p, rows, ...] of p ranks → rank r's [p·rows, ...] of
+    chunk r of the axis `dim` of a rank's rows, in source order."""
+    return [np.concatenate([np.split(x[s], p, axis=dim)[r] for s in range(p)], 0)
+            for r in range(p)]
+
+
+@pytest.mark.parametrize("case", C.EXCHANGE_CASES, ids=lambda c: "p%d_rows%d_dim%d" % (
+    c[0], c[1], c[3]))
+def test_row_chunk_exchange_matches_numpy(ranks, case):
+    """rows_to_chunks gives rank r chunk r of every rank's rows, and its
+    gradient is the cotangents sent back; chunks_to_rows undoes it bit for
+    bit, and its gradient is the forward exchange of the cotangent; an
+    int32 mask travels as int32; a T that does not split is refused."""
+    p, rows, shape, dim = case
+    x, mask, co, co_back = C.exchange_inputs(*case)
+    want_y, want_gy = _to_chunks(x, p, dim), _to_chunks(co_back, p, dim)
+    want_mask = _to_chunks(mask, p, 1)
+    members = range(p) if p == C.WORLD else (0, 1)
+    for r in members:
+        got = ranks.results(r)["exchange"][p]
+        np.testing.assert_array_equal(got["y"], want_y[r])
+        np.testing.assert_array_equal(got["back"], x[r])
+        np.testing.assert_array_equal(got["gy"], want_gy[r])
+        np.testing.assert_array_equal(got["mask"], want_mask[r])
+        assert got["mask_dtype"] == "torch.int32"
+        want_gx = np.concatenate([np.split(co[j], p, axis=0)[r] for j in range(p)], dim)
+        np.testing.assert_array_equal(got["gx"], want_gx)
+        assert "does not split" in got["refused"]
 
 
 # -- activation sequence sharding --------------------------------------------------
@@ -414,12 +473,13 @@ def _cap(cfg, S, E):
 
 def test_refusals_on_ranks(ranks):
     """As JAX asserts: layers that do not split into the stages, a batch
-    that does not split into the microbatches; and a ring axis the trainer
-    does not carry."""
+    that does not split into the microbatches; and a ring axis that is not
+    an axis of the mesh, with a message that names the mesh's axes."""
     got = ranks.results()["refusals"]
     assert "stages" in got["layers"]
     assert "microbatches" in got["micro"]
-    assert "'data'" in got["axis"]
+    assert "'seq'" in got["axis"]
+    assert all(f"'{a}'" in got["axis"] for a in ("data", "expert", "model"))
 
 
 def test_refusals_in_one_process():

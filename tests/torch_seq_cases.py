@@ -17,7 +17,17 @@ RING_DH = 32
 # The ring in the stack: tests/test_ring_attention.py's sizes.
 STACK_B, STACK_T = 2, 64
 LOSS_B, LOSS_T = 2, 16
-RING_TRAIN_MESHES = [(1, 1, 4), (2, 1, 2)]
+# Trainer(ring_axis=...): (mesh, axis, fsdp, rows); rows None: the whole
+# train batch of 4, split over (data, expert); 3 rows on (2, 2, 1) do not
+# divide and run whole on every rank (the ring's same-rows branch).
+RING_TRAIN_CASES = [((1, 1, 4), "model", False, None), ((2, 1, 2), "model", False, None),
+                    ((2, 1, 2), "data", False, None), ((1, 2, 2), "expert", False, None),
+                    ((4, 1, 1), "data", True, None), ((2, 2, 1), "data", False, 3)]
+# The cases held to JAX's Trainer with the same ring axis on the same mesh.
+RING_JAX_CASES = [c for c in RING_TRAIN_CASES if c[1] in ("data", "expert") and c[3] is None
+                  and not c[2]]
+# comm.rows_to_chunks / chunks_to_rows: (ranks, rows a rank, shape, seq dim).
+EXCHANGE_CASES = [(4, 2, (8, 3), 1), (2, 3, (2, 6, 5), 2)]
 SEQ_MESH = (2, 1, 2)
 SEQ_B, SEQ_T = 2, 16
 # tests/test_pipeline.py's cases: (stages, n_micro), 4 layers, T 6; one
@@ -42,6 +52,31 @@ def ring_inputs(B, H, KV, T, pad):
     valid = np.ones((B, T), np.int32)
     valid[0, :pad] = 0
     return q, k, v, valid, co
+
+
+def ring_case_id(case):
+    """"1x1x4" for a model ring on the whole batch; else the axis, "fsdp"
+    and the rows follow."""
+    shape, axis, fsdp, rows = case
+    parts = ["x".join(map(str, shape))] + ([] if axis == "model" else [axis])
+    return "_".join(parts + (["fsdp"] if fsdp else []) + ([f"rows{rows}"] if rows else []))
+
+
+@functools.lru_cache(maxsize=None)
+def exchange_inputs(p, rows, shape, dim):
+    """Every rank's rows x [p, rows, *shape] (f32; the sequence at `dim` of a
+    rank's [rows, *shape]), an int32 mask [p, rows, T], the cotangents of the
+    forward's outputs [p, p·rows, *shape with T/p] and of the reverse's
+    outputs [p, rows, *shape]."""
+    rng = np.random.default_rng(20 + p)
+    T = shape[dim - 1]
+    chunk = list(shape)
+    chunk[dim - 1] = T // p
+    x = rng.standard_normal((p, rows) + shape).astype(np.float32)
+    mask = rng.integers(0, 2, size=(p, rows, T)).astype(np.int32)
+    co = rng.standard_normal((p, p * rows) + tuple(chunk)).astype(np.float32)
+    co_back = rng.standard_normal((p, rows) + shape).astype(np.float32)
+    return x, mask, co, co_back
 
 
 def stack_config(make=tiny_test_config, **kw):

@@ -1,11 +1,15 @@
 """The JAX package's references of `tests/test_torch_seq_parallel.py` that
-take longest to compile, run in a process of their own beside the ranks:
-`python tests/torch_seq_jax.py OUT` pickles them to OUT/jax.pkl.
+take longest to compile, run in processes of their own beside the ranks:
+`python tests/torch_seq_jax.py OUT PART` pickles part PART ("loss",
+"ring_data" or "ring_expert") to OUT/jax_PART.pkl.
 
-  * `loss_fn` with and without its ring over four devices: the loss and the
-    gradients (numpy, JAX layout);
-  * JAX's `Trainer` on a (2, 2, 1) mesh taking two steps on a batch of 3
-    rows, which it replicates: the metric rows.
+  * "loss": `loss_fn` with and without its ring over four devices (the
+    loss and the gradients, numpy, JAX layout), and JAX's `Trainer` on a
+    (2, 2, 1) mesh taking two steps on a batch of 3 rows, which it
+    replicates (the metric rows);
+  * "ring_data", "ring_expert": JAX's `Trainer` with ring attention over
+    the data axis of (2, 1, 2) or the expert axis of (1, 2, 2) beside tensor
+    parallelism on model (the metric rows).
 """
 
 import dataclasses
@@ -50,27 +54,36 @@ def loss_refs():
     return out
 
 
-def trainer_ref():
+def _fit(shape, rows=None, **kw):
+    """JAX's Trainer on a mesh of `shape`, the weights tensor-parallel over
+    model (`shard_params`), two steps on `train_batch` (its first `rows`
+    rows): the metric rows."""
     from unimoe_audio_tpu.config import tiny_test_config as jax_tiny
     from unimoe_audio_tpu.parallel import mesh as JMESH
     from unimoe_audio_tpu.train.trainer import Trainer, TrainerConfig
 
     cfg = C.train_config(make=jax_tiny)
-    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(C.REPLICATED_MESH), JMESH.AXES)
     t = C.trainer_config()
+    fields = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(shape), JMESH.AXES)
     tr = Trainer(cfg, JMESH.shard_params(_jparams(cfg), mesh, cfg),
-                 TrainerConfig(**{f.name: getattr(t, f.name) for f in dataclasses.fields(t)}),
-                 mesh=mesh)
-    batch = {k: v[:C.REPLICATED_ROWS] for k, v in C.train_batch(cfg).items()}
-    return {"replicated": tr.fit([batch, batch])}
+                 TrainerConfig(**{**fields, **kw}), mesh=mesh)
+    b = C.train_batch(cfg)
+    b = b if rows is None else {k: v[:rows] for k, v in b.items()}
+    return tr.fit([b, b])
 
 
-def main(out: str) -> int:
-    res = {**loss_refs(), **trainer_ref()}
-    with open(os.path.join(out, "jax.pkl"), "wb") as f:
-        pickle.dump(res, f)
+PARTS = {"loss": loss_refs,
+         "replicated": lambda: {"replicated": _fit(C.REPLICATED_MESH, C.REPLICATED_ROWS)},
+         **{f"ring_{case[1]}": (lambda case=case: {("ring_train", case): _fit(
+             case[0], ring_axis=case[1])}) for case in C.RING_JAX_CASES}}
+
+
+def main(out: str, part: str) -> int:
+    with open(os.path.join(out, f"jax_{part}.pkl"), "wb") as f:
+        pickle.dump(PARTS[part](), f)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], sys.argv[2]))

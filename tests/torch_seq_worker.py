@@ -4,7 +4,8 @@ tests/torch_seq_worker.py RANK ADDR OUT`.
 
 The four ranks join one process group and run every case in turn: ring
 attention with its gradients, the ring in the layer stack and in
-`loss_fn`, `Trainer(ring_axis="model")`, activation sequence sharding,
+`loss_fn`, the ring's row-for-chunk exchange, `Trainer(ring_axis=...)` on
+every axis, activation sequence sharding,
 the pipeline with its gradients, the refusals that need ranks, a batch
 replicated over a mesh and `token_drop` on a split batch.  Every rank
 pickles its numpy results to OUT/rank{r}.pkl.  The inputs come from
@@ -82,19 +83,53 @@ def ring_loss(mesh):
     return {"loss": float(loss.detach()), "grads": params_to_numpy(C.rebuild(params, grads))}
 
 
-def ring_train(shape):
+def ring_train(case):
+    """Trainer(ring_axis=...) for two steps on the case's mesh: the metric
+    rows, the whole params after the first step and the local q_proj
+    width (whole without tensor parallelism, split over model with it)."""
     import dataclasses
 
+    from tests.torch_mesh_cases import FSDP_MIN_BYTES
     from unimoe_audio_torch.train.trainer import Trainer
 
+    shape, axis, fsdp, rows = case
     mesh = make_mesh(*shape, device="cpu")
     cfg = C.train_config()
-    tcfg = dataclasses.replace(C.trainer_config(), ring_axis="model")
-    tr = Trainer(cfg, C.port_params(cfg), tcfg, device="cpu", mesh=mesh)
-    hist, params = C.two_steps(tr, cfg)
+    tcfg = dataclasses.replace(C.trainer_config(), ring_axis=axis)
+    tr = Trainer(cfg, C.port_params(cfg), tcfg, device="cpu", mesh=mesh, fsdp=fsdp,
+                 fsdp_min_bytes=FSDP_MIN_BYTES)
+    hist, params = C.two_steps(_Rows(tr, rows) if rows else tr, cfg)
     return {"loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
-            "params": params,
+            "params": params, "tp": tr.plan.model,
             "q_width": tuple(tr.state.params["layers"][0]["attn"]["q_proj"]["w"].shape)}
+
+
+def exchange(groups):
+    """comm.rows_to_chunks and chunks_to_rows over four and two ranks:
+    the forward's output and x's gradient under a cotangent, the reverse's
+    output (the round trip) and its input's gradient, an int32 mask's
+    exchange, and the refusal of a T that does not split."""
+    out = {}
+    for p, rows, shape, dim in C.EXCHANGE_CASES:
+        g = groups[p]
+        r = comm.group_rank(g)
+        x_all, mask_all, co_all, back_all = C.exchange_inputs(p, rows, shape, dim)
+        x = _t(x_all[r]).requires_grad_()
+        y = comm.rows_to_chunks(x, g, dim)
+        gx, = torch.autograd.grad((y * _t(co_all[r])).sum(), x)
+        y = y.detach().requires_grad_()
+        back = comm.chunks_to_rows(y, g, dim)
+        gy, = torch.autograd.grad((back * _t(back_all[r])).sum(), y)
+        mask = comm.rows_to_chunks(_t(mask_all[r]), g, 1)
+        try:
+            comm.rows_to_chunks(x.detach().narrow(dim, 0, shape[dim - 1] - 1), g, dim)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        out[p] = {"y": y.detach().numpy(), "gx": gx.numpy(), "back": back.detach().numpy(),
+                  "gy": gy.numpy(), "mask": mask.numpy(), "mask_dtype": str(mask.dtype),
+                  "refused": refused}
+    return out
 
 
 def seq_sharded():
@@ -161,7 +196,7 @@ def pipeline(groups, stages, n_micro):
 def refusals(groups):
     """The refusals that need ranks: a layer count that does not split
     into the stages, a batch that does not split into the microbatches, and
-    a ring axis other than model."""
+    a ring axis that is not an axis of the mesh."""
     from unimoe_audio_torch.parallel.pipeline import pipeline_forward
     from unimoe_audio_torch.train.trainer import Trainer, TrainerConfig
 
@@ -179,7 +214,7 @@ def refusals(groups):
             out[name] = str(e)
     mesh = make_mesh(1, 1, 4, device="cpu")
     try:
-        Trainer(cfg, params, TrainerConfig(ring_axis="data"), device="cpu", mesh=mesh)
+        Trainer(cfg, params, TrainerConfig(ring_axis="seq"), device="cpu", mesh=mesh)
         out["axis"] = None
     except ValueError as e:
         out["axis"] = str(e)
@@ -244,8 +279,9 @@ def main() -> int:
     res["ring_stack"] = ring_stack(mesh)
     res["ring_loss"] = ring_loss(mesh)
     t1 = time.perf_counter()
-    for shape in C.RING_TRAIN_MESHES:
-        res[("ring_train", shape)] = ring_train(shape)
+    res["exchange"] = exchange(groups)
+    for case in C.RING_TRAIN_CASES:
+        res[("ring_train", case)] = ring_train(case)
     res["seq"] = seq_sharded()
     t2 = time.perf_counter()
     for stages, n_micro in C.PIPE_CASES:
@@ -257,7 +293,8 @@ def main() -> int:
         res[("drop", policy)] = token_drop(policy)
     dist.barrier()
     dist.destroy_process_group()
-    print(f"seconds: ring {t1 - t0:.1f}, ring training and sequence sharding {t2 - t1:.1f}, "
+    print(f"seconds: ring {t1 - t0:.1f}, the exchange, ring training and sequence sharding "
+          f"{t2 - t1:.1f}, "
           f"pipeline {t3 - t2:.1f}, replicated batch and token_drop "
           f"{time.perf_counter() - t3:.1f}", flush=True)
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:

@@ -16,9 +16,9 @@ import torch
 
 from ..config import TextMoEConfig
 from ..ops.quant import proj_matmul, wshape
-from ..parallel.comm import (copy_to, gather_dim, group_rank, group_size, reduce_from,
-                             reduce_scatter, resolve_group)
-from ..parallel.mesh import tp_group
+from ..parallel.comm import (chunks_to_rows, copy_to, gather_dim, group_rank, group_size,
+                             reduce_from, reduce_scatter, resolve_group, rows_to_chunks)
+from ..parallel.mesh import active, batch_spec, tp_group
 
 NEG_INF = -1e30
 
@@ -191,12 +191,22 @@ def attention(
     rank keeps its T / |model| rows of the output.
 
     ring: a process group or (mesh, axis), ring attention over it
-    (`layers.py:270-301`, `ops/ring_attention.py`).  x holds the whole
-    sequence on every rank of the ring; q, k and v enter the ring's region
-    through `copy_to` (their gradients summed over the ring), each rank
-    attends its T / |ring| chunk of queries, and the chunks are gathered
-    before o_proj.  The causal no-cache path only; a sliding layer is
-    refused (the JAX package's ring skips the window).
+    (`layers.py:270-301`, `ops/ring_attention.py`), in one of two cases
+    (`_ring_splits_rows`):
+      * the ranks of the ring hold the same rows (a bare group, the model
+        axis, a batch the active mesh does not split, a ring of one rank):
+        q, k and v enter the ring's region through `copy_to` (their
+        gradients summed over the ring), each rank attends its T / |ring|
+        chunk of queries, and the chunks are gathered before o_proj;
+      * a (mesh, axis) ring over data or expert while the active mesh
+        splits the batch over them: each rank holds its own rows, so q, k,
+        v and the key mask are exchanged (`comm.rows_to_chunks`: rank r
+        takes chunk r of T of the ring's p·B rows), the ring attends those
+        rows, and the output is exchanged back to this rank's rows
+        (`comm.chunks_to_rows`), whose gradients come back the same way.
+    In both the heads stay this rank's under tensor parallelism.  The
+    causal no-cache path only; a sliding layer is refused (the JAX
+    package's ring skips the window).
 
     Returns (out [B, T, D], cache (k, v) / fresh (k, v) / None).
     """
@@ -232,7 +242,8 @@ def attention(
     q, k = apply_rope(q, k, cos, sin)
 
     if ring is not None:
-        return o_proj(_ring(q, k, v, kv_valid_mask, resolve_group(ring), tp)), None
+        split = _ring_splits_rows(ring)
+        return o_proj(_ring(q, k, v, kv_valid_mask, resolve_group(ring), tp, split)), None
 
     if prefix_kv is not None and cache_kv is None:
         pk, pv = prefix_kv
@@ -321,10 +332,30 @@ def attention(
     return o_proj(out), cache_kv
 
 
-def _ring(q, k, v, kv_valid_mask, group, tp) -> torch.Tensor:
-    """Ring attention of [B, T, ·, Dh] q, k, v over group: this rank's
-    query chunk against every chunk, the chunks' outputs gathered along T
-    → [B, T, H·Dh]."""
+def _ring_splits_rows(ring) -> bool:
+    """Whether the ranks of a (mesh, axis) ring hold different rows: the
+    axis is data or expert (or both), of more than one rank, and the active
+    mesh is this one with its batch split over (data, expert).  A bare
+    process group keeps the same-rows meaning."""
+    if not isinstance(ring, tuple):
+        return False
+    mesh, axis = ring
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    ctx = active()
+    if ctx is None or ctx.mesh is not mesh or not ctx.split_batch:
+        return False
+    on_rows = [a in batch_spec() for a in axes]
+    if any(on_rows) and not all(on_rows):
+        raise ValueError(f"ring axes {axes}: a ring over the batch's axes {batch_spec()} "
+                         "takes no other axis")
+    return all(on_rows) and mesh.size(axes) > 1
+
+
+def _ring(q, k, v, kv_valid_mask, group, tp, split_rows: bool) -> torch.Tensor:
+    """Ring attention of [B, T, ·, Dh] q, k, v over group → [B, T, H·Dh].
+    Same rows on every ring rank: this rank's query chunk against every
+    chunk, the chunks' outputs gathered along T.  split_rows: the ring's
+    rows exchanged for chunks and back (`attention`)."""
     from ..ops.ring_attention import ring_attention
 
     if group is not None and group is tp:
@@ -335,9 +366,14 @@ def _ring(q, k, v, kv_valid_mask, group, tp) -> torch.Tensor:
     if T % p:
         raise ValueError(f"ring attention: T {T} does not split over {p} ranks")
     Tc = T // p
-    cut = slice(r * Tc, (r + 1) * Tc)
     valid = (kv_valid_mask[:, :T].to(torch.int32) if kv_valid_mask is not None
              else torch.ones(B, T, dtype=torch.int32, device=q.device))
+    if split_rows:
+        q, k, v = (rows_to_chunks(t, group, 1).transpose(1, 2) for t in (q, k, v))
+        out = ring_attention(q, k, v, rows_to_chunks(valid, group, 1), group=group,
+                             causal=True)
+        return chunks_to_rows(out.transpose(1, 2).reshape(p * B, Tc, H * Dh), group, 1)
+    cut = slice(r * Tc, (r + 1) * Tc)
     q, k, v = (copy_to(t, group)[:, cut].transpose(1, 2) for t in (q, k, v))
     out = ring_attention(q, k, v, valid[:, cut], group=group, causal=True)
     return gather_dim(out.transpose(1, 2).reshape(B, Tc, H * Dh), group, 1)

@@ -26,7 +26,13 @@ gradient:
                      backward shifts the gradient by -s;
   all_to_all(x, g)   dim 0 split into |g| blocks, block j sent to rank j and
                      the received blocks stacked in source order; the
-                     backward sends the gradients back the same way.
+                     backward sends the gradients back the same way;
+  rows_to_chunks(x, g, d) / chunks_to_rows(x, g, d)  the exchange of ring
+                     attention over a split batch: [B_l, T, ...] on each of
+                     p ranks becomes [p·B_l, T/p, ...], rank r holding
+                     chunk r of T (dim d) of every rank's rows, and back;
+                     built on all_to_all, so the backward of each is the
+                     other.
 
 Every one of them is the identity on a group of one rank (or None), so a
 1 x 1 x 1 mesh runs no collective in the layers.  Half-precision sums run
@@ -211,6 +217,34 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """x [n, ...] with n = |group|: block j goes to group rank j; returns
     the blocks received, [n, ...] by source rank."""
     return x if group_size(group) == 1 else _AllToAll.apply(x, group)
+
+
+def rows_to_chunks(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """x [B_l, ..., T, ...] (T at dim) on each of the p ranks of group →
+    [p·B_l, ..., T/p, ...]: rank r receives chunk r of T of every rank's
+    rows, stacked in source-rank order.  Carries integer tensors (masks)
+    too; the gradient comes back through `chunks_to_rows`."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    T = x.shape[dim]
+    if T % n:
+        raise ValueError(f"rows_to_chunks: T {T} does not split over {n} ranks")
+    blocks = x.unflatten(dim, (n, T // n)).movedim(dim, 0)   # [p, B_l, ..., Tc, ...]
+    return all_to_all(blocks, group).flatten(0, 1)
+
+
+def chunks_to_rows(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The inverse of `rows_to_chunks`: [p·B_l, ..., Tc, ...] on each rank
+    (chunk r of T of every rank's rows on rank r) → this rank's rows
+    [B_l, ..., p·Tc, ...] with the chunks in order."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"chunks_to_rows: {x.shape[0]} rows do not split over {n} ranks")
+    blocks = all_to_all(x.unflatten(0, (n, x.shape[0] // n)), group)  # [p, B_l, ..., Tc, ...]
+    return blocks.movedim(0, dim).flatten(dim, dim + 1)
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -174,7 +174,7 @@ def set_mesh(mesh: Optional[Mesh], *, split_batch: bool = False,
     replaces.  A server keeps it for its life (`apps/serve.build_server`).
     tp=False: the layers hold whole weights and run no tensor parallelism
     over the model axis, which another use holds (ring attention's
-    sequence, `TrainerConfig.ring_axis`)."""
+    sequence, `TrainerConfig(ring_axis="model")`)."""
     global _ACTIVE
     prev = _ACTIVE
     _ACTIVE = None if mesh is None else MeshContext(mesh, split_batch, tp)

@@ -6,8 +6,8 @@ and resume, and the inference export — counterpart of
 The trainer runs on the card (`device="cuda"`, the default) and raises
 without one; the tests pass `device="cpu"`.  `Trainer(mesh=...)` trains on
 a (data, expert, model) mesh of ranks (`parallel/mesh.py`, `MeshPlan`);
-`TrainerConfig(ring_axis="model")` runs its attention as ring attention
-over the mesh's model axis (`ops/ring_attention.py`).
+`TrainerConfig(ring_axis=...)` runs its attention as ring attention over
+one axis of that mesh (`ops/ring_attention.py`).
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ from ..core.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..models.model import calculate_input_embedding, get_rope_index
 from ..models.vision import vision_forward, vision_indices
 from ..parallel import comm
-from ..parallel.mesh import (Mesh, active, add_fsdp_axis, batch_spec, fsdp_dim, full_specs,
-                             gather_params, leaf_specs, shard_params, storage_splits, use_mesh)
+from ..parallel.mesh import (AXES, Mesh, active, add_fsdp_axis, batch_spec, fsdp_dim,
+                             full_specs, gather_params, leaf_specs, shard_params,
+                             storage_splits, use_mesh)
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     place_batch, train_step
 
@@ -36,10 +37,14 @@ from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer,
 @dataclass
 class TrainerConfig:
     """The JAX package's `TrainerConfig` (same names and defaults).
-    `ring_axis` ("model", with `Trainer(mesh=...)`): the sequence shards
-    over the mesh's model axis in every attention (ring attention); the
-    ranks of that axis hold the same rows and the same whole weights (no
-    tensor parallelism), `trainer.py:67-71, 218-226`.  `train_vision` runs
+    `ring_axis` (an axis of the mesh, with `Trainer(mesh=...)`): the
+    sequence shards over that axis in every attention (ring attention,
+    `trainer.py:67-71, 218-226`).  "model": the ranks of that axis hold the
+    same rows and the same whole weights (no tensor parallelism).  "data"
+    or "expert": tensor parallelism stays on the model axis, and the ring's
+    ranks, which hold different rows of the split batch, exchange their
+    rows for chunks of the sequence around the attention
+    (`models/layers.attention`).  `train_vision` runs
     the vision tower inside the step, so it trains (False: its features are
     fused outside the step and the tower stays as it is); `vision_bucket`
     pads the merged vision tokens of a batch to a multiple of it.
@@ -166,7 +171,10 @@ class MeshPlan:
     updated slices are all-gathered into the whole (local) parameter.  The
     gradient norm counts each distinct piece once.  model=False: no leaf is
     split over the model axis (ring attention holds it), and its ranks hold
-    whole copies with equal gradients."""
+    whole copies with equal gradients.  A ring over data or expert changes
+    none of this: the exchange brings each rank's q, k and v gradients back
+    to the rank whose rows made them, so a projection's gradient is still
+    this rank's rows', summed over (data, expert) as without a ring."""
 
     def __init__(self, mesh: Mesh, params: Dict, cfg: UniMoEAudioConfig, *, fsdp: bool,
                  fsdp_min_bytes: int, model: bool = True):
@@ -264,10 +272,11 @@ class Trainer:
         if tcfg.ring_axis is not None:
             if mesh is None:
                 raise ValueError("ring_axis requires Trainer(mesh=...)")
-            if tcfg.ring_axis != "model":
-                raise ValueError(f"ring_axis {tcfg.ring_axis!r}: ring attention runs over the "
-                                 "mesh's 'model' axis only")
-            self.ring = (mesh, "model")
+            if tcfg.ring_axis not in AXES:
+                raise ValueError(f"ring_axis {tcfg.ring_axis!r} is not an axis of the mesh "
+                                 f"{AXES}")
+            self.ring = (mesh, tcfg.ring_axis)
+        tp = tcfg.ring_axis != "model"
         for name, t in named_leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"parameter {name} is on {t.device}, the trainer on "
@@ -284,8 +293,8 @@ class Trainer:
             trainable_pattern=tcfg.trainable_pattern, grad_accum_steps=tcfg.grad_accum_steps)
         if mesh is not None:
             self.plan = MeshPlan(mesh, params, cfg, fsdp=fsdp, fsdp_min_bytes=fsdp_min_bytes,
-                                 model=self.ring is None)
-            params = shard_params(params, mesh, cfg, model=self.ring is None)
+                                 model=tp)
+            params = shard_params(params, mesh, cfg, model=tp)
             self.optimizer.norm = self.plan.norm
             if mesh.shape["expert"] > 1:
                 self.dispatch_mode = "ep"
@@ -434,11 +443,12 @@ class Trainer:
 
     def _step_inputs(self, batch: Dict):
         """The placed batch and the mesh context of its step: split_batch
-        unless the batch is replicated, tensor parallelism off under ring
-        attention."""
+        unless the batch is replicated, tensor parallelism off under a ring
+        over the model axis."""
         batch = self._prepare_vision_batch(batch)
         return self._place_batch(batch), use_mesh(
-            self.mesh, split_batch=not self._replicated(batch), tp=self.ring is None)
+            self.mesh, split_batch=not self._replicated(batch),
+            tp=self.tcfg.ring_axis != "model")
 
     @torch.no_grad()
     def evaluate(self, eval_batches: Iterable[Dict[str, np.ndarray]],
