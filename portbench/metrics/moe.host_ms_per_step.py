@@ -1,0 +1,9 @@
+"""Host milliseconds in `moe.block` spans (the DCMoE blocks: router,
+dispatch, experts) inside the window's decode steps, over its decode
+steps."""
+
+from harness import program
+
+
+def read(run):
+    return program.host_ms_per_decode_step(run, "moe.block")

@@ -174,9 +174,20 @@ def test_wallclock_and_timeit_on_the_cpu(tmp_path):
     with pytest.raises(ValueError, match="device"):
         TPROF.timeit_in_jit(lambda: None)
     with TPROF.trace(str(tmp_path / "tr")):
-        (x @ x).sum()
+        with TPROF.span("test.outer", rid=7):
+            (x @ x).sum()
     with open(tmp_path / "tr" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        doc = json.load(f)
+    # The program's span is a row of its own, on the trace's time base:
+    # it covers the matmul it wrapped.
+    ours = [e for e in doc["traceEvents"] if e.get("cat") == "program_span"]
+    assert [e["name"] for e in ours] == ["test.outer"] and ours[0]["args"]["rid"] == "7"
+    mm = [e for e in doc["traceEvents"] if e.get("name") == "aten::mm"]
+    assert mm and all(e["tid"] != ours[0]["tid"] for e in mm)
+    span, op = ours[0], mm[0]
+    assert span["ts"] <= op["ts"] and op["ts"] + op["dur"] <= span["ts"] + span["dur"]
+    rows = [e for e in doc["traceEvents"] if e.get("ph") == "M" and e.get("tid") == span["tid"]]
+    assert rows and rows[0]["args"]["name"].startswith("program spans")
 
 
 def test_facade():

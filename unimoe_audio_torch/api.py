@@ -33,6 +33,7 @@ from .models.model import align_codec_ids, init_model_params
 from .parallel.comm import is_writer
 from .tokenizer import SimpleTokenizer
 from .train.peft import prefix_kv, virtual_embeds
+from .utils import profiling
 
 SERVING_MODES = (False, True, "int8", "int4", "int4-gptq")
 
@@ -856,7 +857,9 @@ class UniMoEAudio:
             if self.dac is None:
                 path += ".codes.npy"
             if writer and self.dac is not None:
-                self.dac.decode(frames.T[None], save_path=path, min_duration=1)
+                with profiling.span("codec.dac_decode", rid=None if names is None else names[i],
+                                    device=True):
+                    self.dac.decode(frames.T[None], save_path=path, min_duration=1)
             elif writer:
                 np.save(path, frames)
             out.append(path)

@@ -44,6 +44,7 @@ from ..config import UniMoEAudioConfig
 from ..generate.loop import LoopState, generate
 from ..models.layers import KVCache
 from ..parallel.mesh import kv_heads
+from ..utils import profiling
 
 
 @dataclasses.dataclass
@@ -280,40 +281,46 @@ class SlotServer:
                 # Not enough horizon left: wait for a compaction.
                 self.queue.insert(0, req)
                 break
-            cache2, mask, ids = self._prefill_request(req)
-            # Alone, the loop's first read is buf[ps - 1] (start_step =
-            # ps - 1); here the next read is buf[d0], so the row's content
-            # shifts by delta = d0 + 1 - ps.  Frames below ps - 1 are never
-            # read; the delayed tail past ps (later channels' prompt
-            # content) rides along and wins its merges as it would alone.
-            delta = d0 + 1 - req.prefill_steps
-            row = np.full((self.buf_len, self.C), -1, np.int32)
-            row[:d0] = self.cfg.codec_pad_value                       # never read again
-            src0 = req.prefill_steps - 1
-            n_copy = min(P - src0, self.buf_len - d0)
-            row[d0:d0 + n_copy] = req.prefill[src0:src0 + n_copy]
-            self._splice(slot, cache2, row)
-            self.input_ids[2 * slot:2 * slot + 2] = ids
-            self.attention_mask[2 * slot:2 * slot + 2] = mask
-            self.base_delta[2 * slot:2 * slot + 2] = (
-                np.asarray(req.rope_deltas).reshape(-1) if req.rope_deltas is not None
-                else mask.sum(-1) - self.T)
-            self.ps[slot] = d0 + 1                                     # = ps + delta
-            self.min_vec[slot] = req.min_tokens + delta
-            self.mt_vec[slot] = req.max_tokens + delta
-            self.cfg_vec[slot] = req.cfg_scale
-            self.temp_vec[slot] = req.temperature
-            self.topp_vec[slot] = req.top_p
-            self.eosf_vec[slot] = req.eos_prob_mul_factor
-            self.seeds[slot] = req.seed
-            self.d_start[slot] = self.T + d0
-            self.seed_off[slot] = delta
-            self.req_max[slot] = req.max_tokens
-            self.active[slot] = True
-            self.rids[slot] = req.rid
-            now = time.time()
-            self._admit_t[slot] = now
-            self._wait_s[slot] = now - self._submit_t.pop(id(req), now)
+            with profiling.span("slot.admit", rid=req.rid):
+                self._admit_one(slot, req, d0)
+
+    def _admit_one(self, slot: int, req: SlotRequest, d0: int) -> None:
+        """The request's prefill spliced into `slot` at decode step d0."""
+        P = req.prefill.shape[0]
+        cache2, mask, ids = self._prefill_request(req)
+        # Alone, the loop's first read is buf[ps - 1] (start_step =
+        # ps - 1); here the next read is buf[d0], so the row's content
+        # shifts by delta = d0 + 1 - ps.  Frames below ps - 1 are never
+        # read; the delayed tail past ps (later channels' prompt
+        # content) rides along and wins its merges as it would alone.
+        delta = d0 + 1 - req.prefill_steps
+        row = np.full((self.buf_len, self.C), -1, np.int32)
+        row[:d0] = self.cfg.codec_pad_value                       # never read again
+        src0 = req.prefill_steps - 1
+        n_copy = min(P - src0, self.buf_len - d0)
+        row[d0:d0 + n_copy] = req.prefill[src0:src0 + n_copy]
+        self._splice(slot, cache2, row)
+        self.input_ids[2 * slot:2 * slot + 2] = ids
+        self.attention_mask[2 * slot:2 * slot + 2] = mask
+        self.base_delta[2 * slot:2 * slot + 2] = (
+            np.asarray(req.rope_deltas).reshape(-1) if req.rope_deltas is not None
+            else mask.sum(-1) - self.T)
+        self.ps[slot] = d0 + 1                                     # = ps + delta
+        self.min_vec[slot] = req.min_tokens + delta
+        self.mt_vec[slot] = req.max_tokens + delta
+        self.cfg_vec[slot] = req.cfg_scale
+        self.temp_vec[slot] = req.temperature
+        self.topp_vec[slot] = req.top_p
+        self.eosf_vec[slot] = req.eos_prob_mul_factor
+        self.seeds[slot] = req.seed
+        self.d_start[slot] = self.T + d0
+        self.seed_off[slot] = delta
+        self.req_max[slot] = req.max_tokens
+        self.active[slot] = True
+        self.rids[slot] = req.rid
+        now = time.time()
+        self._admit_t[slot] = now
+        self._wait_s[slot] = now - self._submit_t.pop(id(req), now)
 
     # -- retirement -------------------------------------------------------
     def _retire(self) -> None:
@@ -375,8 +382,13 @@ class SlotServer:
     def step(self) -> List[SlotResult]:
         """One chunk: compact if needed, admit, decode `chunk_frames`
         steps, retire.  Returns the results completed in this chunk."""
+        with profiling.span("slot.step"):
+            return self._step()
+
+    def _step(self) -> List[SlotResult]:
         if self._dec_h + self.chunk + 2 >= self.H_frames or (self.queue and not self.active.all()):
-            self._compact()
+            with profiling.span("slot.compact"):
+                self._compact()
         self._admit()
         n_before = len(self.results)
         if self.active.any():
@@ -396,13 +408,14 @@ class SlotServer:
                 max_tokens_vec=self.mt_vec, sample_seeds=self.seeds, do_sample=self.do_sample,
                 **{k: v for k, v in self.dispatch.items() if v is not None})
             self.state = st
-            # ONE device-to-host read refreshes the countdown and
-            # finished-step mirrors (dec_step is a host int).
-            ctl = torch.cat([st.eos_countdown, st.finished_step]).cpu().numpy()
-            self._dec_h = int(st.dec_step)
-            self._cd_h = ctl[:self.S].astype(np.int32)
-            self._fin_h = ctl[self.S:].astype(np.int32)
-            self._retire()
+            with profiling.span("slot.retire"):
+                # ONE device-to-host read refreshes the countdown and
+                # finished-step mirrors (dec_step is a host int).
+                ctl = torch.cat([st.eos_countdown, st.finished_step]).cpu().numpy()
+                self._dec_h = int(st.dec_step)
+                self._cd_h = ctl[:self.S].astype(np.int32)
+                self._fin_h = ctl[self.S:].astype(np.int32)
+                self._retire()
         return self.results[n_before:]
 
     def run_until_drained(self, max_chunks: int = 10_000) -> List[SlotResult]:

@@ -29,6 +29,7 @@ from ..models.model import (
     codec_logits_from_hidden,
     text_model_forward,
 )
+from ..utils import profiling
 from .sampler import row_keys, sample_next_token
 
 
@@ -186,59 +187,60 @@ def generate(
         if timings is not None:
             _sync(dev)
             t0 = time.perf_counter()
-        inputs_embeds = calculate_input_embedding(
-            params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
-        if visual_embeds is not None:
-            inputs_embeds = torch.where(visual_mask[..., None] > 0,
-                                        visual_embeds.to(inputs_embeds.dtype), inputs_embeds)
-        if prefill_position_ids is not None:
-            position_ids = prefill_position_ids
-        else:
-            pos = torch.cumsum(attention_mask, dim=-1) - 1
-            pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
-            position_ids = pos[None].expand(3, B2, T_text)
-        KV = kv_heads(params, tc)
-        cache = KVCache.create(tc.num_hidden_layers, B2, T_total, KV, tc.head_dim, device=dev,
-                               dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
-        if n_pre:
-            k0 = local_kv_start(tc)                     # this rank's heads on a model group
-            shape = (tc.num_hidden_layers, n_pre, B2, KV, tc.head_dim)
-            pk, pv = (t[:, :, None, k0:k0 + KV].expand(shape) for t in prefix_kv)
-            if cache.quantized:
-                (qk, sk), (qv, sv) = quantize_kv(pk), quantize_kv(pv)
-                cache.k[:, :n_pre], cache.v[:, :n_pre] = qk, qv
-                cache.k_scale[:, :n_pre], cache.v_scale[:, :n_pre] = sk, sv
+        with profiling.span("generate.prefill"):
+            inputs_embeds = calculate_input_embedding(
+                params, input_ids, codec_input_ids, cfg.codec_placeholder_value)
+            if visual_embeds is not None:
+                inputs_embeds = torch.where(visual_mask[..., None] > 0,
+                                            visual_embeds.to(inputs_embeds.dtype), inputs_embeds)
+            if prefill_position_ids is not None:
+                position_ids = prefill_position_ids
             else:
-                cache.k[:, :n_pre] = pk.to(cache.k.dtype)
-                cache.v[:, :n_pre] = pv.to(cache.v.dtype)
-            position_ids = position_ids + n_pre
-        kv_valid = torch.cat(
-            [torch.ones(B2, n_pre, dtype=torch.int32, device=dev), attention_mask,
-             torch.zeros(B2, T_total - n_pre - T_text, dtype=torch.int32, device=dev)], dim=-1)
-        # Without a prefix the prefill writes cache slots [0, T_text), so
-        # attending over the fresh window equals attending over the cache:
-        # flash is exact there.
-        prefill_flash = (T_text >= 128 and n_pre == 0 and input_ids.is_cuda
-                         and not tc.has_sliding_layers)
-        text_model_forward(
-            params, inputs_embeds, position_ids, tc,
-            kv_cache=cache, cache_position=n_pre, kv_valid_mask=kv_valid,
-            padding_token_mask=attention_mask,
-            use_flash=True if prefill_flash else None,
-            dispatch_mode=dispatch_mode, capacity=prefill_capacity,
-        )
-        state = LoopState(
-            dec_step=start_step,
-            buf=prefill_buf.clone(),
-            cache=cache,
-            eos_detected=torch.zeros(B, dtype=torch.bool, device=dev),
-            eos_countdown=torch.full((B,), -1, dtype=torch.int32, device=dev),
-            finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
-            guidance_loss=torch.zeros((), dtype=torch.float32, device=dev),
-            guidance_count=torch.zeros((), dtype=torch.int32, device=dev),
-            pos_base=decode_position_base(attention_mask.sum(dim=-1), T_text,
-                                          rope_deltas) + n_pre,
-        )
+                pos = torch.cumsum(attention_mask, dim=-1) - 1
+                pos = torch.where(attention_mask == 0, torch.ones_like(pos), pos)
+                position_ids = pos[None].expand(3, B2, T_text)
+            KV = kv_heads(params, tc)
+            cache = KVCache.create(tc.num_hidden_layers, B2, T_total, KV, tc.head_dim, device=dev,
+                                   dtype=torch.int8 if kv_dtype == "int8" else inputs_embeds.dtype)
+            if n_pre:
+                k0 = local_kv_start(tc)                     # this rank's heads on a model group
+                shape = (tc.num_hidden_layers, n_pre, B2, KV, tc.head_dim)
+                pk, pv = (t[:, :, None, k0:k0 + KV].expand(shape) for t in prefix_kv)
+                if cache.quantized:
+                    (qk, sk), (qv, sv) = quantize_kv(pk), quantize_kv(pv)
+                    cache.k[:, :n_pre], cache.v[:, :n_pre] = qk, qv
+                    cache.k_scale[:, :n_pre], cache.v_scale[:, :n_pre] = sk, sv
+                else:
+                    cache.k[:, :n_pre] = pk.to(cache.k.dtype)
+                    cache.v[:, :n_pre] = pv.to(cache.v.dtype)
+                position_ids = position_ids + n_pre
+            kv_valid = torch.cat(
+                [torch.ones(B2, n_pre, dtype=torch.int32, device=dev), attention_mask,
+                 torch.zeros(B2, T_total - n_pre - T_text, dtype=torch.int32, device=dev)], dim=-1)
+            # Without a prefix the prefill writes cache slots [0, T_text), so
+            # attending over the fresh window equals attending over the cache:
+            # flash is exact there.
+            prefill_flash = (T_text >= 128 and n_pre == 0 and input_ids.is_cuda
+                             and not tc.has_sliding_layers)
+            text_model_forward(
+                params, inputs_embeds, position_ids, tc,
+                kv_cache=cache, cache_position=n_pre, kv_valid_mask=kv_valid,
+                padding_token_mask=attention_mask,
+                use_flash=True if prefill_flash else None,
+                dispatch_mode=dispatch_mode, capacity=prefill_capacity,
+            )
+            state = LoopState(
+                dec_step=start_step,
+                buf=prefill_buf.clone(),
+                cache=cache,
+                eos_detected=torch.zeros(B, dtype=torch.bool, device=dev),
+                eos_countdown=torch.full((B,), -1, dtype=torch.int32, device=dev),
+                finished_step=torch.full((B,), -1, dtype=torch.int32, device=dev),
+                guidance_loss=torch.zeros((), dtype=torch.float32, device=dev),
+                guidance_count=torch.zeros((), dtype=torch.int32, device=dev),
+                pos_base=decode_position_base(attention_mask.sum(dim=-1), T_text,
+                                              rope_deltas) + n_pre,
+            )
         if timings is not None:
             _sync(dev)
             timings["prefill_s"] = timings.get("prefill_s", 0.0) + time.perf_counter() - t0
@@ -260,76 +262,82 @@ def generate(
     ch_weight = torch.where(torch.arange(C, device=dev) == 0, 3.0, 1.0)[None, :]   # [1, C]
 
     s = state
-    while s.dec_step < stop_step and not bool((s.eos_countdown == 0).all()):
-        dec_step = s.dec_step
-        current_step = dec_step + 1
-        rel = dec_step - start_step
-        cache_pos = n_pre + T_text + rel
+    done = s.dec_step >= stop_step or bool((s.eos_countdown == 0).all())
+    while not done:
+        with profiling.span("generate.decode_step"):
+            dec_step = s.dec_step
+            current_step = dec_step + 1
+            rel = dec_step - start_step
+            cache_pos = n_pre + T_text + rel
 
-        tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
-        emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
-        position_ids = (s.pos_base + rel)[None, :, None].expand(3, B2, 1)
-        decode_ok = key_idx <= cache_pos
-        if dstart_2B is not None:
-            decode_ok = decode_ok & (key_idx >= dstart_2B)
-        kv_valid = torch.where(key_idx < n_pre + T_text, text_valid, decode_ok.to(torch.int32))
-        out = text_model_forward(
-            params, emb, position_ids, tc,
-            kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
-            dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
-            decode_emit=decode_emit,
-        )
-        logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]  # [2B, C, Vc]
+            tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
+            emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
+            position_ids = (s.pos_base + rel)[None, :, None].expand(3, B2, 1)
+            decode_ok = key_idx <= cache_pos
+            if dstart_2B is not None:
+                decode_ok = decode_ok & (key_idx >= dstart_2B)
+            kv_valid = torch.where(key_idx < n_pre + T_text, text_valid, decode_ok.to(torch.int32))
+            out = text_model_forward(
+                params, emb, position_ids, tc,
+                kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
+                dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
+                decode_emit=decode_emit,
+            )
+            # [2B, C, Vc]
+            logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]
 
-        pair = logits.reshape(B, 2, C, Vc)                             # [neg, cond] rows
-        logits_B = guided_logits(cfg, pair[:, 0], pair[:, 1], dec_step >= min_tokens_t,
-                                 cfg_scale_t, eos_mul_t)
+            pair = logits.reshape(B, 2, C, Vc)                             # [neg, cond] rows
+            logits_B = guided_logits(cfg, pair[:, 0], pair[:, 1], dec_step >= min_tokens_t,
+                                     cfg_scale_t, eos_mul_t)
 
-        flat = logits_B.reshape(B * C, Vc)
-        if do_sample:
-            keys = None if seeds_t is None else row_keys(seeds_t, current_step - seed_off_t, C)
-            pred = sample_next_token(gen, flat, temperature=temp_rows, top_p=top_p_rows,
-                                     top_k=cfg_filter_top_k, audio_eos_value=eos, keys=keys)
-        else:
-            pred = flat.argmax(dim=-1)
-        pred = pred.reshape(B, C).to(torch.int32)
+            flat = logits_B.reshape(B * C, Vc)
+            if do_sample:
+                keys = None if seeds_t is None else row_keys(seeds_t, current_step - seed_off_t, C)
+                pred = sample_next_token(gen, flat, temperature=temp_rows, top_p=top_p_rows,
+                                         top_k=cfg_filter_top_k, audio_eos_value=eos, keys=keys)
+            else:
+                pred = flat.argmax(dim=-1)
+            pred = pred.reshape(B, C).to(torch.int32)
 
-        if guidance_labels is not None:
-            # Teacher-forced CE against the labels at current_step.
-            lab = guidance_labels[:, current_step].to(torch.int64)          # [B, C]
-            valid = (lab >= 0) & torch.where(ch[:, :, 0] == 0, lab <= eos, lab < eos)
-            logp = torch.log_softmax(logits_B, dim=-1)
-            nll = -logp.gather(-1, lab.clamp(0, Vc - 1)[..., None])[..., 0]
-            nll = torch.where(valid, nll * ch_weight, torch.zeros_like(nll))
-            s.guidance_loss = s.guidance_loss + nll.sum()
-            s.guidance_count = s.guidance_count + valid.sum(dtype=torch.int32)
-            if debug_guidance_step == -1 or dec_step < debug_guidance_step:
-                pred = torch.where(lab >= 0, lab.to(pred.dtype), pred)
+            if guidance_labels is not None:
+                # Teacher-forced CE against the labels at current_step.
+                lab = guidance_labels[:, current_step].to(torch.int64)          # [B, C]
+                valid = (lab >= 0) & torch.where(ch[:, :, 0] == 0, lab <= eos, lab < eos)
+                logp = torch.log_softmax(logits_B, dim=-1)
+                nll = -logp.gather(-1, lab.clamp(0, Vc - 1)[..., None])[..., 0]
+                nll = torch.where(valid, nll * ch_weight, torch.zeros_like(nll))
+                s.guidance_loss = s.guidance_loss + nll.sum()
+                s.guidance_count = s.guidance_count + valid.sum(dtype=torch.int32)
+                if debug_guidance_step == -1 or dec_step < debug_guidance_step:
+                    pred = torch.where(lab >= 0, lab.to(pred.dtype), pred)
 
-        # Delay-pattern EOS countdown.
-        active = s.eos_countdown != 0
-        is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
-        is_max_len = current_step >= mt_vec - max_delay
-        trigger = active & (is_eos_tok | is_max_len)
-        eos_detected = s.eos_detected | trigger
-        start_cd = trigger & (s.eos_countdown < 0)
-        eos_countdown = torch.where(start_cd, torch.full_like(s.eos_countdown, max_delay),
-                                    s.eos_countdown)
-        finished_step = torch.where(start_cd, torch.full_like(s.finished_step, current_step),
-                                    s.finished_step)
-        padding_phase = eos_countdown > 0
-        step_after = (max_delay - eos_countdown)[:, None]
-        eos_write = padding_phase[:, None] & (step_after == delay[None, :])
-        pad_write = padding_phase[:, None] & (step_after > delay[None, :])
-        pred = torch.where(eos_write, torch.full_like(pred, eos),
-                           torch.where(pad_write, torch.full_like(pred, pad), pred))
-        eos_countdown = torch.where(padding_phase, eos_countdown - 1, eos_countdown)
+            # Delay-pattern EOS countdown.
+            active = s.eos_countdown != 0
+            is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
+            is_max_len = current_step >= mt_vec - max_delay
+            trigger = active & (is_eos_tok | is_max_len)
+            eos_detected = s.eos_detected | trigger
+            start_cd = trigger & (s.eos_countdown < 0)
+            eos_countdown = torch.where(start_cd, torch.full_like(s.eos_countdown, max_delay),
+                                        s.eos_countdown)
+            finished_step = torch.where(start_cd, torch.full_like(s.finished_step, current_step),
+                                        s.finished_step)
+            padding_phase = eos_countdown > 0
+            step_after = (max_delay - eos_countdown)[:, None]
+            eos_write = padding_phase[:, None] & (step_after == delay[None, :])
+            pad_write = padding_phase[:, None] & (step_after > delay[None, :])
+            pred = torch.where(eos_write, torch.full_like(pred, eos),
+                               torch.where(pad_write, torch.full_like(pred, pad), pred))
+            eos_countdown = torch.where(padding_phase, eos_countdown - 1, eos_countdown)
 
-        # Mask-merge into the buffer: prompt / BOS slots (>= 0) win.
-        cur = s.buf[:, current_step]
-        s.buf[:, current_step] = torch.where(cur == -1, pred, cur)
-        s.dec_step = dec_step + 1
-        s.eos_detected, s.eos_countdown, s.finished_step = eos_detected, eos_countdown, finished_step
+            # Mask-merge into the buffer: prompt / BOS slots (>= 0) win.
+            cur = s.buf[:, current_step]
+            s.buf[:, current_step] = torch.where(cur == -1, pred, cur)
+            s.dec_step = dec_step + 1
+            s.eos_detected, s.eos_countdown = eos_detected, eos_countdown
+            s.finished_step = finished_step
+            with profiling.span("generate.stop_read"):
+                done = s.dec_step >= stop_step or bool((s.eos_countdown == 0).all())
 
     # Length accounting + repack.
     final_step = s.dec_step + 1

@@ -32,6 +32,7 @@ from ..moe.block import dcmoe_block, init_dcmoe_params
 from ..ops.quant import matmul
 from ..parallel.comm import all_reduce, copy_to, gather_dim, group_size, reduce_from, scatter_dim
 from ..parallel.mesh import batch_group, tp_group
+from ..utils import profiling
 from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
                      rms_norm)
 from .vision import init_vision_params, vision_forward
@@ -96,11 +97,12 @@ def layer_apply(lp: Dict, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
     residual = h
     hn = norm(h, lp["input_layernorm"])
-    attn_out, kv = attention(
-        lp["attn"], hn, cos, sin, cfg, cache_kv=cache_kv, cache_scales=cache_scales,
-        cache_position=cache_position, kv_valid_mask=kv_valid_mask, use_flash=use_flash,
-        decode_emit=decode_emit, prefix_kv=prefix_kv, ring=ring, is_sliding=is_sliding,
-        seq_parallel=sp)
+    with profiling.span("model.attention"):
+        attn_out, kv = attention(
+            lp["attn"], hn, cos, sin, cfg, cache_kv=cache_kv, cache_scales=cache_scales,
+            cache_position=cache_position, kv_valid_mask=kv_valid_mask, use_flash=use_flash,
+            decode_emit=decode_emit, prefix_kv=prefix_kv, ring=ring, is_sliding=is_sliding,
+            seq_parallel=sp)
     h = residual + attn_out
     residual = h
     hn = norm(h, lp["post_attention_layernorm"])

@@ -40,6 +40,7 @@ from ..config import TextMoEConfig
 from ..ops.quant import wshape
 from ..parallel.comm import all_gather_dim, copy_to, group_size, reduce_from, reduce_scatter
 from ..parallel.mesh import active, batch_group, tp_group
+from ..utils import profiling
 from . import dispatch as D
 from . import router as R
 
@@ -98,135 +99,138 @@ def dcmoe_block(params: Dict, hidden_states: torch.Tensor, cfg: TextMoEConfig, *
             raise ValueError("gmm dispatch has no a8 variant (the grouped kernels are bf16)")
     if dispatch_mode not in ("dense", "packed", "gmm", "ep"):
         raise ValueError(f"Unknown dispatch_mode: {dispatch_mode}")
-    B, T, dim = hidden_states.shape
-    S = B * T
-    E_dyn = cfg.num_dynamic_experts
-    E_real = cfg.mlp_dynamic_expert_num
-    E_total = cfg.num_experts
-    original = hidden_states
-    ctx = active()
-    tp = tp_group()
-    bgroup = batch_group()
-    n_b = group_size(bgroup)
-    i_b = ctx.mesh.index(("data", "expert")) if n_b > 1 else 0
+    with profiling.span("moe.block"):
+        B, T, dim = hidden_states.shape
+        S = B * T
+        E_dyn = cfg.num_dynamic_experts
+        E_real = cfg.mlp_dynamic_expert_num
+        E_total = cfg.num_experts
+        original = hidden_states
+        ctx = active()
+        tp = tp_group()
+        bgroup = batch_group()
+        n_b = group_size(bgroup)
+        i_b = ctx.mesh.index(("data", "expert")) if n_b > 1 else 0
 
-    x = hidden_states
-    if training and cfg.fp32_gate:
-        x = x.float()
-    if training and cfg.input_jitter_noise > 0:
-        if seed is None:
-            raise ValueError("training DCMoE requires a seed")
-        # Under a split batch: the whole batch's draw, this rank's rows.
-        noise = input_jitter((B * n_b, T, dim), seed, cfg.input_jitter_noise, x.dtype, x.device)
-        x = x * noise[i_b * B:(i_b + 1) * B]
-    x = x.reshape(S, dim)
+        x = hidden_states
+        if training and cfg.fp32_gate:
+            x = x.float()
+        if training and cfg.input_jitter_noise > 0:
+            if seed is None:
+                raise ValueError("training DCMoE requires a seed")
+            # Under a split batch: the whole batch's draw, this rank's rows.
+            noise = input_jitter((B * n_b, T, dim), seed, cfg.input_jitter_noise, x.dtype, x.device)
+            x = x * noise[i_b * B:(i_b + 1) * B]
+        x = x.reshape(S, dim)
 
-    gate_w = params["gate"]
-    if training and cfg.fp32_gate:
-        gate_w = gate_w.float()
-    # The router weight may be f32 under bf16 activations (as initialised);
-    # the product runs in the promoted type, as jnp's `@` does.
-    ct = torch.promote_types(x.dtype, gate_w.dtype)
-    full_router_logits = x.to(ct) @ gate_w.to(ct)                # [S, E_total]
-    dynamic_logits = full_router_logits[:, :E_dyn].float()
+        gate_w = params["gate"]
+        if training and cfg.fp32_gate:
+            gate_w = gate_w.float()
+        # The router weight may be f32 under bf16 activations (as initialised);
+        # the product runs in the promoted type, as jnp's `@` does.
+        ct = torch.promote_types(x.dtype, gate_w.dtype)
+        full_router_logits = x.to(ct) @ gate_w.to(ct)                # [S, E_total]
+        dynamic_logits = full_router_logits[:, :E_dyn].float()
 
-    if cfg.mlp_dynamic_top_p != 0:
-        dynamic_top_k = R.dynamic_expert_selection(dynamic_logits, cfg.mlp_dynamic_top_p)
-    else:
-        dynamic_top_k = torch.full((S,), cfg.mlp_dynamic_top_k, dtype=torch.int32,
-                                   device=x.device)
-    if training and not cfg.ignore_differentiable_router:
-        if seed is None and mixer_draws is None:
-            raise ValueError("the training mixer requires a seed")
-        from ..models.model import fold_seed
+        if cfg.mlp_dynamic_top_p != 0:
+            dynamic_top_k = R.dynamic_expert_selection(dynamic_logits, cfg.mlp_dynamic_top_p)
+        else:
+            dynamic_top_k = torch.full((S,), cfg.mlp_dynamic_top_k, dtype=torch.int32,
+                                       device=x.device)
+        if training and not cfg.ignore_differentiable_router:
+            if seed is None and mixer_draws is None:
+                raise ValueError("the training mixer requires a seed")
+            from ..models.model import fold_seed
 
-        if mixer_draws is None and n_b > 1:
-            g, c = R._mixer_draws(S * n_b, E_dyn, E_dyn, fold_seed(seed, 1), x.device)
-            mixer_draws = (g[:, i_b * S:(i_b + 1) * S], c[:, i_b * S:(i_b + 1) * S])
-        routing_weights, dyn_mask = R.sparse_expert_mixer(
-            dynamic_logits, dynamic_top_k, max_k=E_dyn, jitter_eps=cfg.router_jitter_noise,
-            training=True, seed=None if seed is None else fold_seed(seed, 1),
-            draws=mixer_draws)
-    else:
-        routing_weights, dyn_mask = R.sparse_expert_mixer_eval(
-            dynamic_logits, dynamic_top_k, jitter_eps=cfg.router_jitter_noise)
-    routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
+            if mixer_draws is None and n_b > 1:
+                g, c = R._mixer_draws(S * n_b, E_dyn, E_dyn, fold_seed(seed, 1), x.device)
+                mixer_draws = (g[:, i_b * S:(i_b + 1) * S], c[:, i_b * S:(i_b + 1) * S])
+            routing_weights, dyn_mask = R.sparse_expert_mixer(
+                dynamic_logits, dynamic_top_k, max_k=E_dyn, jitter_eps=cfg.router_jitter_noise,
+                training=True, seed=None if seed is None else fold_seed(seed, 1),
+                draws=mixer_draws)
+        else:
+            routing_weights, dyn_mask = R.sparse_expert_mixer_eval(
+                dynamic_logits, dynamic_top_k, jitter_eps=cfg.router_jitter_noise)
+        routing_weights = routing_weights / (routing_weights.sum(dim=-1, keepdim=True) + 1e-6)
 
-    expert_mask = torch.cat(
-        [dyn_mask, torch.zeros(S, E_total - E_dyn, dtype=torch.int32, device=x.device)], dim=-1)
-    if padding_token_mask is not None:
-        expert_mask = expert_mask * padding_token_mask.reshape(S, 1).to(torch.int32)
-    if E_dyn < E_total:
-        # Fixed experts are always on.  fill_ with a Python scalar: slice
-        # assignment would stage the 1 as a CPU tensor and read it back.
-        expert_mask[:, E_dyn:].fill_(1)
+        expert_mask = torch.cat(
+            [dyn_mask, torch.zeros(S, E_total - E_dyn, dtype=torch.int32, device=x.device)], dim=-1)
+        if padding_token_mask is not None:
+            expert_mask = expert_mask * padding_token_mask.reshape(S, 1).to(torch.int32)
+        if E_dyn < E_total:
+            # Fixed experts are always on.  fill_ with a Python scalar: slice
+            # assignment would stage the 1 as a CPU tensor and read it back.
+            expert_mask[:, E_dyn:].fill_(1)
 
-    aux_loss = R.load_balancing_loss(
-        expert_mask, full_router_logits, E_dyn,
-        None if aux_balance_weight is None else aux_balance_weight.reshape(S), group=bgroup)
+        aux_loss = R.load_balancing_loss(
+            expert_mask, full_router_logits, E_dyn,
+            None if aux_balance_weight is None else aux_balance_weight.reshape(S), group=bgroup)
 
-    if cfg.token_drop:
-        expert_mask, routing_weights = _token_drop(cfg, expert_mask, dynamic_logits,
-                                                   routing_weights, bgroup, n_b, i_b)
-    if E_dyn < E_total:
-        global_weight = R.global_routing_weight(
-            expert_mask, full_router_logits, E_dyn, routing_weights)
-    else:
-        global_weight = routing_weights
+        if cfg.token_drop:
+            expert_mask, routing_weights = _token_drop(cfg, expert_mask, dynamic_logits,
+                                                       routing_weights, bgroup, n_b, i_b)
+        if E_dyn < E_total:
+            global_weight = R.global_routing_weight(
+                expert_mask, full_router_logits, E_dyn, routing_weights)
+        else:
+            global_weight = routing_weights
 
-    # The experts' region: on a model group each rank's FFNs give partial
-    # sums, so their inputs (tokens and combine weights) take the group's
-    # gradient sum and the output is summed over it at the end.
-    x_orig = copy_to(original.reshape(S, dim), tp)
-    gw = copy_to(global_weight.to(x_orig.dtype), tp)
-    real_mask, real_w = expert_mask[:, :E_real], gw[:, :E_real]
-    E_local = wshape(params["dynamic"]["gate"])[0]
-    eg = ctx.mesh.group("expert") if ctx is not None else None
-    if dispatch_mode != "ep" and E_local < E_real:
-        # Every token on every rank of the expert group: the local experts'
-        # share of each token, summed over the group.
-        if n_b > 1:
-            raise ValueError("expert-split weights under a split batch need "
-                             "dispatch_mode='ep' (the ranks hold different tokens)")
-        e0 = ctx.mesh.coord["expert"] * E_local
-        real_mask, real_w = real_mask[:, e0:e0 + E_local], real_w[:, e0:e0 + E_local]
-    if dispatch_mode == "dense":
-        out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"], a8=a8)
-    elif dispatch_mode == "packed":
-        out = D.moe_ffn_packed(x_orig, real_mask, real_w, params["dynamic"],
-                               capacity if capacity is not None else S, a8=a8)
-    elif dispatch_mode == "ep":
-        out = D.moe_ffn_ep(x_orig, real_mask, real_w, params["dynamic"],
-                           capacity if capacity is not None else S, axis_name="expert", a8=a8)
-    else:
-        # The budget counts (token, expert) assignments in all, a different
-        # unit from the per-expert `capacity`.
-        out = D.moe_ffn_gmm(x_orig, real_mask, real_w, params["dynamic"],
-                            assignment_budget=assignment_budget)
-    if dispatch_mode != "ep" and E_local < E_real:
-        out = reduce_from(out, eg)
-    if not training and cfg.avg_hidden_states_last and dispatch_mode == "ep":
-        # Eval-time averaging over the expert group (`block.py:210-213`).
-        out = reduce_from(out, eg) / group_size(eg)
+        # The experts' region: on a model group each rank's FFNs give partial
+        # sums, so their inputs (tokens and combine weights) take the group's
+        # gradient sum and the output is summed over it at the end.
+        x_orig = copy_to(original.reshape(S, dim), tp)
+        gw = copy_to(global_weight.to(x_orig.dtype), tp)
+        real_mask, real_w = expert_mask[:, :E_real], gw[:, :E_real]
+        profiling.count("moe.routed_experts", real_mask)
+        profiling.count("moe.routed_tokens", S)
+        E_local = wshape(params["dynamic"]["gate"])[0]
+        eg = ctx.mesh.group("expert") if ctx is not None else None
+        if dispatch_mode != "ep" and E_local < E_real:
+            # Every token on every rank of the expert group: the local experts'
+            # share of each token, summed over the group.
+            if n_b > 1:
+                raise ValueError("expert-split weights under a split batch need "
+                                 "dispatch_mode='ep' (the ranks hold different tokens)")
+            e0 = ctx.mesh.coord["expert"] * E_local
+            real_mask, real_w = real_mask[:, e0:e0 + E_local], real_w[:, e0:e0 + E_local]
+        if dispatch_mode == "dense":
+            out = D.moe_ffn_dense(x_orig, real_mask, real_w, params["dynamic"], a8=a8)
+        elif dispatch_mode == "packed":
+            out = D.moe_ffn_packed(x_orig, real_mask, real_w, params["dynamic"],
+                                   capacity if capacity is not None else S, a8=a8)
+        elif dispatch_mode == "ep":
+            out = D.moe_ffn_ep(x_orig, real_mask, real_w, params["dynamic"],
+                               capacity if capacity is not None else S, axis_name="expert", a8=a8)
+        else:
+            # The budget counts (token, expert) assignments in all, a different
+            # unit from the per-expert `capacity`.
+            out = D.moe_ffn_gmm(x_orig, real_mask, real_w, params["dynamic"],
+                                assignment_budget=assignment_budget)
+        if dispatch_mode != "ep" and E_local < E_real:
+            out = reduce_from(out, eg)
+        if not training and cfg.avg_hidden_states_last and dispatch_mode == "ep":
+            # Eval-time averaging over the expert group (`block.py:210-213`).
+            out = reduce_from(out, eg) / group_size(eg)
 
-    if cfg.mlp_fixed_expert_num > 0:
-        x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)
-        y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"], a8=a8)   # [nF, S, D]
-        w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
-        out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
-    if seq_parallel:
-        out = reduce_scatter(out.reshape(B, T, dim), tp, 1)
-    else:
-        out = reduce_from(out, tp).reshape(B, T, dim)
+        if cfg.mlp_fixed_expert_num > 0:
+            x_fixed = x_orig[None].expand(cfg.mlp_fixed_expert_num, *x_orig.shape)
+            y_fixed = D.swiglu_expert_ffn(x_fixed, params["fixed"], a8=a8)   # [nF, S, D]
+            w_fixed = gw[:, E_dyn:].t()[:, :, None]                    # [nF, S, 1]
+            out = out + (y_fixed * w_fixed.to(y_fixed.dtype)).sum(dim=0)
+        if seq_parallel:
+            out = reduce_scatter(out.reshape(B, T, dim), tp, 1)
+        else:
+            out = reduce_from(out, tp).reshape(B, T, dim)
 
-    return MoEOutput(
-        hidden_states=out.to(hidden_states.dtype),
-        router_logits=full_router_logits,
-        router_top_k=dynamic_top_k,
-        expert_mask=expert_mask,
-        router_weight=global_weight,
-        aux_loss=aux_loss,
-    )
+        return MoEOutput(
+            hidden_states=out.to(hidden_states.dtype),
+            router_logits=full_router_logits,
+            router_top_k=dynamic_top_k,
+            expert_mask=expert_mask,
+            router_weight=global_weight,
+            aux_loss=aux_loss,
+        )
 
 
 def _token_drop(cfg: TextMoEConfig, expert_mask, dynamic_logits, routing_weights, bgroup,

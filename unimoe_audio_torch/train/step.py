@@ -46,6 +46,7 @@ from ..models.model import (calculate_input_embedding, fold_seed, model_forward,
 from ..models.vision import vision_tower_apply
 from ..parallel.comm import all_reduce, group_size
 from ..parallel.mesh import batch_group
+from ..utils import profiling
 from .peft import prefix_kv, prepend_virtual_tokens, virtual_embeds
 
 
@@ -347,21 +348,24 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, *,
     updated slices are all-gathered.  ring and seq_axis go to `loss_fn`
     (`step.py:221-230`)."""
     aux_w = aux_weight_at_step(cfg, state.step)
-    loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
-                            dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
-                            use_flash=use_flash, ring=ring, seq_axis=seq_axis)
-    leaves = [t for _, t in named_leaves(state.params)]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    if plan is not None:
-        grads = plan.sync(grads, leaves)
-    grad_norm = (plan.norm if plan is not None else global_norm)(grads)
-    finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(grad_norm))
-    if finite:
-        optimizer.update(state.params if plan is None else plan.views(state.params),
-                         list(grads), state.opt_state, grad_norm)
+    with profiling.span("train.forward", device=True):
+        loss, metrics = loss_fn(state.params, cfg, batch, fold_seed(seed, state.step), aux_w,
+                                dispatch_mode=dispatch_mode, capacity=capacity, remat=remat,
+                                use_flash=use_flash, ring=ring, seq_axis=seq_axis)
+    with profiling.span("train.backward", device=True):
+        leaves = [t for _, t in named_leaves(state.params)]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         if plan is not None:
-            plan.gather(state.params)
-        state.step += 1
+            grads = plan.sync(grads, leaves)
+    with profiling.span("train.optimizer", device=True):
+        grad_norm = (plan.norm if plan is not None else global_norm)(grads)
+        finite = bool(torch.isfinite(loss.detach()) & torch.isfinite(grad_norm))
+        if finite:
+            optimizer.update(state.params if plan is None else plan.views(state.params),
+                             list(grads), state.opt_state, grad_norm)
+            if plan is not None:
+                plan.gather(state.params)
+            state.step += 1
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = grad_norm
     metrics["skipped"] = torch.tensor(0.0 if finite else 1.0)

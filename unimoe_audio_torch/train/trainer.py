@@ -30,6 +30,7 @@ from ..parallel import comm
 from ..parallel.mesh import (AXES, Mesh, active, add_fsdp_axis, batch_spec, fsdp_dim,
                              full_specs, gather_params, leaf_specs, shard_params,
                              storage_splits, use_mesh)
+from ..utils import profiling
 from .step import aux_weight_at_step, init_train_state, loss_fn, make_optimizer, named_leaves, \
     place_batch, train_step
 
@@ -244,6 +245,20 @@ class MeshPlan:
             d = fsdp_dim(ls.spec)
             if d is not None:
                 t.copy_(comm.all_gather_dim(self._slice(t, ls), self.mesh.group("data"), d))
+
+
+_END = object()
+
+
+def _fetched(batches: Iterable):
+    """The caller's batches, each pull inside a `train.fetch` span."""
+    it = iter(batches)
+    while True:
+        with profiling.span("train.fetch"):
+            batch = next(it, _END)
+        if batch is _END:
+            return
+        yield batch
 
 
 class Trainer:
@@ -484,25 +499,28 @@ class Trainer:
         history = []
         t0 = time.time()
         i = 0
-        for i, batch in enumerate(batches):
+        for i, batch in enumerate(_fetched(batches)):
             step_no = start + i
             if max_steps is not None and step_no >= max_steps:
                 break
-            batch, on_mesh = self._step_inputs(batch)
-            with on_mesh:
-                self.state, metrics = train_step(
-                    self.state, batch, self.tcfg.seed, cfg=self.cfg,
-                    optimizer=self.optimizer, dispatch_mode=self.dispatch_mode,
-                    capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat, ring=self.ring,
-                    plan=self.plan)
-            if step_no % self.tcfg.log_every == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                if metrics["skipped"]:
-                    print(f"[warning] non-finite loss/grad at step {step_no} "
-                          f"(loss={metrics['loss']}) — update skipped")
-                metrics["steps_per_sec"] = (i + 1) / (time.time() - t0)
-                self.logger.log(step_no, metrics)
-                history.append({"step": step_no, **metrics})
+            with profiling.span("train.step"):
+                with profiling.span("train.place"):
+                    batch, on_mesh = self._step_inputs(batch)
+                with on_mesh:
+                    self.state, metrics = train_step(
+                        self.state, batch, self.tcfg.seed, cfg=self.cfg,
+                        optimizer=self.optimizer, dispatch_mode=self.dispatch_mode,
+                        capacity=self.tcfg.dispatch_capacity, remat=self.tcfg.remat,
+                        ring=self.ring, plan=self.plan)
+                if step_no % self.tcfg.log_every == 0:
+                    with profiling.span("train.log"):
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        if metrics["skipped"]:
+                            print(f"[warning] non-finite loss/grad at step {step_no} "
+                                  f"(loss={metrics['loss']}) — update skipped")
+                        metrics["steps_per_sec"] = (i + 1) / (time.time() - t0)
+                        self.logger.log(step_no, metrics)
+                        history.append({"step": step_no, **metrics})
             if (self.tcfg.eval_every and eval_batches is not None
                     and step_no > 0 and step_no % self.tcfg.eval_every == 0):
                 em = self.evaluate(eval_batches)
