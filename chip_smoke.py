@@ -3407,10 +3407,14 @@ def router_tape(tape: list, replay: list | None = None):
     `tape`.  With `replay` (another run's tape, same call order), each call
     takes the replayed counts and decides its mixer (experts, near-sets,
     weights) from the replayed logits, so that both runs route every token
-    alike; its own logits are still taped."""
+    alike; its own logits are still taped.  The tap reads every call on the
+    host, so the decode steps run eagerly while it taps (a CUDA graph's
+    capture refuses the read and its replays run no Python)."""
+    from unimoe_audio_torch.generate import decode_graph
     from unimoe_audio_torch.moe import router as R
 
     select, mixer = R.dynamic_expert_selection, R.sparse_expert_mixer_eval
+    eligible = decode_graph.eligible
 
     def replaying():
         # Past the replayed run's last call (a run that goes on longer) each
@@ -3428,10 +3432,12 @@ def router_tape(tape: list, replay: list | None = None):
         return mixer(scores, top_k, jitter_eps=jitter_eps)
 
     R.dynamic_expert_selection, R.sparse_expert_mixer_eval = tapped_select, tapped_mixer
+    decode_graph.eligible = lambda *a, **k: False
     try:
         yield tape
     finally:
         R.dynamic_expert_selection, R.sparse_expert_mixer_eval = select, mixer
+        decode_graph.eligible = eligible
 
 
 def route_flips(tape_a: list, tape_b: list, tc) -> list:

@@ -5,9 +5,13 @@
 Prefill, then a Python decode loop over a preallocated KV cache, with CFG
 pairs batched as interleaved rows [neg, cond] × B and the delay-pattern EOS
 countdown as loop state.  The loop's stop test reads the countdown on the
-host, one device sync per step.  With guidance labels each step also adds
-the teacher-forced cross-entropy of its logits (the reference's "golden
-loss"), and `debug_guidance_step` can force the labels in as predictions.
+host, one device sync per step.  The decode step is one function of the
+state and of the call's device inputs (the step counter among them, a 0-d
+tensor); on the card it is captured once as a CUDA graph and replayed
+where `decode_graph.eligible` holds, and runs eagerly elsewhere.  With
+guidance labels each step also adds the teacher-forced cross-entropy of
+its logits (the reference's "golden loss"), and `debug_guidance_step` can
+force the labels in as predictions.
 """
 
 from __future__ import annotations
@@ -30,7 +34,13 @@ from ..models.model import (
     text_model_forward,
 )
 from ..utils import profiling
+from . import decode_graph
 from .sampler import row_keys, sample_next_token
+
+# A decode graph is captured only where the call has at least this many
+# steps left (the capture's own and one replay): a capture costs about one
+# eager step of host time, and each replay saves nearly one.
+_MIN_GRAPH_STEPS = 2
 
 
 class GenerateResult(NamedTuple):
@@ -52,6 +62,7 @@ class LoopState:
     guidance_loss: torch.Tensor  # f32 sum of the weighted NLL so far
     guidance_count: torch.Tensor  # int32 valid labels so far
     pos_base: torch.Tensor       # [2B] mRoPE position of decode step 0
+    graph: Optional["decode_graph.DecodeGraph"] = None   # the decode step's CUDA graph
 
 
 def _sync(device: torch.device) -> None:
@@ -260,82 +271,134 @@ def generate(
     text_valid = F.pad(attention_mask, (n_pre, T_total - n_pre - T_text), value=1)
     ch = torch.arange(C, device=dev)[None, :, None]
     ch_weight = torch.where(torch.arange(C, device=dev) == 0, 3.0, 1.0)[None, :]   # [1, C]
+    full_top_k = bool((top_p_rows >= 1.0).all())          # the sampler's branch, on the host
 
     s = state
+    # The step's per-call inputs, all on the device: the step counter and
+    # the call's origin as 0-d tensors, so that no step-varying host value
+    # enters a kernel (a CUDA graph of the step replays them).
+    x = dict(dec=torch.full((), s.dec_step, dtype=torch.int64, device=dev),
+             start=torch.full((), start_step, dtype=torch.int64, device=dev),
+             key_idx=key_idx, text_valid=text_valid, pos_base=s.pos_base, delay=delay,
+             min_tokens=min_tokens_t, cfg_scale=cfg_scale_t, eos_mul=eos_mul_t,
+             max_tokens=mt_vec, seed_off=seed_off_t,
+             temperature=torch.as_tensor(temp_rows, device=dev),
+             top_p=torch.as_tensor(top_p_rows, device=dev))
+    if dstart_2B is not None:
+        x["decode_start"] = dstart_2B
+    if seeds_t is not None:
+        x["seeds"] = seeds_t
+
+    def decode_step(x):
+        """One decode step at step x["dec"]: writes the buffer, the KV cache
+        and the control tensors of `s` in place and advances x["dec"]."""
+        dec = x["dec"]
+        current_step = dec + 1
+        rel = dec - x["start"]
+        cache_pos = rel + (n_pre + T_text)
+
+        tokens = s.buf.index_select(1, dec.view(1))                     # [B, 1, C]
+        emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
+        position_ids = (x["pos_base"] + rel)[None, :, None].expand(3, B2, 1)
+        decode_ok = x["key_idx"] <= cache_pos
+        if "decode_start" in x:
+            decode_ok = decode_ok & (x["key_idx"] >= x["decode_start"])
+        kv_valid = torch.where(x["key_idx"] < n_pre + T_text, x["text_valid"],
+                               decode_ok.to(torch.int32))
+        out = text_model_forward(
+            params, emb, position_ids, tc,
+            kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
+            dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
+            decode_emit=decode_emit,
+        )
+        # [2B, C, Vc]
+        logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]
+
+        pair = logits.reshape(B, 2, C, Vc)                             # [neg, cond] rows
+        logits_B = guided_logits(cfg, pair[:, 0], pair[:, 1], dec >= x["min_tokens"],
+                                 x["cfg_scale"], x["eos_mul"])
+
+        flat = logits_B.reshape(B * C, Vc)
+        if do_sample:
+            keys = (row_keys(x["seeds"], current_step - x["seed_off"], C) if "seeds" in x
+                    else None)
+            pred = sample_next_token(gen, flat, temperature=x["temperature"], top_p=x["top_p"],
+                                     top_k=cfg_filter_top_k, audio_eos_value=eos, keys=keys,
+                                     full_top_k=full_top_k)
+        else:
+            pred = flat.argmax(dim=-1)
+        pred = pred.reshape(B, C).to(torch.int32)
+
+        if guidance_labels is not None:
+            # Teacher-forced CE against the labels at current_step (eager
+            # only: the labels' steps are read on the host).
+            lab = guidance_labels.index_select(1, current_step.view(1))[:, 0].to(torch.int64)
+            valid = (lab >= 0) & torch.where(ch[:, :, 0] == 0, lab <= eos, lab < eos)
+            logp = torch.log_softmax(logits_B, dim=-1)
+            nll = -logp.gather(-1, lab.clamp(0, Vc - 1)[..., None])[..., 0]
+            nll = torch.where(valid, nll * ch_weight, torch.zeros_like(nll))
+            s.guidance_loss = s.guidance_loss + nll.sum()
+            s.guidance_count = s.guidance_count + valid.sum(dtype=torch.int32)
+            if debug_guidance_step == -1 or s.dec_step < debug_guidance_step:
+                pred = torch.where(lab >= 0, lab.to(pred.dtype), pred)
+
+        # Delay-pattern EOS countdown.
+        active = s.eos_countdown != 0
+        is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
+        is_max_len = current_step >= x["max_tokens"] - max_delay
+        trigger = active & (is_eos_tok | is_max_len)
+        eos_detected = s.eos_detected | trigger
+        start_cd = trigger & (s.eos_countdown < 0)
+        eos_countdown = torch.where(start_cd, torch.full_like(s.eos_countdown, max_delay),
+                                    s.eos_countdown)
+        finished_step = torch.where(start_cd, current_step.to(torch.int32), s.finished_step)
+        padding_phase = eos_countdown > 0
+        step_after = (max_delay - eos_countdown)[:, None]
+        eos_write = padding_phase[:, None] & (step_after == x["delay"][None, :])
+        pad_write = padding_phase[:, None] & (step_after > x["delay"][None, :])
+        pred = torch.where(eos_write, torch.full_like(pred, eos),
+                           torch.where(pad_write, torch.full_like(pred, pad), pred))
+        eos_countdown = torch.where(padding_phase, eos_countdown - 1, eos_countdown)
+
+        # Mask-merge into the buffer: prompt / BOS slots (>= 0) win.
+        at = current_step.view(1)
+        cur = s.buf.index_select(1, at)
+        s.buf.index_copy_(1, at, torch.where(cur == -1, pred[:, None], cur))
+        s.eos_detected.copy_(eos_detected)
+        s.eos_countdown.copy_(eos_countdown)
+        s.finished_step.copy_(finished_step)
+        dec.add_(1)
+
+    # A CUDA graph of the step where the conditions for one hold (see
+    # `decode_graph.eligible`): the state's graph while its signature
+    # holds, else a new one, captured after one eager step of this call
+    # and only where the call has steps left to replay it.
     done = s.dec_step >= stop_step or bool((s.eos_countdown == 0).all())
+    graph = key = None
+    if not done and decode_graph.eligible(dev, decode_emit=decode_emit,
+                                          guidance=guidance_labels is not None,
+                                          do_sample=do_sample, keyed=seeds_t is not None):
+        key = decode_graph.signature(params, s, x, (
+            id(cfg), B, T_text, n_pre, T_total, do_sample, full_top_k, cfg_filter_top_k,
+            decode_dispatch_mode or dispatch_mode, decode_capacity))
+        if s.graph is not None and s.graph.key == key:
+            graph = s.graph
+            graph.load(x, s)
+        else:
+            s.graph = None                    # stale: release its memory first
+    warm = False
     while not done:
         with profiling.span("generate.decode_step"):
-            dec_step = s.dec_step
-            current_step = dec_step + 1
-            rel = dec_step - start_step
-            cache_pos = n_pre + T_text + rel
-
-            tokens = s.buf[:, dec_step:dec_step + 1]                       # [B, 1, C]
-            emb = codec_embedding(params, tokens.repeat_interleave(2, dim=0))   # [2B, 1, D]
-            position_ids = (s.pos_base + rel)[None, :, None].expand(3, B2, 1)
-            decode_ok = key_idx <= cache_pos
-            if dstart_2B is not None:
-                decode_ok = decode_ok & (key_idx >= dstart_2B)
-            kv_valid = torch.where(key_idx < n_pre + T_text, text_valid, decode_ok.to(torch.int32))
-            out = text_model_forward(
-                params, emb, position_ids, tc,
-                kv_cache=s.cache, cache_position=cache_pos, kv_valid_mask=kv_valid,
-                dispatch_mode=decode_dispatch_mode or dispatch_mode, capacity=decode_capacity,
-                decode_emit=decode_emit,
-            )
-            # [2B, C, Vc]
-            logits = codec_logits_from_hidden(params, out.last_hidden_state, cfg)[:, 0]
-
-            pair = logits.reshape(B, 2, C, Vc)                             # [neg, cond] rows
-            logits_B = guided_logits(cfg, pair[:, 0], pair[:, 1], dec_step >= min_tokens_t,
-                                     cfg_scale_t, eos_mul_t)
-
-            flat = logits_B.reshape(B * C, Vc)
-            if do_sample:
-                keys = None if seeds_t is None else row_keys(seeds_t, current_step - seed_off_t, C)
-                pred = sample_next_token(gen, flat, temperature=temp_rows, top_p=top_p_rows,
-                                         top_k=cfg_filter_top_k, audio_eos_value=eos, keys=keys)
+            if (graph is None and key is not None and warm and not profiling.recording()
+                    and stop_step - s.dec_step >= _MIN_GRAPH_STEPS):
+                graph = s.graph = decode_graph.DecodeGraph(key, x, s)
+                graph.capture(decode_step)
+            if graph is not None:
+                graph.replay()
             else:
-                pred = flat.argmax(dim=-1)
-            pred = pred.reshape(B, C).to(torch.int32)
-
-            if guidance_labels is not None:
-                # Teacher-forced CE against the labels at current_step.
-                lab = guidance_labels[:, current_step].to(torch.int64)          # [B, C]
-                valid = (lab >= 0) & torch.where(ch[:, :, 0] == 0, lab <= eos, lab < eos)
-                logp = torch.log_softmax(logits_B, dim=-1)
-                nll = -logp.gather(-1, lab.clamp(0, Vc - 1)[..., None])[..., 0]
-                nll = torch.where(valid, nll * ch_weight, torch.zeros_like(nll))
-                s.guidance_loss = s.guidance_loss + nll.sum()
-                s.guidance_count = s.guidance_count + valid.sum(dtype=torch.int32)
-                if debug_guidance_step == -1 or dec_step < debug_guidance_step:
-                    pred = torch.where(lab >= 0, lab.to(pred.dtype), pred)
-
-            # Delay-pattern EOS countdown.
-            active = s.eos_countdown != 0
-            is_eos_tok = ~s.eos_detected & (pred[:, 0] == eos)
-            is_max_len = current_step >= mt_vec - max_delay
-            trigger = active & (is_eos_tok | is_max_len)
-            eos_detected = s.eos_detected | trigger
-            start_cd = trigger & (s.eos_countdown < 0)
-            eos_countdown = torch.where(start_cd, torch.full_like(s.eos_countdown, max_delay),
-                                        s.eos_countdown)
-            finished_step = torch.where(start_cd, torch.full_like(s.finished_step, current_step),
-                                        s.finished_step)
-            padding_phase = eos_countdown > 0
-            step_after = (max_delay - eos_countdown)[:, None]
-            eos_write = padding_phase[:, None] & (step_after == delay[None, :])
-            pad_write = padding_phase[:, None] & (step_after > delay[None, :])
-            pred = torch.where(eos_write, torch.full_like(pred, eos),
-                               torch.where(pad_write, torch.full_like(pred, pad), pred))
-            eos_countdown = torch.where(padding_phase, eos_countdown - 1, eos_countdown)
-
-            # Mask-merge into the buffer: prompt / BOS slots (>= 0) win.
-            cur = s.buf[:, current_step]
-            s.buf[:, current_step] = torch.where(cur == -1, pred, cur)
-            s.dec_step = dec_step + 1
-            s.eos_detected, s.eos_countdown = eos_detected, eos_countdown
-            s.finished_step = finished_step
+                decode_step(x)
+                warm = True
+            s.dec_step += 1
             with profiling.span("generate.stop_read"):
                 done = s.dec_step >= stop_step or bool((s.eos_countdown == 0).all())
 

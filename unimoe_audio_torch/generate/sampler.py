@@ -86,7 +86,10 @@ def _draw(gen: Optional[torch.Generator], logits: torch.Tensor, keys=None,
 
 
 def _per_row(x, n: int, device) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(x, np.float32).reshape(-1), device=device)
+    if isinstance(x, torch.Tensor):
+        t = x.reshape(-1)
+    else:
+        t = torch.as_tensor(np.asarray(x, np.float32).reshape(-1), device=device)
     return t.expand(n)[:, None] if t.numel() == 1 else t[:, None]
 
 
@@ -99,15 +102,19 @@ def sample_next_token(
     top_k: Optional[int],
     audio_eos_value: Optional[int],
     keys: Optional[torch.Tensor] = None,
+    full_top_k: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Sample one token per row.  temperature / top_p are host scalars or
-    per-row [N] arrays; keeping them on the host lets the top_p >= 1 branch
-    be chosen without a device sync.  keys [N] (`row_keys`): counter-based
-    draws per row in place of `gen`'s stream; the nucleus path keys each
-    candidate by its vocabulary id."""
+    """Sample one token per row.  temperature / top_p are host scalars,
+    per-row [N] arrays or f32 device tensors [N].  full_top_k: whether
+    every row's top_p >= 1, so that the nucleus keeps the whole top-k set;
+    a host decision, so that the branch is chosen without a device sync.
+    None reads it from top_p, which must then be host values.  keys [N]
+    (`row_keys`): counter-based draws per row in place of `gen`'s stream;
+    the nucleus path keys each candidate by its vocabulary id."""
     N, V = logits_NxV.shape
     dev = logits_NxV.device
-    top_p_host = np.asarray(top_p, np.float32)
+    if full_top_k is None:
+        full_top_k = bool((np.asarray(top_p, np.float32) >= 1.0).all())
     temp = _per_row(temperature, N, dev)
     tp = _per_row(top_p, N, dev)
     logits = logits_NxV.float() / torch.clamp(temp, min=1e-8)
@@ -120,7 +127,7 @@ def sample_next_token(
         logits = torch.where(eos_not_top[:, None] & eos_col[None, :], neg, logits)
 
     if top_k is not None and top_k < V:
-        if bool((top_p_host >= 1.0).all()):
+        if full_top_k:
             # The nucleus keeps the whole top-k set: find it sort-free.
             lo = topk_threshold_bisect(logits, top_k)
             return _draw(gen, torch.where(logits >= lo, logits, neg), keys)

@@ -117,21 +117,33 @@ def quantize_kv(x: torch.Tensor):
     return q, s
 
 
-def update_cache_slice(cache_k, cache_v, k_new, v_new, start: int, cache_ks=None, cache_vs=None):
+def write_slots(dst: torch.Tensor, start, src: torch.Tensor) -> None:
+    """dst[start:start + n] = src along dim 0, in place, cast to dst's
+    dtype.  start is a host int or a 0-d device tensor; the tensor form
+    writes through `index_copy_`, so the position is never read to the host
+    (a CUDA graph of the decode step replays it at a moving position)."""
+    if isinstance(start, torch.Tensor):
+        n = src.shape[0]
+        idx = start.reshape(1) if n == 1 else start + torch.arange(n, device=dst.device)
+        dst.index_copy_(0, idx, src.to(dst.dtype))
+    else:
+        dst[start:start + src.shape[0]] = src.to(dst.dtype)
+
+
+def update_cache_slice(cache_k, cache_v, k_new, v_new, start, cache_ks=None, cache_vs=None):
     """Write [B, T_new, KV, Dh] into per-layer [T_max, B, KV, Dh] slices at
-    time offset `start`, in place; with an int8 cache (cache_ks / cache_vs
-    [T_max, B, KV]) k and v quantize on write and their scales land beside
-    them."""
-    T_new = k_new.shape[1]
+    time offset `start` (a host int or a 0-d device tensor), in place; with
+    an int8 cache (cache_ks / cache_vs [T_max, B, KV]) k and v quantize on
+    write and their scales land beside them."""
     if cache_ks is not None:
         (qk, sk), (qv, sv) = quantize_kv(k_new), quantize_kv(v_new)
-        cache_k[start:start + T_new] = qk.transpose(0, 1)
-        cache_v[start:start + T_new] = qv.transpose(0, 1)
-        cache_ks[start:start + T_new] = sk.transpose(0, 1)
-        cache_vs[start:start + T_new] = sv.transpose(0, 1)
+        write_slots(cache_k, start, qk.transpose(0, 1))
+        write_slots(cache_v, start, qv.transpose(0, 1))
+        write_slots(cache_ks, start, sk.transpose(0, 1))
+        write_slots(cache_vs, start, sv.transpose(0, 1))
         return cache_k, cache_v
-    cache_k[start:start + T_new] = k_new.transpose(0, 1).to(cache_k.dtype)
-    cache_v[start:start + T_new] = v_new.transpose(0, 1).to(cache_v.dtype)
+    write_slots(cache_k, start, k_new.transpose(0, 1))
+    write_slots(cache_v, start, v_new.transpose(0, 1))
     return cache_k, cache_v
 
 
@@ -143,7 +155,7 @@ def attention(
     cfg: TextMoEConfig,
     *,
     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # per-layer [T_max, B, KV, Dh]
-    cache_position: Optional[int] = None,
+    cache_position=None,             # host int or 0-d device tensor
     kv_valid_mask: Optional[torch.Tensor] = None,                  # [B, T_kv] 1 = attendable
     causal: bool = True,
     use_flash: Optional[bool] = None,
@@ -320,7 +332,8 @@ def attention(
     if cache_kv is None:
         q_pos = torch.arange(T, device=x.device)[:, None] + (T_kv - T)
     else:
-        q_pos = (cache_position or 0) + torch.arange(T, device=x.device)[:, None]
+        q_pos = (0 if cache_position is None else cache_position) + \
+            torch.arange(T, device=x.device)[:, None]
     if causal and (cache_kv is None or T > 1):
         scores = torch.where(key_pos <= q_pos, scores, neg)
     if window:

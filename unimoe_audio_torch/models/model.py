@@ -34,7 +34,7 @@ from ..parallel.comm import all_reduce, copy_to, gather_dim, group_size, reduce_
 from ..parallel.mesh import batch_group, tp_group
 from ..utils import profiling
 from .layers import (KVCache, attention, compute_mrope, init_attention_params, quantize_kv,
-                     rms_norm)
+                     rms_norm, write_slots)
 from .vision import init_vision_params, vision_forward
 
 
@@ -78,7 +78,7 @@ def layer_apply(lp: Dict, h: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 seed: Optional[int] = None, use_flash: Optional[bool] = None,
                 dispatch_mode: str = "dense", capacity: Optional[int] = None,
                 is_sliding: bool = False, prefix_kv=None, cache_kv=None, cache_scales=None,
-                cache_position: Optional[int] = None,
+                cache_position=None,
                 decode_emit: bool = False, ring=None, seq_group=None) -> LayerOutput:
     """One decoder layer: pre-norm attention and pre-norm DCMoE, each with
     its residual (`model.py:171-213`).  `seed` is this layer's jitter seed.
@@ -121,7 +121,7 @@ def text_model_forward(
     cfg: TextMoEConfig,
     *,
     kv_cache: Optional[KVCache] = None,
-    cache_position: Optional[int] = None,
+    cache_position=None,                  # host int or 0-d device tensor
     kv_valid_mask: Optional[torch.Tensor] = None,
     padding_token_mask: Optional[torch.Tensor] = None,
     aux_balance_weight: Optional[torch.Tensor] = None,
@@ -226,14 +226,15 @@ def text_model_forward(
             cache_position=cache_position, decode_emit=decode_emit, ring=ring,
             seq_group=seq_group)
         if decode_emit:
-            # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot).
-            k_new, v_new = out.kv[0][:, 0], out.kv[1][:, 0]
+            # In-place commit of this step's k/v (one [B, 1, KV, Dh] slot),
+            # at a host int or a 0-d device position.
+            k_new, v_new = out.kv[0].transpose(0, 1), out.kv[1].transpose(0, 1)
             if quantized:
                 (k_new, k_s), (v_new, v_s) = quantize_kv(k_new), quantize_kv(v_new)
-                kv_cache.k_scale[i, cache_position] = k_s
-                kv_cache.v_scale[i, cache_position] = v_s
-            kv_cache.k[i, cache_position] = k_new.to(kv_cache.k.dtype)
-            kv_cache.v[i, cache_position] = v_new.to(kv_cache.v.dtype)
+                write_slots(kv_cache.k_scale[i], cache_position, k_s)
+                write_slots(kv_cache.v_scale[i], cache_position, v_s)
+            write_slots(kv_cache.k[i], cache_position, k_new)
+            write_slots(kv_cache.v[i], cache_position, v_new)
         moe_in = out.moe_input.float() if output_moe_inputs else None
         return out.hidden, out.aux_loss, out.router_top_k, moe_in
 

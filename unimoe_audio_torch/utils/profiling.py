@@ -40,7 +40,12 @@ The port records `slot.*` spans in `apps/continuous.SlotServer`,
 `moe.block` with the counters `moe.routed_experts` and `moe.routed_tokens`
 in the DCMoE block, `codec.dac_decode` where the API writes a stream, and
 `train.*` in the trainer; the benchmark's per-layer metrics read them
-(`portbench/harness/program.py`).
+(`portbench/harness/program.py`).  A decode step replayed from a CUDA
+graph (`generate/decode_graph.py`) runs no Python inside it, so it has no
+`model.attention` or `moe.block` spans; its graph hands the step's counts
+to `count` after each replay and counts `decode.graph_replays` (and
+`decode.graph_captures` where it captures), and no capture runs while a
+profiler records.
 """
 
 from __future__ import annotations
@@ -132,6 +137,7 @@ class _NoSpan:
 _NO_SPAN = _NoSpan()
 _spans: List["_Span"] = []
 _counts: Dict[str, List[tuple]] = {}
+_sink: Optional[Dict[str, object]] = None      # `counts_into`'s, while it runs
 _local = threading.local()
 
 
@@ -174,6 +180,11 @@ class _Span:
         return False
 
 
+def recording() -> bool:
+    """Whether a profiler records in this thread (spans and counters on)."""
+    return _recording()
+
+
 def span(name: str, rid=None, device: bool = False):
     """A context that records one span while a profiler records (see the
     module's docstring); otherwise the shared no-op."""
@@ -184,12 +195,34 @@ def span(name: str, rid=None, device: bool = False):
 
 def count(name: str, x) -> None:
     """Add x (a host int, or a tensor whose sum is taken on its device)
-    to the counter `name` while a profiler records."""
+    to the counter `name` while a profiler records; inside `counts_into`,
+    to its sink instead, recording or not."""
+    if _sink is not None:
+        if isinstance(x, torch.Tensor):
+            x = x.detach().sum(dtype=torch.int64)
+        _sink[name] = _sink[name] + x if name in _sink else x
+        return
     if not _recording():
         return
     if isinstance(x, torch.Tensor):
         x = x.detach().sum(dtype=torch.int64)
     _keep(_counts.setdefault(name, []), (time.time_ns(), x))
+
+
+@contextlib.contextmanager
+def counts_into(sink: Dict[str, object]):
+    """Route `count` into sink for the block, whether a profiler records or
+    not: each counter's host ints add up to an int, its tensors' sums to
+    one device tensor, read by no one.  A CUDA graph capture of the decode
+    step (`generate/decode_graph.py`) takes its counts so, and after each
+    replay hands the sink's values to `count`, whose device sums the
+    replay has rewritten."""
+    global _sink
+    before, _sink = _sink, sink
+    try:
+        yield sink
+    finally:
+        _sink = before
 
 
 def recorded(t0_ns: int, t1_ns: int) -> Dict[str, object]:
